@@ -8,27 +8,55 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. the card's name and power limit;
 2. build the SGM aggregation kernel from `smvs_tpu_torch/csrc/sgm_agg.cu`;
-3. kernel against its plain PyTorch version at the main path's shapes:
-   `aggregate_batch` on a seeded [2, 1440, 1696, 128] int16 volume (with the
-   INVALID column band of the padded main problem), `fused_pass_batch` and
-   `fused_pass`; bit-equal or fail; CUDA-event times;
-4. the main path: `bench_main.run_once(1440, 2)` once to warm up and once
-   timed, with the kernel's launch count; coverage >= 0.84 and median
-   relative error <= 1e-4 against the analytic depth.
+3. kernel rows 1-2 against their plain PyTorch versions at the rectified
+   path's shapes: `aggregate_batch` on a seeded [2, 1440, 1696, 128] int16
+   volume (with the INVALID column band of the padded main problem),
+   `fused_pass_batch` and `fused_pass`; bit-equal or fail; CUDA-event times;
+4. kernel rows 3-5 the same way at the general path's per-direction shape
+   [1440, 1440, 128]: `aggregate` and `fused_pass_bidir` (row 3),
+   `fused_pass(loop=True)` (row 4), `scan_direction` on int32 costs above
+   2^15 (row 5);
+5. the rectified main path: `bench_main.run_once(1440, 2)` once to warm up
+   and once timed, with the kernel's launch counts; coverage >= 0.84 and
+   median relative error <= 1e-4 against the analytic depth;
+6. the general-warp path: `stereo.reconstruct` at dim 1440 (128 planes,
+   range (4.0, 8.5)) on the two-view scene of tests/test_sgm.py, its plane's
+   slope per pixel scaled by 160/1440; row-3 launches > 0, coverage and
+   median relative error within the limits set from the JAX package's
+   result (`tools/jax_cpu_reference.py general`);
+7. the `smvsrecon` CLI (`smvs_tpu_torch.cli.main`) with its defaults on a
+   4-view 1280 x 1280 plane scene written as an MVE scene, whose pairs
+   rectify: exit 0, an `smvs-B0` embedding per view, the PLY, row 1-2
+   launches > 0, and the fused points' share of the pixels and median
+   relative error within the limits set from the JAX package's CLI
+   (`tools/jax_cpu_reference.py cli`);
+8. the same CLI on the plane seen by four views moving toward it, whose
+   pairs do not rectify: the chain CLI -> `reconstruct_auto_multi` ->
+   `reconstruct_auto`'s general-warp fallback -> `reconstruct` ->
+   `aggregate`, with row-3 launches > 0 and no row 1-2 launch, and limits
+   set the same way (`tools/jax_cpu_reference.py forward`).
 
-It prints one `{"kernels": [...]}` line, then as the last line
-`{"ok": true, "device": {...}}`. It imports nothing of JAX.
+The launch counts of each path are set to 0 just before it runs and read
+just after; the `launches` of each kernel row come from the path named in
+its `path` key (rows 4 and 5 have no user path). It prints one
+`{"kernels": [...]}` line with the five TPU kernel rows, then as the last
+line `{"ok": true, "device": {...}}`. It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -37,8 +65,13 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from smvs_tpu_torch import bench_main  # noqa: E402
+from smvs_tpu_torch import cli  # noqa: E402
+from smvs_tpu_torch.core import scene as sc  # noqa: E402
+from smvs_tpu_torch.core import synthetic as syn  # noqa: E402
 from smvs_tpu_torch.device import set_cuda_precision  # noqa: E402
+from smvs_tpu_torch.mesh.ply import load_ply  # noqa: E402
 from smvs_tpu_torch.sgm import cuda_agg  # noqa: E402
+from smvs_tpu_torch.sgm import stereo  # noqa: E402
 from smvs_tpu_torch.sgm.stereo import INVALID_COST  # noqa: E402
 
 # H100 SXM memory bandwidth (NVIDIA data sheet; full 700 W power limit).
@@ -49,6 +82,40 @@ PEAK_BYTES_PER_S = 3.35e12
 
 SHAPE = (2, 1440, 1696, 128)  # both SGM directions at the main path's size
 MAIN_W = 1440  # the main problem's real width; the rest is INVALID padding
+GEN_SHAPE = (1440, 1440, 128)  # one direction of the general-warp path
+
+# Limits of the general-warp path at dim 1440, from the JAX package's own
+# result on this scene at dim 720 on the CPU (coverage 0.8681, median
+# relative error 1.519e-3; PERF.md): 90% of its coverage, twice its error.
+GENERAL_MIN_COVERAGE = 0.78
+GENERAL_MAX_ERR = 3.0e-3
+# Limits of the CLI on 4 x 1280^2, from the JAX package's CLI on the same
+# configuration at dim 640 on the CPU (1,424,149 points of 4 x 640^2
+# pixels, 0.8692; median fused error 1.372e-4; PERF.md): 80% of its
+# points per pixel, three times its error.
+CLI_MIN_POINT_SHARE = 0.69
+CLI_MAX_ERR = 4.1e-4
+# Limits of the CLI on the 4 x 1280^2 forward-motion scene, set the same
+# way from the JAX package's CLI on it at dim 960 on the CPU (3,302,450
+# points, 0.8958 per pixel; median fused error 3.392e-4; PERF.md). This
+# scene's fused error grows with its size in both packages (1.8e-4 at
+# 640), so the reference is taken at the largest size run on the CPU.
+FORWARD_MIN_POINT_SHARE = 0.71
+FORWARD_MAX_ERR = 1.0e-3
+
+SOURCE = "smvs_tpu_torch/csrc/sgm_agg.cu"
+# Each row's `pl.pallas_call` and the TPU kernel it runs.
+REPLACES = {
+    "fused_pass": ("smvs_tpu/sgm/pallas_agg.py:288", "_fused_kernel"),
+    "fused_pass_batch": ("smvs_tpu/sgm/pallas_agg.py:488",
+                         "_fused_kernel_batch"),
+    "fused_pass_bidir": ("smvs_tpu/sgm/pallas_agg.py:389",
+                         "_fused_kernel_bidir"),
+    "fused_pass_loop": ("smvs_tpu/sgm/pallas_agg.py:288",
+                        "_fused_kernel_loop"),
+    "scan_direction": ("smvs_tpu/sgm/pallas_agg.py:99", "_scan_kernel"),
+}
+P1, P2 = 6, 96
 
 
 def log(msg: str) -> None:
@@ -81,6 +148,35 @@ def once_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def bound(n: int, depths: int, acc_in: bool, elem: int = 2) -> dict:
+    """Least time over ``n`` cost elements of ``elem`` bytes: the bytes
+    that must move (the cost and, for a sweep, the accumulator read once,
+    the int32 intensities read once, the result written once) at peak
+    bandwidth."""
+    bytes_moved = (elem + elem * acc_in) * n + 4 * (n // depths) + elem * n
+    return {"bound_ms": bytes_moved / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def compare(name: str, fn, plain, acc_in: bool, elem: int = 2) -> dict:
+    """Kernel against its plain version on the same inputs: bit-equal or
+    raise; then the kernel's median time. The comparison's launches are
+    not counted as any path's."""
+    got = fn()
+    torch.cuda.synchronize()
+    want, plain_ms = once_ms(plain)
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0:
+        raise RuntimeError(f"{name} differs from its plain version: {err}")
+    ms = cuda_ms(fn)
+    out = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "shape": list(got.shape),
+           **bound(got.numel(), got.shape[-1], acc_in, elem)}
+    log(f"{name} {list(got.shape)}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {out['bound_ms']:.4f} ms, bit-equal")
+    return out
+
+
 def phase_card() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -99,25 +195,13 @@ def phase_build() -> None:
     log(f"built {os.path.relpath(path)} in {time.perf_counter() - t0:.1f} s")
 
 
-def _seeded_volume():
-    g = torch.Generator(device="cuda").manual_seed(1234)
-    cost = torch.randint(0, 127, SHAPE, generator=g, device="cuda",
+def _seeded(shape, seed: int, hi: int = 127):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cost = torch.randint(0, hi, shape, generator=g, device="cuda",
                          dtype=torch.int16)
-    cost[0, :, MAIN_W:] = INVALID_COST
-    inten = torch.randint(0, 256, SHAPE[:-1], generator=g, device="cuda",
+    inten = torch.randint(0, 256, shape[:-1], generator=g, device="cuda",
                           dtype=torch.int32)
-    inten[0, :, MAIN_W:] = 0
     return cost, inten
-
-
-def bound(n: int, depths: int, acc_in: bool) -> dict:
-    """Least time over ``n`` int16 cost elements: the bytes that must move
-    (the cost and, for a sweep, the accumulator read once, the int32
-    intensities read once, the int16 result written once) at peak
-    bandwidth."""
-    bytes_moved = (2 + 2 * acc_in) * n + 4 * (n // depths) + 2 * n
-    return {"bound_ms": bytes_moved / PEAK_BYTES_PER_S * 1e3,
-            "bound_by": "bytes"}
 
 
 def check_argmin_ties(agg: torch.Tensor) -> None:
@@ -139,27 +223,22 @@ def check_argmin_ties(agg: torch.Tensor) -> None:
             f"({ties} pixels with ties)")
 
 
-def phase_kernel() -> dict:
-    cost, inten = _seeded_volume()
-    D = cost.shape[-1]
-    p1, p2 = 6, 96
+def phase_kernel_rectified() -> dict:
+    """Rows 1-2 at the rectified path's shapes."""
+    cost, inten = _seeded(SHAPE, 1234)
+    cost[0, :, MAIN_W:] = INVALID_COST
+    inten[0, :, MAIN_W:] = 0
 
-    before = cuda_agg.launches
-    got = cuda_agg.aggregate_batch(cost, inten, p1, p2)
-    torch.cuda.synchronize()
-    if cuda_agg.launches - before != 8:
-        raise RuntimeError("aggregate_batch did not launch 8 kernels")
-    want, plain_ms = once_ms(
-        lambda: cuda_agg.plain_aggregate_batch(cost, inten, p1, p2))
-    err = int((got.to(torch.int32) - want).abs().max())
-    del want
-    if err != 0:
-        raise RuntimeError(f"aggregate_batch differs from plain: {err}")
-    ms = cuda_ms(lambda: cuda_agg.aggregate_batch(cost, inten, p1, p2))
-    log(f"aggregate_batch {list(SHAPE)}: kernel {ms:.3f} ms (8 launches), "
-        f"plain {plain_ms:.1f} ms, bit-equal")
-    check_argmin_ties(got)
-    del got
+    cuda_agg.reset_launches()
+    check_argmin_ties(cuda_agg.aggregate_batch(cost, inten, P1, P2))
+    if (cuda_agg.launches["fused_pass_batch"],
+            cuda_agg.launches["fused_pass"]) != (2, 6):
+        raise RuntimeError("aggregate_batch did not launch 2 + 6 kernels")
+    agg = compare("aggregate_batch (rows 1-2, 8 launches)",
+                  lambda: cuda_agg.aggregate_batch(cost, inten, P1, P2),
+                  lambda: cuda_agg.plain_aggregate_batch(cost, inten, P1,
+                                                         P2),
+                  acc_in=False)
 
     # The two TPU entry points at the main path's sweep shapes: the
     # horizontal 1-path sweep of both problems, the 3-path sweep of one.
@@ -167,63 +246,86 @@ def phase_kernel() -> dict:
     it = inten.transpose(1, 2).contiguous()
     acc = torch.zeros_like(ct)
     acc1 = torch.zeros_like(cost[1])
-    wrappers = {}
-    for name, fn, plain in (
-            ("fused_pass_batch",
-             lambda: cuda_agg.fused_pass_batch(ct, it, acc, False, (0,),
-                                               p1, p2),
-             lambda: cuda_agg.plain_fused_pass_batch(ct, it, acc, False,
-                                                     (0,), p1, p2)),
-            ("fused_pass",
-             lambda: cuda_agg.fused_pass(cost[1], inten[1], acc1, True,
-                                         (0, 1, -1), p1, p2),
-             lambda: cuda_agg.plain_fused_pass_batch(
-                 cost[1:2], inten[1:2], torch.zeros_like(cost[1:2]), True,
-                 (0, 1, -1), p1, p2)[0])):
-        k = fn()
-        ref, ref_ms = once_ms(plain)
-        e = int((k.to(torch.int32) - ref).abs().max())
-        if e != 0:
-            raise RuntimeError(f"{name} differs from plain: {e}")
-        wrappers[name] = {"ms": cuda_ms(fn), "plain_ms": ref_ms,
-                          "max_abs_err": e, "shape": list(k.shape),
-                          **bound(k.numel(), k.shape[-1], acc_in=True)}
-        log(f"{name}: kernel {wrappers[name]['ms']:.3f} ms, plain "
-            f"{ref_ms:.1f} ms, bit-equal")
-        del k, ref
-
-    return {
-        "name": "sgm_path_kernel",
-        "route": "cuda",
-        "source": "smvs_tpu_torch/csrc/sgm_agg.cu",
-        "replaces": "smvs_tpu/sgm/pallas_agg.py:488",
-        "also_replaces": "smvs_tpu/sgm/pallas_agg.py:288",
-        "launches": None,
-        "max_abs_err": err,
-        "equals_plain": True,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        **bound(cost.numel(), D, acc_in=False),
-        "library_ms": None,
-        "shape": list(SHAPE),
-        "wrappers": wrappers,
+    rows = {
+        "fused_pass_batch": compare(
+            "fused_pass_batch (row 2)",
+            lambda: cuda_agg.fused_pass_batch(ct, it, acc, False, (0,), P1,
+                                              P2),
+            lambda: cuda_agg.plain_fused_pass_batch(ct, it, acc, False, (0,),
+                                                    P1, P2),
+            acc_in=True),
+        "fused_pass": compare(
+            "fused_pass (row 1)",
+            lambda: cuda_agg.fused_pass(cost[1], inten[1], acc1, True,
+                                        (0, 1, -1), P1, P2),
+            lambda: cuda_agg.plain_fused_pass_batch(
+                cost[1:2], inten[1:2], acc1[None], True, (0, 1, -1), P1,
+                P2)[0],
+            acc_in=True),
     }
+    for r in rows.values():
+        r["aggregate_batch"] = agg
+    return rows
 
 
-def phase_main() -> int:
+def phase_kernel_general() -> dict:
+    """Rows 3-5 at the general path's per-direction shape."""
+    cost, inten = _seeded(GEN_SHAPE, 4321)
+    acc = torch.zeros_like(cost)
+
+    cuda_agg.reset_launches()
+    cuda_agg.aggregate(cost, inten, P1, P2)
+    if cuda_agg.launches["fused_pass_bidir"] != 4:
+        raise RuntimeError("aggregate did not launch 4 kernels")
+    agg = compare("aggregate (row 3, 4 launches)",
+                  lambda: cuda_agg.aggregate(cost, inten, P1, P2),
+                  lambda: cuda_agg.plain_aggregate(cost, inten, P1, P2),
+                  acc_in=False)
+    rows = {
+        "fused_pass_bidir": compare(
+            "fused_pass_bidir (row 3)",
+            lambda: cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1),
+                                              P1, P2),
+            lambda: cuda_agg.plain_fused_pass_bidir(cost, inten, acc,
+                                                    (0, 1, -1), P1, P2),
+            acc_in=True),
+        "fused_pass_loop": compare(
+            "fused_pass(loop=True) (row 4)",
+            lambda: cuda_agg.fused_pass(cost, inten, acc, False, (0, 1, -1),
+                                        P1, P2, loop=True, xb=8),
+            lambda: cuda_agg.plain_fused_pass_batch(
+                cost[None], inten[None], acc[None], False, (0, 1, -1), P1,
+                P2)[0],
+            acc_in=True),
+    }
+    rows["fused_pass_bidir"]["aggregate"] = agg
+    # Row 5 in int32, costs above 2^15 (as the TPU kernel's tests use).
+    cost32 = cost.to(torch.int32) * 300
+    del cost, acc
+    for shift in (0, 1, -1):
+        rows["scan_direction"] = compare(
+            f"scan_direction shift {shift} (row 5)",
+            lambda: cuda_agg.scan_direction(cost32, inten, shift, P1, P2),
+            lambda: cuda_agg.plain_scan_direction(cost32, inten, shift, P1,
+                                                  P2),
+            acc_in=False, elem=4)
+    return rows
+
+
+def phase_main() -> dict:
     dim = 1440
     t0 = time.perf_counter()
     bench_main.run_once(dim, 2, device="cuda")
     log(f"warm-up run_once({dim}, 2): {time.perf_counter() - t0:.1f} s")
-    cuda_agg.launches = 0
+    cuda_agg.reset_launches()
     t_sgm, t_opt, cov, err = bench_main.run_once(dim, 2, device="cuda",
                                                  verbose=True)
-    launches = cuda_agg.launches
+    launches = dict(cuda_agg.launches)
     mps = dim * dim / 1e6 / (t_sgm + t_opt)
     log(f"run_once({dim}, 2): sgm {t_sgm:.3f} s, optimizer {t_opt:.3f} s, "
         f"{mps:.3f} MP/s, coverage {cov:.4f}, median_rel_err {err:.3e}, "
         f"kernel launches {launches}")
-    if launches <= 0:
+    if launches["fused_pass"] <= 0 or launches["fused_pass_batch"] <= 0:
         raise RuntimeError("the main path did not launch the SGM kernel")
     if not cov >= 0.84:
         raise RuntimeError(f"coverage {cov:.4f} < 0.84")
@@ -232,13 +334,154 @@ def phase_main() -> int:
     return launches
 
 
+def phase_general() -> None:
+    dim = 1440
+    slope = 0.005 * 160.0 / dim
+    scene = syn.make_two_view_scene(
+        dim=dim, rotate=False, baseline=0.25, texture="noise",
+        depth_fn=lambda i, j: 5.0 + slope * i + slope * j)
+    cm, cn = scene.cameras[1], scene.cameras[0]
+    mats = [torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in
+            (*cm.fill_reprojection(cn, dim, dim, dim, dim),
+             *cn.fill_reprojection(cm, dim, dim, dim, dim))]
+    main = torch.as_tensor(scene.images[1], device="cuda") * 255.0
+    nbr = torch.as_tensor(scene.images[0], device="cuda") * 255.0
+    opts = stereo.SGMOptions(num_steps=128)
+
+    def run():
+        depth = stereo.reconstruct(main, nbr, *mats, (4.0, 8.5), (4.0, 8.5),
+                                   opts)
+        torch.cuda.synchronize()
+        return depth
+
+    t0 = time.perf_counter()
+    run()
+    log(f"warm-up reconstruct({dim}): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_agg.reset_launches()
+    t0 = time.perf_counter()
+    depth = run()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_agg.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    depth = depth.cpu().numpy()
+    gt = scene.depths[1]
+    mask = depth > 0
+    cov = float(mask.mean())
+    err = float(np.median(np.abs(depth[mask] - gt[mask]) / gt[mask]))
+    log(f"general-warp reconstruct({dim}): {seconds:.3f} s, peak "
+        f"{peak_gb:.2f} GB, coverage {cov:.4f}, median_rel_err {err:.3e}, "
+        f"kernel launches {launches}")
+    if launches["fused_pass_bidir"] <= 0:
+        raise RuntimeError("the general path did not launch the kernel")
+    if not cov >= GENERAL_MIN_COVERAGE:
+        raise RuntimeError(f"coverage {cov:.4f} < {GENERAL_MIN_COVERAGE}")
+    if not err <= GENERAL_MAX_ERR:
+        raise RuntimeError(f"median_rel_err {err:.3e} > {GENERAL_MAX_ERR}")
+
+
+def fused_error(vertices: np.ndarray, scene, view: int = 1) -> float:
+    """Median relative depth error of fused points seen by ``view``
+    (as tests/test_cli.py reckons it)."""
+    cam = scene.cameras[view]
+    p_cam = vertices @ cam.rot.T + cam.trans
+    uv = cam.project(p_cam, scene.width, scene.height)
+    inb = (uv[:, 0] >= 0) & (uv[:, 0] < scene.width) & \
+        (uv[:, 1] >= 0) & (uv[:, 1] < scene.height) & (p_cam[:, 2] > 0)
+    xi = np.clip(uv[inb, 0].astype(int), 0, scene.width - 1)
+    yi = np.clip(uv[inb, 1].astype(int), 0, scene.height - 1)
+    gt = scene.depths[view][yi, xi]
+    ok = gt > 0
+    return float(np.median(np.abs(p_cam[inb][ok, 2] - gt[ok]) / gt[ok]))
+
+
+def phase_cli(label: str, cameras, min_share: float, max_err: float,
+              rows: tuple) -> dict:
+    """The CLI with its defaults on a 4-view 1280^2 plane scene (``cameras``
+    None: the sideways views of `make_plane_scene`); ``rows`` are the
+    kernel rows its SGM must launch."""
+    dim, n_views = 1280, 4
+    scene = syn.make_plane_scene(n_views=n_views, dim=dim, cameras=cameras)
+    with tempfile.TemporaryDirectory() as path:
+        syn.save_as_mve_scene(scene, path)
+        out = io.StringIO()
+        cuda_agg.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([path])
+        seconds = time.perf_counter() - t0
+        launches = dict(cuda_agg.launches)
+        text = out.getvalue()
+        log("\n".join(f"  {label}: " + line for line in text.splitlines()))
+        if rc != 0:
+            raise RuntimeError(f"{label}: the CLI exited with {rc}")
+        for v in sc.Scene.load(path).views:
+            if not v.has_embedding("smvs-B0"):
+                raise RuntimeError(f"{label}: view {v.view_id} has no "
+                                   "smvs-B0")
+        ps = load_ply(os.path.join(path, "smvs-B0.ply"))
+    stages = re.search(r"Stage seconds: (.*)", text).group(1)
+    share = len(ps.vertices) / (n_views * dim * dim)
+    err = fused_error(ps.vertices, scene)
+    log(f"{label} {n_views} x {dim}^2: {seconds:.3f} s ({stages}), "
+        f"{len(ps.vertices)} points ({share:.4f} per pixel), median fused "
+        f"error {err:.3e}, kernel launches {launches}")
+    for row in cuda_agg.ROWS:
+        if (launches[row] > 0) != (row in rows):
+            raise RuntimeError(f"{label}: {launches[row]} launches of "
+                               f"{row}; expected launches of {rows} only")
+    if not share >= min_share:
+        raise RuntimeError(f"{label}: {share:.4f} points per pixel < "
+                           f"{min_share}")
+    if not err <= max_err:
+        raise RuntimeError(f"{label}: median fused error {err:.3e} > "
+                           f"{max_err}")
+    return launches
+
+
 def main() -> int:
     set_cuda_precision()
     device = phase_card()
     phase_build()
-    kernel = phase_kernel()
-    kernel["launches"] = phase_main()
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    rows = phase_kernel_rectified()
+    rows.update(phase_kernel_general())
+    main_launches = phase_main()
+    phase_general()
+    phase_cli("cli", None, CLI_MIN_POINT_SHARE, CLI_MAX_ERR,
+              ("fused_pass", "fused_pass_batch"))
+    forward = phase_cli("cli forward", syn.forward_cameras(),
+                        FORWARD_MIN_POINT_SHARE, FORWARD_MAX_ERR,
+                        ("fused_pass_bidir",))
+    main_path = "bench_main.run_once(1440, 2): rectified SGM"
+    path_launches = {  # (path, launches on it)
+        "fused_pass": (main_path, main_launches["fused_pass"]),
+        "fused_pass_batch": (main_path, main_launches["fused_pass_batch"]),
+        "fused_pass_bidir": ("CLI on the forward-motion scene: general-warp"
+                             " SGM", forward["fused_pass_bidir"]),
+        "fused_pass_loop": (None, 0),  # tests only: no user path
+        "scan_direction": (None, 0),  # tests only: no user path
+    }
+    kernels = []
+    for row in cuda_agg.ROWS:
+        r = rows[row]
+        kernels.append({
+            "name": f"sgm_path_kernel via {row}",
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES[row][0],
+            "tpu_kernel": REPLACES[row][1],
+            "launches": path_launches[row][1],
+            "path": path_launches[row][0],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            **{k: v for k, v in r.items() if k not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

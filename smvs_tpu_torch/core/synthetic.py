@@ -1,17 +1,19 @@
-"""Synthetic two-view scene with analytic ground truth (numpy).
+"""Synthetic scenes with analytic ground truth (numpy).
 
-The port's own copy of `smvs_tpu/core/synthetic.py:make_two_view_scene`:
-a textured slanted plane seen from view 1, with view 0's image warped
-through the known geometry. The arithmetic is the same numpy code, so
-the images and depths are bit-equal to the JAX package's scene.
+The port's own copy of `make_two_view_scene`, `make_plane_scene` and
+`save_as_mve_scene` of `smvs_tpu/core/synthetic.py`. The arithmetic is
+the same numpy code, so the images and depths are bit-equal to the JAX
+package's scenes, and a saved scene loads in either package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
+from smvs_tpu_torch.core import scene as sc
 from smvs_tpu_torch.core.camera import Camera
 
 
@@ -122,3 +124,106 @@ def make_two_view_scene(
         width=dim,
         height=dim,
     )
+
+
+def make_plane_scene(
+    n_views: int = 3,
+    dim: int = 200,
+    plane=(0.0, 0.05, 0.1, 5.0),  # n . P = d with n = (nx, ny, 1) normalized
+    baseline: float = 0.15,
+    cameras: list[Camera] | None = None,
+) -> SyntheticScene:
+    """N views of an analytically textured world plane.
+
+    Every view's image and depth are rendered exactly (no resampling): the
+    plane ``n . P = d`` is intersected per pixel ray and shaded with a
+    smooth analytic texture. ``cameras`` renders the given views instead
+    of ``n_views`` on a sideways line (the JAX version's only layout).
+    """
+    nrm = np.array([plane[0], plane[1], 1.0])
+    nrm /= np.linalg.norm(nrm)
+    d_off = plane[3]
+
+    def texture(x, y):
+        return (
+            0.55
+            + 0.18 * np.sin(2.1 * x) * np.sin(1.7 * y)
+            + 0.12 * np.sin(5.3 * x + 1.0) * np.cos(4.1 * y)
+            + 0.08 * np.cos(9.7 * x - 2.0) * np.sin(8.3 * y + 0.7)
+        )
+
+    if cameras is None:
+        cameras = []
+        for i in range(n_views):
+            angle = 0.04 * (i - (n_views - 1) / 2)
+            ca, sa = np.cos(angle), np.sin(angle)
+            rot = np.array([[ca, 0, -sa], [0, 1, 0], [sa, 0, ca]])
+            cam_pos = np.array([baseline * (i - (n_views - 1) / 2), 0.0,
+                                0.0])
+            trans = -rot @ cam_pos
+            cameras.append(Camera(flen=1.0, rot=rot, trans=trans))
+
+    images, depths = [], []
+    xs, ys = np.meshgrid(np.arange(dim), np.arange(dim), indexing="xy")
+    for cam in cameras:
+        inv = cam.inverse_calibration(dim, dim)
+        dir_cam = np.stack(
+            [inv[0, 0] * (xs + 0.5) + inv[0, 2],
+             inv[1, 1] * (ys + 0.5) + inv[1, 2],
+             np.ones_like(xs, dtype=np.float64)], axis=-1)
+        dir_world = dir_cam @ cam.rot  # R^T d
+        C = cam.cam_position()
+        s = (d_off - nrm @ C) / (dir_world @ nrm)
+        P = C + s[..., None] * dir_world
+        depths.append(s.copy())  # z-depth: dir_cam's z-component is 1
+        images.append(texture(P[..., 0], P[..., 1]).astype(np.float32))
+    return SyntheticScene(cameras=cameras, images=images, depths=depths,
+                          width=dim, height=dim)
+
+
+def forward_cameras() -> list[Camera]:
+    """Four views moving toward the plane of `make_plane_scene`, 0.4 apart
+    with a little sideways jitter. No pair rectifies (near-forward
+    motion), so their SGM takes the general warp."""
+    centers = ((0.0, 0.0, 0.0), (0.05, 0.02, 0.4), (-0.04, 0.03, 0.8),
+               (0.02, -0.03, 1.2))
+    return [Camera(flen=1.0, rot=np.eye(3), trans=-np.asarray(c))
+            for c in centers]
+
+
+def save_as_mve_scene(scene: SyntheticScene, path: str,
+                      n_features: int = 200) -> None:
+    """Write the synthetic scene as an on-disk MVE scene (views + bundle).
+
+    Features are sampled from the last view's analytic depth and
+    back-projected to world, observed by all views: enough for bundle-based
+    view selection and SGM depth ranges.
+    """
+    views = []
+    for i, (cam, img) in enumerate(zip(scene.cameras, scene.images)):
+        v = sc.View(view_id=i, name=f"{i:03d}", camera=cam)
+        v.set_image("undistorted",
+                    np.clip(img * 255.0, 0, 255).astype(np.uint8))
+        views.append(v)
+
+    ref = len(scene.cameras) - 1
+    cam_r = scene.cameras[ref]
+    depth_r = scene.depths[ref]
+    inv = cam_r.inverse_calibration(scene.width, scene.height)
+    rng = np.random.default_rng(0)
+    feats = []
+    for _ in range(n_features):
+        x = rng.integers(5, scene.width - 5)
+        y = rng.integers(5, scene.height - 5)
+        z = depth_r[y, x]
+        if z <= 0:
+            continue
+        ray = inv @ np.array([x + 0.5, y + 0.5, 1.0])
+        p_world = cam_r.rot.T @ (ray * z - cam_r.trans)
+        feats.append(sc.Feature3D(pos=p_world, color=np.array([128, 128, 128]),
+                                  refs=list(range(len(scene.cameras)))))
+    bundle = sc.Bundle(cameras=list(scene.cameras), features=feats)
+    os.makedirs(path, exist_ok=True)
+    for i, v in enumerate(views):
+        v.path = os.path.join(path, "views", f"view_{i:04d}.mve")
+    sc.Scene(path=path, views=views, bundle=bundle).save()

@@ -1,23 +1,31 @@
-"""SGM path-cost aggregation: the CUDA kernel and its plain PyTorch twin.
+"""SGM path-cost aggregation: the CUDA kernel and its plain PyTorch twins.
 
 Port of `smvs_tpu/sgm/pallas_agg.py`. The entry points keep the JAX
-signatures and results:
+signatures and results, one for each TPU kernel:
 
-- `fused_pass` (`_fused_pass`): one sweep of ``len(shifts)`` paths over
-  an [X, L, D] int16 volume scanned along X, added to ``acc``;
-- `fused_pass_batch` (`_fused_pass_batch`): the same over [B, X, L, D];
-- `aggregate_batch`: all 8 paths of B problems, returned as int16.
+- `fused_pass` (`_fused_pass`, row 1; with ``loop=True`` row 4): one sweep
+  of ``len(shifts)`` paths over an [X, L, D] int16 volume scanned along
+  X, added to ``acc``;
+- `fused_pass_batch` (`_fused_pass_batch`, row 2): the same over
+  [B, X, L, D];
+- `fused_pass_bidir` (`_fused_pass_bidir`, row 3): the forward and the
+  backward sweep, returning ``acc`` plus both;
+- `scan_direction` (row 5): one path in one direction over an int32
+  [L, X, D] volume scanned along axis 1, returning the path cost itself;
+
+and the two 8-path sums built on them: `aggregate_batch` (B problems,
+rows 1-2, the rectified SGM) and `aggregate` (one problem, row 3, the
+general-warp SGM).
 
 For a CUDA tensor they launch the hand-written kernel of
-`csrc/sgm_agg.cu` (one launch per path and direction, eight per
-`aggregate_batch`) or raise; for a CPU tensor they run the plain version
+`csrc/sgm_agg.cu` or raise; for a CPU tensor they run the plain version
 below, the `lax.scan` recurrence of `smvs_tpu/sgm/stereo.py:aggregate` as a
-Python loop over the scan axis. The TPU's pad to multiples of 8 and its
-VMEM dispatch models are not needed: the kernel takes any H, W and
-D <= 128, the main path's plane count.
+Python loop over the scan axis. The TPU's pad to multiples of 8, its VMEM
+dispatch models and the ``xb`` blocking of row 4 are not needed: the
+kernel takes any H, W and D <= 128, the plane count of both SGM paths.
 
-``launches`` counts kernel launches (and nothing else), so a run can show
-that it went through the kernel.
+``launches`` counts kernel launches by TPU kernel row (and nothing else),
+so a run can show which kernels it went through.
 """
 
 from __future__ import annotations
@@ -37,8 +45,18 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "sgm_agg.cu")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-launches = 0  # kernel launches since import (or since a caller reset it)
+# The TPU kernels of `pallas_agg.py` by the entry point that replaces each
+# (rows 1-5 of the kernel table in PERF.md).
+ROWS = ("fused_pass", "fused_pass_batch", "fused_pass_bidir",
+        "fused_pass_loop", "scan_direction")
+launches = dict.fromkeys(ROWS, 0)  # kernel launches per row
 _lib = None
+
+
+def reset_launches() -> None:
+    """Set every row's launch count to 0."""
+    for row in ROWS:
+        launches[row] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -93,33 +111,39 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         fn = lib.sgm_agg_path
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _launch_paths(cost, inten, acc, dims, vstrides, istrides, reverse: bool,
-                  shifts: tuple, p1: int, p2: int) -> None:
-    """One kernel launch per path: ``acc += path costs`` in place."""
-    global launches
+def _launch_paths(row: str, cost, inten, out, dims, vstrides, istrides,
+                  reverse: bool, shifts: tuple, p1: int, p2: int,
+                  out_b=None) -> None:
+    """One kernel launch per path. int16 volumes: ``out += path costs`` in
+    place, and with ``out_b`` the reverse sweep in the same launch
+    (``out_b += reverse path costs``). int32 volumes: ``out = path cost``.
+    """
     fn = _library().sgm_agg_path
     B, X, L, D = dims
+    add = cost.dtype == torch.int16
     with torch.cuda.device(cost.device):
         stream = torch.cuda.current_stream(cost.device).cuda_stream
         for shift in shifts:
-            err = fn(cost.data_ptr(), inten.data_ptr(), acc.data_ptr(),
-                     B, X, L, D, *vstrides, *istrides, int(reverse),
+            err = fn(cost.data_ptr(), inten.data_ptr(), out.data_ptr(),
+                     None if out_b is None else out_b.data_ptr(),
+                     cost.element_size(), int(add), B, X, L, D, *vstrides,
+                     *istrides, 1 if out_b is None else 2, int(reverse),
                      int(shift), int(p1), int(p2), stream)
             if err != 0:
                 raise RuntimeError(f"sgm_agg_path launch failed: CUDA error "
                                    f"{err}")
-            launches += 1
+            launches[row] += 1
 
 
-def _check(cost, inten, acc, vol_ndim: int) -> None:
+def _check(cost, inten, acc, vol_ndim: int, dtype=torch.int16) -> None:
     if cost.ndim != vol_ndim or inten.ndim != vol_ndim - 1:
         raise ValueError(f"expected a {vol_ndim}-d volume and a "
                          f"{vol_ndim - 1}-d intensity, got "
@@ -133,9 +157,8 @@ def _check(cost, inten, acc, vol_ndim: int) -> None:
         if t.device != cost.device:
             raise ValueError("all tensors must be on one device")
     if cost.device.type == "cuda":
-        if cost.dtype != torch.int16 or (acc is not None
-                                         and acc.dtype != torch.int16):
-            raise TypeError("the kernel takes int16 cost and accumulator")
+        if cost.dtype != dtype or (acc is not None and acc.dtype != dtype):
+            raise TypeError(f"the kernel takes {dtype} cost and accumulator")
         if inten.dtype != torch.int32:
             raise TypeError("the kernel takes int32 intensities")
         if not (cost.is_contiguous() and inten.is_contiguous()
@@ -148,7 +171,7 @@ def _check(cost, inten, acc, vol_ndim: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch version (CPU tensors, tests, and the on-card comparison)
+# plain PyTorch versions (CPU tensors, tests, and the on-card comparison)
 
 
 def _min_plus(prev, cost, p1: int, p2a):
@@ -194,6 +217,16 @@ def plain_fused_pass_batch(cost, inten, acc, reverse: bool, shifts: tuple,
     return out
 
 
+def plain_fused_pass_bidir(cost, inten, acc, shifts: tuple, p1: int,
+                           p2: int) -> torch.Tensor:
+    """Plain version of `fused_pass_bidir`: ``acc`` plus the forward and
+    the backward paths in int32. cost/acc [X, L, D], inten [X, L]."""
+    out = plain_fused_pass_batch(cost[None], inten[None], acc[None], False,
+                                 shifts, p1, p2)
+    return plain_fused_pass_batch(cost[None], inten[None], out, True,
+                                  shifts, p1, p2)[0]
+
+
 def plain_aggregate_batch(cost, intensity, p1: int, p2: int) -> torch.Tensor:
     """Plain version of `aggregate_batch`: the 8-path sum in int32."""
     inten = intensity.to(torch.int32)
@@ -205,6 +238,23 @@ def plain_aggregate_batch(cost, intensity, p1: int, p2: int) -> torch.Tensor:
     acc = acc.transpose(1, 2)
     acc = plain_fused_pass_batch(cost, inten, acc, False, (0, 1, -1), p1, p2)
     return plain_fused_pass_batch(cost, inten, acc, True, (0, 1, -1), p1, p2)
+
+
+def plain_aggregate(cost, intensity, p1: int, p2: int) -> torch.Tensor:
+    """Plain version of `aggregate`: the 8-path sum of one [H, W, D]
+    volume in int32."""
+    return plain_aggregate_batch(cost[None], intensity[None], p1, p2)[0]
+
+
+def plain_scan_direction(cost, intensity, shift: int, p1: int, p2: int
+                         ) -> torch.Tensor:
+    """Plain version of `scan_direction`: the path cost [L, X, D] in the
+    cost's dtype."""
+    c = cost.transpose(0, 1)[None]  # [1, X, L, D]
+    it = intensity.to(cost.dtype).transpose(0, 1)[None]
+    zero = torch.zeros(c.shape, dtype=torch.int32, device=cost.device)
+    out = plain_fused_pass_batch(c, it, zero, False, (shift,), p1, p2)
+    return out[0].transpose(0, 1).to(cost.dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -219,25 +269,94 @@ def fused_pass_batch(cost: torch.Tensor, inten: torch.Tensor,
     cost/acc [B, X, L, D] int16 scanned along X; inten [B, X, L] int32.
     Returns ``acc`` plus the path costs as a new int16 tensor.
     """
+    return _fused_pass_batch(cost, inten, acc, reverse, shifts, p1, p2,
+                             "fused_pass_batch")
+
+
+def _fused_pass_batch(cost, inten, acc, reverse, shifts, p1, p2, row):
     _check(cost, inten, acc, 4)
     if cost.device.type == "cpu":
         return plain_fused_pass_batch(cost, inten, acc, reverse, shifts,
                                       p1, p2).to(torch.int16)
     B, X, L, D = cost.shape
     out = acc.clone()
-    _launch_paths(cost, inten, out, (B, X, L, D), (X * L * D, L * D, D),
-                  (X * L, L, 1), reverse, shifts, p1, p2)
+    _launch_paths(row, cost, inten, out, (B, X, L, D),
+                  (X * L * D, L * D, D), (X * L, L, 1), reverse, shifts, p1,
+                  p2)
     return out
 
 
 def fused_pass(cost: torch.Tensor, inten: torch.Tensor, acc: torch.Tensor,
-               reverse: bool, shifts: tuple, p1: int, p2: int
-               ) -> torch.Tensor:
+               reverse: bool, shifts: tuple, p1: int, p2: int,
+               loop: bool = False, xb: int = 1) -> torch.Tensor:
     """One scan sweep of ``len(shifts)`` paths over one [X, L, D] int16
-    volume scanned along X (inten [X, L] int32); returns acc + paths."""
+    volume scanned along X (inten [X, L] int32); returns acc + paths.
+
+    ``loop`` selects the TPU's `fori_loop` kernel (row 4), which computes
+    the same result; on the card both forms launch the one chain-per-warp
+    kernel, counted as row 4 when ``loop`` is set. ``xb``, that kernel's
+    scan-block size on the TPU, is taken for the JAX signature and not
+    read: the card has no counterpart.
+    """
     _check(cost, inten, acc, 3)
-    return fused_pass_batch(cost[None], inten[None], acc[None], reverse,
-                            shifts, p1, p2)[0]
+    row = "fused_pass_loop" if loop else "fused_pass"
+    return _fused_pass_batch(cost[None], inten[None], acc[None], reverse,
+                             shifts, p1, p2, row)[0]
+
+
+def fused_pass_bidir(cost: torch.Tensor, inten: torch.Tensor,
+                     acc: torch.Tensor, shifts: tuple, p1: int, p2: int
+                     ) -> torch.Tensor:
+    """Both scan directions of ``len(shifts)`` paths over one [X, L, D]
+    int16 volume scanned along X (inten [X, L] int32); returns acc plus the
+    forward and the backward paths as a new int16 tensor.
+
+    On the card: one launch per path, its forward chains adding into the
+    result and its backward chains into a second volume, added once at
+    the end.
+    """
+    _check(cost, inten, acc, 3)
+    if cost.device.type == "cpu":
+        return plain_fused_pass_bidir(cost, inten, acc, shifts, p1,
+                                      p2).to(torch.int16)
+    X, L, D = cost.shape
+    out = acc.clone()
+    _sweep_bidir(cost, inten, out, (1, X, L, D), (X * L * D, L * D, D),
+                 (X * L, L, 1), shifts, p1, p2)
+    return out
+
+
+def _sweep_bidir(cost, inten, out, dims, vstrides, istrides, shifts, p1, p2
+                 ) -> None:
+    """``out += forward and backward paths`` in place (row 3)."""
+    bwd = torch.zeros_like(out)
+    _launch_paths("fused_pass_bidir", cost, inten, out, dims, vstrides,
+                  istrides, False, shifts, p1, p2, out_b=bwd)
+    out += bwd
+
+
+def aggregate(cost: torch.Tensor, intensity: torch.Tensor, p1: int, p2: int
+              ) -> torch.Tensor:
+    """All 8 SGM paths of one cost volume [H, W, D] (values <= 255) with
+    intensities [H, W]; returns the int16 8-path sum.
+
+    Casts like the JAX entry point (cost to int16, intensity to int32).
+    On the card: four bidirectional launches (row 3), one horizontal
+    (scan along W, no transposed copy) and three vertical/diagonal.
+    """
+    cost = cost.to(torch.int16).contiguous()
+    intensity = intensity.to(torch.int32).contiguous()
+    _check(cost, intensity, None, 3)
+    if cost.device.type == "cpu":
+        return plain_aggregate(cost, intensity, p1, p2).to(torch.int16)
+    H, W, D = cost.shape
+    acc = torch.zeros_like(cost)
+    vb, ib = H * W * D, H * W
+    _sweep_bidir(cost, intensity, acc, (1, W, H, D), (vb, D, W * D),
+                 (ib, 1, W), (0,), p1, p2)
+    _sweep_bidir(cost, intensity, acc, (1, H, W, D), (vb, W * D, D),
+                 (ib, W, 1), (0, 1, -1), p1, p2)
+    return acc
 
 
 def aggregate_batch(cost: torch.Tensor, intensity: torch.Tensor, p1: int,
@@ -246,7 +365,8 @@ def aggregate_batch(cost: torch.Tensor, intensity: torch.Tensor, p1: int,
     with intensities [B, H, W]; returns the int16 8-path sum.
 
     On the card: two horizontal launches (scan along W, no transposed
-    copy) and six vertical/diagonal ones, accumulating in place.
+    copy), counted as row 2, and six vertical/diagonal ones, counted as
+    row 1, accumulating in place.
     """
     _check(cost, intensity, None, 4)
     if cost.device.type == "cpu":
@@ -255,9 +375,29 @@ def aggregate_batch(cost: torch.Tensor, intensity: torch.Tensor, p1: int,
     acc = torch.zeros_like(cost)
     vb, ib = H * W * D, H * W
     for reverse in (False, True):  # horizontal: scan x, lines are rows
-        _launch_paths(cost, intensity, acc, (B, W, H, D), (vb, D, W * D),
-                      (ib, 1, W), reverse, (0,), p1, p2)
+        _launch_paths("fused_pass_batch", cost, intensity, acc, (B, W, H, D),
+                      (vb, D, W * D), (ib, 1, W), reverse, (0,), p1, p2)
     for reverse in (False, True):  # vertical + diagonals: scan y
-        _launch_paths(cost, intensity, acc, (B, H, W, D), (vb, W * D, D),
-                      (ib, W, 1), reverse, (0, 1, -1), p1, p2)
+        _launch_paths("fused_pass", cost, intensity, acc, (B, H, W, D),
+                      (vb, W * D, D), (ib, W, 1), reverse, (0, 1, -1), p1,
+                      p2)
     return acc
+
+
+def scan_direction(cost: torch.Tensor, intensity: torch.Tensor, shift: int,
+                   p1: int, p2: int) -> torch.Tensor:
+    """One path, one direction, along axis 1 of an int32 cost [L, X, D];
+    intensity [L, X] is cast to the cost's dtype. Returns the path cost
+    [L, X, D] (not accumulated)."""
+    intensity = intensity.to(torch.int32).contiguous()
+    if shift not in (-1, 0, 1):
+        raise ValueError(f"shift must be -1, 0 or 1, got {shift}")
+    _check(cost, intensity, None, 3, dtype=torch.int32)
+    if cost.device.type == "cpu":
+        return plain_scan_direction(cost, intensity, shift, p1, p2)
+    L, X, D = cost.shape
+    out = torch.empty_like(cost)
+    _launch_paths("scan_direction", cost, intensity, out,
+                  (1, X, L, D), (L * X * D, D, X * D), (L * X, 1, X), False,
+                  (shift,), p1, p2)
+    return out

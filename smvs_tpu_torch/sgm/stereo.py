@@ -1,17 +1,21 @@
-"""Semi-global matching depth initialization, rectified path (port of
-`smvs_tpu/sgm/stereo.py`).
+"""Semi-global matching depth initialization (port of
+`smvs_tpu/sgm/stereo.py`, reference `lib/sgm_stereo.cc`).
 
 - 9x7 census transform held as one int64 word of 63 bits (the JAX
   package packs the same bits into two uint32 words);
-- per-plane census Hamming cost over fractional x-shifts of the
-  rectified neighbor, built plane group by plane group into an int16
-  volume;
-- 8-path aggregation of both SGM directions in one `cuda_agg.aggregate_batch`
-  call (the CUDA kernel on the card, its plain twin on the CPU);
-- sub-pixel WTA, bidirectional consistency and un-rectify.
+- the rectified path (`reconstruct_rectified`): per-plane census Hamming
+  cost over fractional x-shifts of the rectified neighbor, both SGM
+  directions aggregated in one `cuda_agg.aggregate_batch` call, sub-pixel
+  WTA, bidirectional consistency and un-rectify;
+- the general-warp path (`reconstruct`) for pairs that do not rectify
+  (near-forward motion): per-plane warp, bilinear sample, census and
+  Hamming cost, `cuda_agg.aggregate` per direction, WTA and the
+  reference's integer-coordinate consistency filter;
+- `reconstruct_auto` picks between the two, and `reconstruct_auto_multi`
+  averages the depth maps of several neighbors.
 
-Pairs that do not rectify (near-forward motion) take the general-warp
-path in the JAX package; that path is not ported yet and raises here.
+Cost volumes are built plane group by plane group into int16; the 8-path
+aggregation runs the CUDA kernel on the card and its plain twin on the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from smvs_tpu_torch.device import resolve_device
+from smvs_tpu_torch.image import ops as iops
 from smvs_tpu_torch.sgm import cuda_agg
 from smvs_tpu_torch.sgm import rectify as R
 
@@ -150,15 +155,155 @@ def _disparity_cost(m_census: torch.Tensor, nbr_img: torch.Tensor,
     return out
 
 
-def aggregate(cost: torch.Tensor, intensity: torch.Tensor, p1: int, p2: int
-              ) -> torch.Tensor:
-    """8-path SGM aggregation of one volume (reference `aggregate_sgm_costs`,
-    :429-667), the plain twin of the CUDA kernel.
+def _warp_fma(M: torch.Tensor, t: torch.Tensor, u, v, w):
+    """`correspondence.warp` rounded as XLA compiles it in the JAX general
+    path: the linear forms in plain float32, then ``w * form + t`` as one
+    fused multiply-add. Returns (px, py, depth) with px/py the projected
+    pixel coordinates."""
+    p = M[0, 0] * u + M[0, 1] * v + M[0, 2]
+    q = M[1, 0] * u + M[1, 1] * v + M[1, 2]
+    r = M[2, 0] * u + M[2, 1] * v + M[2, 2]
+    a = _fma(w, p, t[0])
+    b = _fma(w, q, t[1])
+    d = _fma(w, r, t[2])
+    return a / d, b / d, d
 
-    cost: [H, W, D] integer; intensity: [H, W]. Returns the int32 sum.
+
+def _bilinear_fma(img4: torch.Tensor, x: torch.Tensor, y: torch.Tensor
+                  ) -> torch.Tensor:
+    """`ops.bilinear_packed4` with each blend ``a * (1 - f) + b * f`` as
+    XLA fuses it: ``fma(b, f, a * (1 - f))``, the last one as
+    ``fma(top, 1 - fy, bot * fy)``. The census turns a one-ulp difference
+    of a sample into whole bits, so the port rounds the same way."""
+    h, w = img4.shape[0], img4.shape[1]
+    shape = x.shape
+    x0, y0, fx, fy = iops._corners(x.reshape(-1), y.reshape(-1), w, h)
+    rows = img4.reshape(h * w, 4)[y0 * w + x0]  # [M, 4]
+    top = _fma(rows[:, 1], fx, rows[:, 0] * (1 - fx))
+    bot = _fma(rows[:, 3], fx, rows[:, 2] * (1 - fx))
+    return _fma(top, 1 - fy, bot * fy).reshape(shape)
+
+
+def cost_volume(main_img: torch.Tensor, neighbor_img: torch.Tensor,
+                M: torch.Tensor, t: torch.Tensor, depths: torch.Tensor
+                ) -> torch.Tensor:
+    """Census Hamming cost volume [H, W, D] int16 of the general warp
+    (reference :193-244).
+
+    Per depth plane the main pixel centers are warped into the neighbor
+    through (M, t), the neighbor is sampled bilinearly, census-transformed
+    and matched against the main census; samples outside the neighbor get
+    INVALID_COST. Built plane group by plane group, so the temporaries
+    stay at a few hundred MB at 2 MP; float32 throughout.
     """
-    return cuda_agg.plain_aggregate_batch(cost[None], intensity[None],
-                                          p1, p2)[0]
+    h, w = main_img.shape
+    hn, wn = neighbor_img.shape
+    dev = main_img.device
+    f32 = main_img.dtype
+    M = M.to(device=dev, dtype=f32)
+    t = t.to(device=dev, dtype=f32)
+    depths = depths.to(device=dev, dtype=f32)
+    m_census = census_transform(main_img)
+    nbr_win4 = iops.pack_window4(neighbor_img)
+    u = torch.arange(w, device=dev).to(f32)[None, :] + 0.5
+    v = torch.arange(h, device=dev).to(f32)[:, None] + 0.5
+    D = depths.shape[0]
+    out = torch.empty((h, w, D), dtype=torch.int16, device=dev)
+    for c0 in range(0, D, _PLANE_CHUNK):
+        d = depths[c0 : c0 + _PLANE_CHUNK, None, None]
+        px, py, depth_n = _warp_fma(M, t, u, v, d)
+        px = px - 0.5
+        py = py - 0.5
+        ok = (depth_n > 0) & (px >= 0) & (py >= 0) & (px <= wn - 1) & \
+            (py <= hn - 1)
+        warped = torch.where(ok, _bilinear_fma(nbr_win4, px, py), 0.0)
+        cost = _hamming(m_census, census_transform(warped))
+        cost = torch.where(warped != 0, cost, INVALID_COST)
+        out[..., c0 : c0 + d.shape[0]] = cost.permute(1, 2, 0).to(torch.int16)
+    return out
+
+
+def winner_take_all(sgm_volume: torch.Tensor, intensity: torch.Tensor,
+                    depths: torch.Tensor) -> torch.Tensor:
+    """WTA depth (reference `depth_from_sgm_volume`, :274-306): rejects
+    the two lowest planes and dark pixels (< 25/255). `torch.argmin` takes
+    the first of tied minima, as `jnp.argmin` does."""
+    idx = torch.argmin(sgm_volume, dim=-1)
+    depth = depths.to(intensity.device)[idx]
+    ok = (idx >= 2) & (intensity >= 25)
+    return torch.where(ok, depth, 0.0)
+
+
+def run_sgm(main_img: torch.Tensor, neighbor_img: torch.Tensor,
+            M: torch.Tensor, t: torch.Tensor, min_depth: float,
+            max_depth: float, opts: SGMOptions) -> torch.Tensor:
+    """Single-direction SGM depth map (reference `run_sgm`, :98-124).
+
+    The cost volume is freed before the caller runs the other direction.
+    """
+    depths = torch.as_tensor(
+        depth_planes(min_depth, max_depth, opts.num_steps),
+        device=main_img.device)
+    cost = cost_volume(main_img, neighbor_img, M, t, depths)
+    agg = cuda_agg.aggregate(cost, main_img.to(torch.int32), opts.penalty1,
+                             opts.penalty2)
+    del cost
+    return winner_take_all(agg, main_img, depths)
+
+
+def consistency_filter(d_main: torch.Tensor, d_neig: torch.Tensor,
+                       M: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Bidirectional consistency (reference `reconstruct`, :64-91): zero
+    pixels whose reprojection misses the neighbor (3% border) or whose
+    depth ratio with the neighbor's estimate is < 0.8.
+
+    Like the reference (:77) and the JAX package, it warps integer pixel
+    coordinates (no +0.5) and truncates the projection to a pixel.
+    """
+    h, w = d_main.shape
+    hn, wn = d_neig.shape
+    dev = d_main.device
+    f32 = d_main.dtype
+    cut = 0.03 * max(wn, hn)
+    xs = torch.arange(w, device=dev).to(f32)[None, :]
+    ys = torch.arange(h, device=dev).to(f32)[:, None]
+    px, py, cdepth = _warp_fma(M.to(device=dev, dtype=f32),
+                               t.to(device=dev, dtype=f32), xs, ys, d_main)
+    inb = (px >= cut) & (px < wn - cut) & (py >= cut) & (py < hn - cut)
+    cx = torch.clamp(px.to(torch.int32), 0, wn - 1).to(torch.int64)
+    cy = torch.clamp(py.to(torch.int32), 0, hn - 1).to(torch.int64)
+    ndepth = d_neig[cy, cx]
+    ratio = torch.minimum(cdepth, ndepth) / torch.clamp(
+        torch.maximum(cdepth, ndepth), min=1e-20)
+    ok = (d_main > 0) & inb & (ndepth > 0) & (ratio >= 0.8)
+    return torch.where(ok, d_main, 0.0)
+
+
+def reconstruct(main_img: torch.Tensor, neighbor_img: torch.Tensor,
+                M_mn: torch.Tensor, t_mn: torch.Tensor, M_nm: torch.Tensor,
+                t_nm: torch.Tensor, range_main: tuple[float, float],
+                range_neighbor: tuple[float, float],
+                opts: SGMOptions = SGMOptions()) -> torch.Tensor:
+    """Bidirectional SGM through the general warp (reference
+    `SGMStereo::reconstruct`, :46-96).
+
+    Images are [H, W] intensities on a 0..255 scale on the device to run
+    on; (M_mn, t_mn) warps main -> neighbor, (M_nm, t_nm) the reverse.
+    Depth ranges are per-view sweep bounds.
+    """
+    d_main = run_sgm(main_img, neighbor_img, M_mn, t_mn, *range_main, opts)
+    d_neig = run_sgm(neighbor_img, main_img, M_nm, t_nm, *range_neighbor,
+                     opts)
+    return consistency_filter(d_main, d_neig, M_mn, t_mn)
+
+
+def depth_range_from_features(feature_depths: np.ndarray
+                              ) -> tuple[float, float]:
+    """SfM-feature-based sweep range (reference :669-720)."""
+    d = np.sort(np.asarray(feature_depths))
+    if d.size < 2:
+        return 0.3, 1.1
+    return float(d[0] * 0.7), float(d[(d.size * 99) // 100] * 5.0)
 
 
 def _at_plane(vol: torch.Tensor, idx: torch.Tensor, offset: int
@@ -354,25 +499,80 @@ def reconstruct_rectified(rp: R.RectifiedPair, main_img: torch.Tensor,
                                  opts.penalty2, nbr_pad=rp.nbr_pad)
 
 
+def _average_depths(acc: torch.Tensor | None, d: torch.Tensor
+                    ) -> torch.Tensor:
+    """The reference's neighbor average (`app/smvsrecon.cc:347-384`): the
+    mean where both maps see depth, else whichever does."""
+    if acc is None:
+        return d
+    both = (acc > 0) & (d > 0)
+    only2 = (acc == 0) & (d > 0)
+    return torch.where(both, (acc + d) * 0.5, torch.where(only2, d, acc))
+
+
+def reconstruct_auto_multi(cam_main, cams_nbr, main_img, nbr_imgs,
+                           range_main: tuple[float, float], ranges_nbr,
+                           opts: SGMOptions = SGMOptions(),
+                           device: str | torch.device | None = None
+                           ) -> torch.Tensor:
+    """SGM of several neighbors, averaged (reference
+    `app/smvsrecon.cc:347-384`), on ``device`` (the GPU unless ``"cpu"``):
+    `reconstruct_auto` of each pair in turn.
+
+    When every pair rectifies and the neighbor images share the main
+    image's shape, all pairs rectify onto the widest pair's neighbor
+    canvas, as the JAX package does to fuse them into one program. The
+    pad enters the neighbor's homography and the sweep, so sharing it
+    keeps the depth maps equal to the JAX package's.
+    """
+    if opts.cost_interp:
+        raise NotImplementedError(
+            "SGMOptions.cost_interp is not ported yet (ROADMAP.md queue 1)")
+    dev = resolve_device(device)
+    main_img = torch.as_tensor(main_img, device=dev)
+    nbr_imgs = [torch.as_tensor(n, device=dev) for n in nbr_imgs]
+    h, w = main_img.shape
+    pad = None
+    if all(tuple(n.shape) == (h, w) for n in nbr_imgs):
+        rps = [R.rectify_pair(cam_main, c, w, h, range_main, rn)
+               for c, rn in zip(cams_nbr, ranges_nbr)]
+        if all(rp.valid for rp in rps):
+            pad = max(rp.nbr_pad for rp in rps)
+    acc = None
+    for cam_n, nbr, rn in zip(cams_nbr, nbr_imgs, ranges_nbr):
+        acc = _average_depths(acc, reconstruct_auto(
+            cam_main, cam_n, main_img, nbr, range_main, rn, opts, dev,
+            nbr_pad=pad))
+    return acc
+
+
 def reconstruct_auto(cam_main, cam_nbr, main_img, nbr_img,
                      range_main: tuple[float, float],
                      range_nbr: tuple[float, float],
                      opts: SGMOptions = SGMOptions(),
-                     device: str | torch.device | None = None
-                     ) -> torch.Tensor:
+                     device: str | torch.device | None = None,
+                     nbr_pad: int | None = None) -> torch.Tensor:
     """Camera-level SGM entry (reference `SGMStereo::reconstruct`, :46-96).
 
-    Runs the rectified sweep on ``device`` (the GPU unless the caller
-    passes ``"cpu"``). A pair that does not rectify raises: its
-    general-warp path is queued in ROADMAP.md, not ported.
+    Runs on ``device`` (the GPU unless the caller passes ``"cpu"``): the
+    rectified sweep when the pair geometry allows it, else the general
+    warp (near-forward motion). ``nbr_pad`` fixes the rectified neighbor
+    canvas's padding (default: the pair's own).
     """
     dev = resolve_device(device)
     main_img = torch.as_tensor(main_img, device=dev)
     nbr_img = torch.as_tensor(nbr_img, device=dev)
     h, w = main_img.shape
-    rp = R.rectify_pair(cam_main, cam_nbr, w, h, range_main, range_nbr)
-    if not rp.valid:
-        raise NotImplementedError(
-            "this view pair does not rectify; the general-warp SGM path it "
-            "needs is not ported yet (ROADMAP.md queue 1)")
-    return reconstruct_rectified(rp, main_img, nbr_img, opts)
+    rp = R.rectify_pair(cam_main, cam_nbr, w, h, range_main, range_nbr,
+                        nbr_pad=nbr_pad)
+    if rp.valid:
+        return reconstruct_rectified(rp, main_img, nbr_img, opts)
+    hn, wn = nbr_img.shape
+    M_mn, t_mn = cam_main.fill_reprojection(cam_nbr, w, h, wn, hn)
+    M_nm, t_nm = cam_nbr.fill_reprojection(cam_main, wn, hn, w, h)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    return reconstruct(main_img, nbr_img, f32(M_mn), f32(t_mn), f32(M_nm),
+                       f32(t_nm), range_main, range_nbr, opts)

@@ -27,6 +27,7 @@ from smvs_tpu_torch.image import ops as tops
 from smvs_tpu_torch.pipeline import views as tviews
 from smvs_tpu_torch.surface import bicubic as tbic
 from smvs_tpu_torch.surface import state as tS
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-9  # float64 on both sides
 

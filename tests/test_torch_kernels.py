@@ -1,4 +1,5 @@
-"""The CUDA SGM aggregation kernel against its plain PyTorch version.
+"""The CUDA SGM aggregation kernel against its plain PyTorch versions,
+for every TPU kernel row it replaces.
 
 These tests need a CUDA device and skip without one. This file imports
 neither JAX nor the JAX package, so on the GPU machine it runs without
@@ -34,10 +35,11 @@ def _volume(shape, seed, device, hi=127):
                                    (3, 6, 70, 33), (1, 9, 11, 100)])
 def test_aggregate_batch_equals_plain(cuda, shape):
     cost, inten = _volume(shape, seed=sum(shape), device=cuda)
-    before = cuda_agg.launches
+    cuda_agg.reset_launches()
     got = cuda_agg.aggregate_batch(cost, inten, 6, 96)
     torch.cuda.synchronize()
-    assert cuda_agg.launches - before == 8
+    assert cuda_agg.launches["fused_pass_batch"] == 2
+    assert cuda_agg.launches["fused_pass"] == 6
     want = cuda_agg.plain_aggregate_batch(cost, inten, 6, 96)
     assert got.dtype == torch.int16
     assert torch.equal(got.to(torch.int32), want)
@@ -78,3 +80,56 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     wide, _ = _volume((1, 8, 8, 129), seed=7, device=cuda)
     with pytest.raises(ValueError):
         cuda_agg.aggregate_batch(wide, inten, 6, 96)
+
+
+@pytest.mark.parametrize("shape", [(11, 13, 16), (10, 12, 24),
+                                   (37, 53, 128), (9, 7, 40)])
+def test_aggregate_equals_plain(cuda, shape):
+    cost, inten = _volume(shape, seed=sum(shape), device=cuda)
+    cuda_agg.reset_launches()
+    got = cuda_agg.aggregate(cost, inten, 6, 96)
+    torch.cuda.synchronize()
+    assert cuda_agg.launches["fused_pass_bidir"] == 4
+    want = cuda_agg.plain_aggregate(cost, inten, 6, 96)
+    assert got.dtype == torch.int16
+    assert torch.equal(got.to(torch.int32), want)
+
+
+@pytest.mark.parametrize("shifts", [(0,), (0, 1, -1)])
+def test_fused_pass_bidir_equals_plain(cuda, shifts):
+    cost, inten = _volume((21, 34, 128), seed=8, device=cuda)
+    acc, _ = _volume((21, 34, 128), seed=9, device=cuda, hi=500)
+    got = cuda_agg.fused_pass_bidir(cost, inten, acc, shifts, 6, 96)
+    want = cuda_agg.plain_fused_pass_bidir(cost, inten, acc, shifts, 6, 96)
+    assert torch.equal(got.to(torch.int32), want)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_fused_pass_loop_equals_plain(cuda, reverse):
+    cost, inten = _volume((16, 30, 64), seed=10, device=cuda)
+    acc, _ = _volume((16, 30, 64), seed=11, device=cuda, hi=500)
+    cuda_agg.reset_launches()
+    got = cuda_agg.fused_pass(cost, inten, acc, reverse, (0, 1, -1), 6, 96,
+                              loop=True, xb=4)
+    assert cuda_agg.launches["fused_pass_loop"] == 3
+    want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None],
+                                           acc[None], reverse, (0, 1, -1),
+                                           6, 96)[0]
+    assert torch.equal(got.to(torch.int32), want)
+
+
+@pytest.mark.parametrize("shift", [0, 1, -1])
+@pytest.mark.parametrize("shape", [(13, 17, 128), (9, 11, 24)])
+def test_scan_direction_equals_plain(cuda, shift, shape):
+    """int32 costs above 2^15; the output is the path cost itself."""
+    g = torch.Generator(device="cpu").manual_seed(12 + shift)
+    cost = torch.randint(30000, 90000, shape, generator=g,
+                         dtype=torch.int32).to(cuda)
+    inten = torch.randint(0, 255, shape[:-1], generator=g,
+                          dtype=torch.int32).to(cuda)
+    cuda_agg.reset_launches()
+    got = cuda_agg.scan_direction(cost, inten, shift, 6, 96)
+    assert cuda_agg.launches["scan_direction"] == 1
+    want = cuda_agg.plain_scan_direction(cost, inten, shift, 6, 96)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)

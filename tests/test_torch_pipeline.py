@@ -21,6 +21,7 @@ from smvs_tpu.surface import state as jS
 from smvs_tpu_torch import bench_main, convert
 from smvs_tpu_torch.pipeline import optimizer as tO
 from smvs_tpu_torch.pipeline import views as tviews
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIM = 128
 

@@ -1,4 +1,5 @@
-"""The port's rectified SGM path against the JAX package, on the CPU.
+"""The port's rectified SGM path against the JAX package, on the CPU, and
+the routing of a pair that does not rectify to the general-warp path.
 
 Integer stages (census, Hamming, cost volume, aggregation, WTA index) must
 match bit for bit. The aggregation's plain twin is held against both the
@@ -18,6 +19,7 @@ from smvs_tpu_torch.core import synthetic as tsyn
 from smvs_tpu_torch.sgm import cuda_agg
 from smvs_tpu_torch.sgm import rectify as trect
 from smvs_tpu_torch.sgm import stereo as tst
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _image(h, w, seed, levels=8, zero_frac=0.05):
@@ -111,8 +113,8 @@ def test_aggregate_matches_scan_version():
     cost, inten = _volume(1, 9, 13, 16, seed=5)
     want = np.asarray(jst.aggregate(jnp.asarray(cost[0], jnp.int32),
                                     jnp.asarray(inten[0]), 6, 96))
-    got = tst.aggregate(torch.from_numpy(cost[0]), torch.from_numpy(inten[0]),
-                        6, 96)
+    got = cuda_agg.aggregate(torch.from_numpy(cost[0]),
+                             torch.from_numpy(inten[0]), 6, 96)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -149,8 +151,8 @@ def test_invalid_column_pad_is_transparent():
     """`_rectified_sgm` pads the main problem with INVALID columns to the
     neighbor canvas width; the real columns' sums must not change."""
     cost, inten = _volume(1, 10, 12, 16, seed=9)
-    plain = tst.aggregate(torch.from_numpy(cost[0]),
-                          torch.from_numpy(inten[0]), 6, 96)
+    plain = cuda_agg.plain_aggregate(torch.from_numpy(cost[0]),
+                                     torch.from_numpy(inten[0]), 6, 96)
     padded = np.full((10, 20, 16), tst.INVALID_COST, np.int16)
     padded[:, :12] = cost[0]
     ipad = np.zeros((10, 20), np.int32)
@@ -238,12 +240,42 @@ def test_reconstruct_auto_needs_a_device_or_gpu(monkeypatch):
                              (3.5, 9.5), (3.5, 9.5))
 
 
-def test_unrectifiable_pair_raises_not_implemented():
+def test_unrectifiable_pair_takes_general_path():
+    """Near-forward motion does not rectify (as in tests/test_sgm.py): the
+    pair runs the general-warp `reconstruct` and equals JAX's fallback.
+
+    Under x64 the JAX fallback warps in float64 (its matrices come from
+    float64 numpy), the port in float32, so the depth maps are held by the
+    tolerance of `test_reconstruct_auto_matches_jax_dim96`.
+    """
+    from smvs_tpu.core.camera import Camera as JCamera
     from smvs_tpu_torch.core.camera import Camera
 
-    cam0 = Camera(flen=1.0, rot=np.eye(3), trans=np.zeros(3))
-    cam1 = Camera(flen=1.0, rot=np.eye(3), trans=np.array([0.0, 0.0, -0.5]))
-    img = np.ones((32, 32), np.float32)
-    with pytest.raises(NotImplementedError, match="general-warp"):
-        tst.reconstruct_auto(cam1, cam0, img, img, (3.5, 9.5), (3.5, 9.5),
-                             device="cpu")
+    trans = np.array([0.05, 0.02, -0.4])
+    cams = (Camera(flen=1.0, rot=np.eye(3), trans=trans),
+            Camera(flen=1.0, rot=np.eye(3), trans=np.zeros(3)))
+    jcams = (JCamera(flen=1.0, rot=np.eye(3), trans=trans),
+             JCamera(flen=1.0, rot=np.eye(3), trans=np.zeros(3)))
+    rng = np.random.default_rng(11)
+    imgs = [np.repeat(np.repeat(rng.uniform(20, 230, (24, 24)), 2, 0), 2, 1)
+            .astype(np.float32) for _ in range(2)]
+    opts = tst.SGMOptions(num_steps=48)
+    assert not trect.rectify_pair(cams[0], cams[1], 48, 48, (3.5, 9.5),
+                                  (3.5, 9.5)).valid
+    got = tst.reconstruct_auto(*cams, *imgs, (3.5, 9.5), (3.5, 9.5), opts,
+                               device="cpu").numpy()
+    M_mn, t_mn = cams[0].fill_reprojection(cams[1], 48, 48, 48, 48)
+    M_nm, t_nm = cams[1].fill_reprojection(cams[0], 48, 48, 48, 48)
+    f32 = [torch.tensor(a, dtype=torch.float32)
+           for a in (M_mn, t_mn, M_nm, t_nm)]
+    direct = tst.reconstruct(*[torch.from_numpy(i) for i in imgs], *f32,
+                             (3.5, 9.5), (3.5, 9.5), opts).numpy()
+    np.testing.assert_array_equal(got, direct)
+    want = np.asarray(jst.reconstruct_auto(
+        *jcams, *[jnp.asarray(i) for i in imgs], (3.5, 9.5), (3.5, 9.5),
+        jst.SGMOptions(num_steps=48)))
+    assert (want > 0).mean() > 0.2
+    assert ((got > 0) == (want > 0)).mean() >= 0.995
+    both = (got > 0) & (want > 0)
+    close = np.abs(got[both] - want[both]) <= 1e-4 * np.abs(want[both])
+    assert close.mean() >= 0.99

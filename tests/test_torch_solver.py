@@ -26,6 +26,7 @@ from smvs_tpu_torch.solver import cg as tcg
 from smvs_tpu_torch.solver import gn as tgn
 from smvs_tpu_torch.solver import mg as tmg
 from smvs_tpu_torch.solver import stencil as tst
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-9
 

@@ -1,0 +1,131 @@
+"""Reference results of the JAX package, on the CPU, for the limits that
+`chip_smoke.py` holds the PyTorch/CUDA port to.
+
+Three configurations, each at a dimension the caller picks (the card runs
+them at 1440, 1280 and 1280; a CPU run at that size holds many GB, so the
+reference is taken at a smaller one and the script's output says which):
+
+    python tools/jax_cpu_reference.py general --dim 720
+    python tools/jax_cpu_reference.py cli --dim 640
+    python tools/jax_cpu_reference.py forward --dim 960
+
+`general`: `stereo.reconstruct` (the general-warp SGM, 128 planes, range
+(4.0, 8.5)) on the two-view scene of tests/test_sgm.py, with the plane's
+slope per pixel scaled by 160/dim so its depths stay inside the sweep
+range at any dim. Prints coverage and the median relative error against
+the analytic depth.
+
+`cli`: the `smvsrecon` CLI with its defaults (and `--batch-views 1`) on a
+4-view `make_plane_scene` written as an MVE scene. Prints the fused point
+count and the median relative error of the fused points against the
+analytic depth of view 1 (as tests/test_cli.py reckons it).
+
+`forward`: the same CLI run on the plane seen by four views moving toward
+it (`smvs_tpu_torch.core.synthetic.forward_cameras`): no pair rectifies,
+so every SGM pair takes the general warp. Both scenes are written by the
+port's numpy code, whose files and pixels equal the JAX package's.
+
+`--port` runs the PyTorch port's CLI (`--device cpu`) on the same scene
+instead, to tell a difference of the card from one of the size:
+
+    python tools/jax_cpu_reference.py forward --dim 960 --port
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+
+def general(dim: int) -> dict:
+    from smvs_tpu.core.synthetic import make_two_view_scene
+    from smvs_tpu.sgm import stereo as sgm
+
+    slope = 0.005 * 160.0 / dim
+    scene = make_two_view_scene(
+        dim=dim, rotate=False, baseline=0.25, texture="noise",
+        depth_fn=lambda i, j: 5.0 + slope * i + slope * j)
+    cm, cn = scene.cameras[1], scene.cameras[0]
+    M_mn, t_mn = cm.fill_reprojection(cn, dim, dim, dim, dim)
+    M_nm, t_nm = cn.fill_reprojection(cm, dim, dim, dim, dim)
+    mats = [jnp.asarray(a, jnp.float32) for a in (M_mn, t_mn, M_nm, t_nm)]
+    t0 = time.perf_counter()
+    depth = np.asarray(sgm.reconstruct(
+        jnp.asarray(scene.images[1] * np.float32(255.0)),
+        jnp.asarray(scene.images[0] * np.float32(255.0)), *mats,
+        (4.0, 8.5), (4.0, 8.5), sgm.SGMOptions(num_steps=128)))
+    seconds = time.perf_counter() - t0
+    gt = scene.depths[1]
+    mask = depth > 0
+    rel = np.abs(depth[mask] - gt[mask]) / gt[mask]
+    return {"coverage": float(mask.mean()),
+            "median_rel_err": float(np.median(rel)),
+            "cpu_seconds": seconds}
+
+
+def fused_error(vertices: np.ndarray, scene, view: int = 1) -> float:
+    """Median relative depth error of fused points seen by ``view``."""
+    cam = scene.cameras[view]
+    p_cam = vertices @ cam.rot.T + cam.trans
+    uv = cam.project(p_cam, scene.width, scene.height)
+    inb = (uv[:, 0] >= 0) & (uv[:, 0] < scene.width) & \
+        (uv[:, 1] >= 0) & (uv[:, 1] < scene.height) & (p_cam[:, 2] > 0)
+    xi = np.clip(uv[inb, 0].astype(int), 0, scene.width - 1)
+    yi = np.clip(uv[inb, 1].astype(int), 0, scene.height - 1)
+    gt = scene.depths[view][yi, xi]
+    ok = gt > 0
+    return float(np.median(np.abs(p_cam[inb][ok, 2] - gt[ok]) / gt[ok]))
+
+
+def cli(dim: int, forward: bool = False, port: bool = False) -> dict:
+    from smvs_tpu import cli as smvs_cli
+    from smvs_tpu.mesh.ply import load_ply
+    from smvs_tpu_torch import cli as port_cli
+    # The port's numpy scene code: bit-equal to the JAX package's scenes,
+    # and it also places the forward-motion cameras.
+    from smvs_tpu_torch.core.synthetic import (forward_cameras,
+                                               make_plane_scene,
+                                               save_as_mve_scene)
+
+    scene = make_plane_scene(n_views=4, dim=dim, cameras=forward_cameras()
+                             if forward else None)
+    with tempfile.TemporaryDirectory() as path:
+        save_as_mve_scene(scene, path)
+        t0 = time.perf_counter()
+        rc = port_cli.main([path, "--device", "cpu"]) if port else \
+            smvs_cli.main([path, "--platform", "cpu", "--batch-views", "1"])
+        seconds = time.perf_counter() - t0
+        ps = load_ply(os.path.join(path, "smvs-B0.ply"))
+    return {"rc": rc, "points": int(len(ps.vertices)),
+            "median_fused_rel_err": fused_error(ps.vertices, scene),
+            "cpu_seconds": seconds}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("config", choices=("general", "cli", "forward"))
+    ap.add_argument("--dim", type=int, required=True)
+    ap.add_argument("--port", action="store_true",
+                    help="run the PyTorch port's CLI instead (cli, forward)")
+    args = ap.parse_args(argv)
+    out = general(args.dim) if args.config == "general" else \
+        cli(args.dim, forward=args.config == "forward", port=args.port)
+    print(json.dumps({"config": args.config, "dim": args.dim,
+                      "package": "smvs_tpu_torch" if args.port
+                      else "smvs_tpu", "device": "cpu", **out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
