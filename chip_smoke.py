@@ -7,11 +7,12 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. the card's name and power limit;
-2. build the SGM aggregation kernel from `smvs_tpu_torch/csrc/sgm_agg.cu`;
+2. build the SGM aggregation kernels from `smvs_tpu_torch/csrc/sgm_agg.cu`;
 3. kernel rows 1-2 against their plain PyTorch versions at the rectified
    path's shapes: `aggregate_batch` on a seeded [2, 1440, 1696, 128] int16
-   volume (with the INVALID column band of the padded main problem),
-   `fused_pass_batch` and `fused_pass`; bit-equal or fail; CUDA-event times;
+   volume (with the INVALID column band of the padded main problem; 2 + 2
+   launches), `fused_pass_batch` and `fused_pass`; bit-equal or fail, on
+   the first run and on every timed repetition; CUDA-event times;
 4. kernel rows 3-5 the same way at the general path's per-direction shape
    [1440, 1440, 128]: `aggregate` and `fused_pass_bidir` (row 3),
    `fused_pass(loop=True)` (row 4), `scan_direction` on int32 costs above
@@ -39,8 +40,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
 The launch counts of each path are set to 0 just before it runs and read
 just after; the `launches` of each kernel row come from the path named in
 its `path` key (rows 4 and 5 have no user path). It prints one
-`{"kernels": [...]}` line with the five TPU kernel rows, then as the last
-line `{"ok": true, "device": {...}}`. It imports nothing of JAX.
+`{"kernels": [...]}` line with the five TPU kernel rows, each naming the
+CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
+`sgm_path_kernel` for rows 2, 3 and 5), then as the last line
+`{"ok": true, "device": {...}}`. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -115,6 +118,11 @@ REPLACES = {
                         "_fused_kernel_loop"),
     "scan_direction": ("smvs_tpu/sgm/pallas_agg.py:99", "_scan_kernel"),
 }
+# The CUDA kernel that serves each row.
+KERNEL = {row: "sgm_path_kernel" for row in REPLACES}
+KERNEL.update(fused_pass="sgm_sweep3_kernel",
+              fused_pass_loop="sgm_sweep3_kernel")
+REPS = 10  # timed repetitions of each kernel, each checked bit-equal
 P1, P2 = 6, 96
 
 
@@ -122,18 +130,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up."""
-    fn()
+def cuda_ms(fn, check, reps: int = REPS) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up;
+    ``check`` is called on the warm-up's and every timed run's result,
+    after its time is taken."""
+    check(fn())
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+        check(out)
     return statistics.median(times)
 
 
@@ -160,20 +171,31 @@ def bound(n: int, depths: int, acc_in: bool, elem: int = 2) -> dict:
 
 def compare(name: str, fn, plain, acc_in: bool, elem: int = 2) -> dict:
     """Kernel against its plain version on the same inputs: bit-equal or
-    raise; then the kernel's median time. The comparison's launches are
-    not counted as any path's."""
+    raise; then the kernel's median time, each timed run bit-equal to the
+    first (a race shows as a rare run-to-run mismatch). The comparison's
+    launches are not counted as any path's."""
     got = fn()
     torch.cuda.synchronize()
     want, plain_ms = once_ms(plain)
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if err != 0:
         raise RuntimeError(f"{name} differs from its plain version: {err}")
-    ms = cuda_ms(fn)
+    del want
+    runs = [1]
+
+    def check(out):
+        if not torch.equal(out, got):
+            raise RuntimeError(f"{name}: run {runs[0] + 1} differs from "
+                               "the first, which matched the plain version")
+        runs[0] += 1
+
+    ms = cuda_ms(fn, check)
     out = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-           "shape": list(got.shape),
+           "bit_equal_runs": runs[0], "shape": list(got.shape),
            **bound(got.numel(), got.shape[-1], acc_in, elem)}
     log(f"{name} {list(got.shape)}: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms, bound {out['bound_ms']:.4f} ms, bit-equal")
+        f"{plain_ms:.1f} ms, bound {out['bound_ms']:.4f} ms, bit-equal in "
+        f"{runs[0]} runs")
     return out
 
 
@@ -193,6 +215,9 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     path = cuda_agg.build(verbose=True)
     log(f"built {os.path.relpath(path)} in {time.perf_counter() - t0:.1f} s")
+    tile, _, resident = cuda_agg.sweep_geometry(torch.device("cuda", 0), 128)
+    log(f"sgm_sweep3_kernel at D = 128: {tile} lines per block, {resident} "
+        "blocks resident at once")
 
 
 def _seeded(shape, seed: int, hi: int = 127):
@@ -232,9 +257,9 @@ def phase_kernel_rectified() -> dict:
     cuda_agg.reset_launches()
     check_argmin_ties(cuda_agg.aggregate_batch(cost, inten, P1, P2))
     if (cuda_agg.launches["fused_pass_batch"],
-            cuda_agg.launches["fused_pass"]) != (2, 6):
-        raise RuntimeError("aggregate_batch did not launch 2 + 6 kernels")
-    agg = compare("aggregate_batch (rows 1-2, 8 launches)",
+            cuda_agg.launches["fused_pass"]) != (2, 2):
+        raise RuntimeError("aggregate_batch did not launch 2 + 2 kernels")
+    agg = compare("aggregate_batch (rows 1-2, 4 launches)",
                   lambda: cuda_agg.aggregate_batch(cost, inten, P1, P2),
                   lambda: cuda_agg.plain_aggregate_batch(cost, inten, P1,
                                                          P2),
@@ -465,7 +490,7 @@ def main() -> int:
     for row in cuda_agg.ROWS:
         r = rows[row]
         kernels.append({
-            "name": f"sgm_path_kernel via {row}",
+            "name": f"{KERNEL[row]} via {row}",
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES[row][0],

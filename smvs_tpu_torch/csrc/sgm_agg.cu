@@ -1,7 +1,7 @@
 // SGM path-cost aggregation on Hopper (sm_90a), bound with ctypes from
-// smvs_tpu_torch/sgm/cuda_agg.py.
+// smvs_tpu_torch/sgm/cuda_agg.py. Two kernels.
 //
-// Replaces all five TPU kernels of smvs_tpu/sgm/pallas_agg.py:
+// They replace the five TPU kernels of smvs_tpu/sgm/pallas_agg.py:
 //   1. _fused_kernel, reached through _fused_pass (pallas_agg.py:137-194,
 //      call at :288): one forward or reverse sweep of 1 path (straight) or
 //      3 paths (straight and both diagonals) added into an accumulator;
@@ -16,6 +16,7 @@
 //   5. _scan_kernel, reached through scan_direction (pallas_agg.py:40-117,
 //      call at :99): one path in one direction over an int32 [L, X, D]
 //      volume scanned along axis 1, written out (not accumulated).
+// sgm_sweep3_kernel serves rows 1 and 4; sgm_path_kernel rows 2, 3 and 5.
 //
 // Recurrence, per line and depth d (int32 arithmetic):
 //   new[d] = cost[d] + min(prev[d], prev[d-1] + P1, prev[d+1] + P1,
@@ -24,47 +25,83 @@
 // A path restarts from the raw cost at the start of the scan and, for a
 // diagonal, where it enters through the border line.
 //
-// Design. One warp walks one chain of one problem along the scan axis:
-// a straight chain is a line; a diagonal chain walks (x, l0 + s*k) from
-// x = 0 or from the border line where the TPU kernel forced BIG (which
-// makes the update return the raw cost), so no two blocks ever share a
-// carried line and no cross-block synchronisation is needed. The D depths
-// of a position sit in registers across the 32 lanes (K = ceil(D/32) per
-// lane, 4 at D = 128); prev[d +- 1] across lanes come from
-// __shfl_up/down_sync and min(prev) from a butterfly reduction. Depths
-// d >= D hold BIG and take no part in a neighbour; costs stay below
-// BIG - P2, so they never win a min either. P2a is computed in the kernel
-// from the int32 intensities of the current and the previous chain
-// position. Each launch handles one path, in one direction (rows 1, 2, 4,
-// 5) or in both (row 3: the first half of the warps walks forward and
-// read-modify-writes `out_f`, the second half walks backward into the
-// separate `out_b`, so the two never touch one element; the caller adds
-// `out_b` into `out_f` once after the last path). Chains of one launch are
-// disjoint, so no atomics. The storage type is a template parameter:
-// int16 for rows 1-4, int32 for row 5, whose costs exceed int16. Rows 1-4
-// add into their output, row 5 writes the path cost itself. The next
-// position's cost and accumulator are loaded one step ahead, since they do
-// not depend on the recurrence. Scan, line and problem strides are
-// arguments, so a horizontal sweep, and row 5's scan along axis 1, need no
-// transposed copy.
+// Both kernels hold the D depths of a line in registers across the 32
+// lanes of a warp (K = ceil(D/32) per lane, 4 at D = 128); prev[d +- 1]
+// across lanes come from __shfl_up/down_sync and min(prev) from a
+// butterfly reduction. Depths d >= D hold BIG and take no part in a
+// neighbour; costs stay below BIG - P2, so they never win a min either.
+// P2a is computed in the kernel from the int32 intensities of the current
+// and the previous position on the path. Scan, line and problem strides
+// are arguments, so a horizontal sweep, and row 5's scan along axis 1,
+// need no transposed copy.
 //
-// Bound on the H100 (3.35 TB/s): one aggregate_batch at the main path's
-// shape, B=2 x 1440 x 1696 x 128, must read the int16 cost volume once
-// (1.25 GB) and write the int16 8-path sum once (1.25 GB): 2.5 GB, 0.75 ms.
+// sgm_path_kernel: one warp walks one chain of one path: a straight chain
+// is a line; a diagonal chain walks (x, l0 + s*k) from x = 0 or from the
+// border line, so no two warps share a carried line and no
+// synchronisation is needed. One launch per path, in one direction (rows
+// 2, 5) or in both (row 3: the first half of the warps walks forward and
+// read-modify-writes `out_f`, the second half walks backward into the
+// separate `out_b`; the caller adds `out_b` into `out_f` once after the
+// last path). Storage is a template parameter: int16 for rows 2-3, int32
+// for row 5, whose costs exceed int16; rows 2-3 add into their output,
+// row 5 writes the path cost itself. The next position's cost and
+// accumulator are loaded one step ahead, since they do not depend on the
+// recurrence.
+//
+// sgm_sweep3_kernel: one cooperative launch per sweep carries the
+// straight path and both diagonals at once, so each position's cost and
+// accumulator are read once and the accumulator written once for all
+// three paths. Block (b, tile) owns kTile consecutive lines of problem b,
+// one warp per line, and walks the scan axis:
+// - Loads. A ring of kStages scan positions in shared memory is filled by
+//   cp.async kStages - 1 steps ahead: each line's cost and accumulator and
+//   the tile's intensities (with the line past each end, for the
+//   diagonals' P2a). One __syncthreads() per step publishes a stage to the
+//   whole block and frees the stage read at the previous step.
+// - Inside the block. The straight line stays in the warp's registers. A
+//   diagonal's line at step t is read by the next (+1) or the previous
+//   (-1) line at step t + 1, so each warp writes its new diagonal lines to
+//   a shared buffer indexed by step parity; the same barrier lets its
+//   neighbours read them at the next step, and the other parity slot is
+//   not written again until every warp has passed it.
+// - Across blocks. The warp of the first line writes its -1 line and the
+//   warp of the last line its +1 line into a two-slot (parity) edge buffer
+//   in device memory, each depth's value in one 64-bit word with the step
+//   that wrote it. At the next step those warps read their neighbours'
+//   edge lines (at device scope, around L1, which is not coherent across
+//   SMs) until every word carries the previous step, and copy them into
+//   the shared buffer's end rows. A word read whole holds the value of the
+//   step it carries, so the hand-off needs no fence and no flag. Every
+//   edge warp reads before it writes within a step and trades in both
+//   directions whenever a diagonal runs (a dummy line for an absent one),
+//   so a block writes slot t again at step t + 2 only after its neighbour
+//   has finished step t + 1, which read it. The waits need every block
+//   resident at once: the cooperative launch fails, rather than hangs, if
+//   the grid is too large, and the wrapper splits B into launches that
+//   fit. A ragged last tile's idle warps stay in the loop and reach every
+//   barrier.
+// - Arithmetic. min(prev) across the warp is one redux.sync instruction,
+//   and P2a comes from a table of its 256 values for |dI| < 256 (a
+//   division above), where sgm_path_kernel shuffles and divides.
+//
+// Bound on the H100 (3.35 TB/s). One vertical sweep at the main path's
+// shape, B=2 x 1440 x 1696 x 128 int16, must read the cost and the
+// accumulator and write the accumulator once (3.75 GB) and read the int32
+// intensities once (0.02 GB): 1.126 ms, 0.563 ms for one problem. One
+// launch per path moves each of those bytes three times; this kernel moves
+// them once, plus per step and block two edge lines of 1 KB through L2.
 // NVIDIA's data sheet gives no peak rate for integer min and add work, so
-// the bound is the bytes. That work is of the same order: at least about 3
-// instructions per element and path in Hopper's 16x2 DPX forms (path costs
-// fit in 16 bits), 16 G for the 8 paths, 0.5 to 1 ms at one or two such
-// instructions per int32 lane (64 per SM) and clock. This kernel issues
-// about 10 int32 instructions per element and path (about 3 ms at one per
-// lane and clock), and it reads the cost and reads and writes the
-// accumulator in each of the 8 launches (30 GB, about 9 ms at peak
-// bandwidth): it trades 12x the bytes for one carried line per warp and no
-// shared memory. Row 3 halves the launches of a single-problem aggregate
-// (4 instead of 8) and doubles the chains in flight per launch, at the
-// cost of one extra int16 volume and one elementwise add per sweep.
-// Fusing the 3 paths of a vertical sweep into one launch is the next step
-// towards the bound.
+// the bound is the bytes. That work is of the same order: about 3
+// instructions per element and path in Hopper's 16x2 DPX forms, 16 G for
+// the 8 paths of aggregate_batch, 0.5 to 1 ms at one or two per int32 lane
+// and clock; these kernels issue about 10 int32 instructions per element
+// and path. Measured (PERF.md, tools/sweep_pace.py), the sweep kernel is
+// paced neither by the bytes nor by the hand-off but by the work of one
+// step inside a block: a dependent chain per path and a barrier, with 16
+// warps per SM; a deeper ring does not help. The horizontal sweep (row 2)
+// still runs one path per launch over a chain per warp; row 3 halves the
+// launches of a single-problem aggregate at the cost of one extra int16
+// volume and add per sweep.
 
 #include <cuda_runtime.h>
 
@@ -73,7 +110,10 @@
 namespace {
 
 constexpr int kBig = 1 << 24;
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;   // sgm_path_kernel
+constexpr int kTile = 16;           // lines (one warp each) per sweep block
+constexpr int kEdge = 128;          // words per edge line (32 lanes x K <= 4)
+constexpr int kStages = 4;          // scan positions in a sweep block's ring
 constexpr unsigned kFull = 0xffffffffu;
 
 // Loads depths [d0, d0 + K) of one position; depths >= D read as 0.
@@ -143,7 +183,112 @@ __device__ __forceinline__ void store_k(T* p, const int (&v)[K], int d0, int D,
     if (d0 + k < D) p[k] = static_cast<T>(v[k]);
 }
 
-// kAdd: out += path (rows 1-4); otherwise out = path (row 5).
+// One step of the recurrence for depths [d0, d0 + K) of a line:
+// nv = cur + min(prev, prev[d+-1] + P1, min(prev) + P2a) - min(prev).
+// kRedux: min(prev) across the warp in one redux.sync instruction instead
+// of a shuffle butterfly.
+template <int K, bool kRedux = false>
+__device__ __forceinline__ void min_plus(const int (&prev)[K],
+                                         const int (&cur)[K], int lane,
+                                         int p1, int p2a, int (&nv)[K]) {
+  int m = prev[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) m = min(m, prev[k]);
+  if constexpr (kRedux) {
+    m = __reduce_min_sync(kFull, m);
+  } else {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = min(m, __shfl_xor_sync(kFull, m, o));
+  }
+  int left = __shfl_up_sync(kFull, prev[K - 1], 1);    // prev[d0 - 1]
+  int right = __shfl_down_sync(kFull, prev[0], 1);     // prev[d0 + K]
+  if (lane == 0) left = kBig;
+  if (lane == 31) right = kBig;
+  const int mp = m + p2a;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int dn = k == 0 ? left : prev[k - 1];
+    const int up = k == K - 1 ? right : prev[k + 1];
+    const int upd = min(min(prev[k], min(up, dn) + p1), mp);
+    nv[k] = cur[k] + upd - m;
+  }
+}
+
+// Depths [d0, d0 + K) of a carried line in shared memory.
+template <int K>
+__device__ __forceinline__ void load_line(const int* p, int (&v)[K]) {
+  if constexpr (K == 4) {
+    const int4 s = *reinterpret_cast<const int4*>(p);
+    v[0] = s.x;
+    v[1] = s.y;
+    v[2] = s.z;
+    v[3] = s.w;
+  } else if constexpr (K == 2) {
+    const int2 s = *reinterpret_cast<const int2*>(p);
+    v[0] = s.x;
+    v[1] = s.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = p[k];
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_line(int* p, const int (&v)[K]) {
+  if constexpr (K == 4) {
+    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (K == 2) {
+    *reinterpret_cast<int2*>(p) = make_int2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) p[k] = v[k];
+  }
+}
+
+// An edge line in device memory holds each depth's value with the scan
+// step that wrote it in one 64-bit word (step << 32 | value), written and
+// read whole at device scope, so a reader that sees the step it waits for
+// has the value of that step: no fence and no separate flag.
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.relaxed.gpu.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+template <int K>
+__device__ __forceinline__ void publish_edge(unsigned long long* p,
+                                             unsigned step,
+                                             const int (&v)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    store_relaxed(p + k, static_cast<unsigned long long>(step) << 32 |
+                             static_cast<unsigned>(v[k]));
+}
+
+// Reads this lane's depths of an edge line until the whole warp sees them
+// all tagged with `step`.
+template <int K>
+__device__ __forceinline__ void poll_edge(const unsigned long long* p,
+                                          unsigned step, int (&v)[K]) {
+  bool ok;
+  do {
+    ok = true;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const unsigned long long e = load_relaxed(p + k);
+      v[k] = static_cast<int>(static_cast<unsigned>(e));
+      ok = ok && static_cast<unsigned>(e >> 32) == step;
+    }
+  } while (!__all_sync(kFull, ok));
+}
+
+// kAdd: out += path (rows 2-3); otherwise out = path (row 5).
 template <typename T, int K, bool kAdd>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     sgm_path_kernel(const T* __restrict__ cost,
@@ -214,24 +359,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       for (int k = 0; k < K; ++k) nv[k] = cur[k];
       first = false;
     } else {
-      int m = prev[0];
-#pragma unroll
-      for (int k = 1; k < K; ++k) m = min(m, prev[k]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = min(m, __shfl_xor_sync(kFull, m, o));
-      int left = __shfl_up_sync(kFull, prev[K - 1], 1);    // prev[d0 - 1]
-      int right = __shfl_down_sync(kFull, prev[0], 1);     // prev[d0 + K]
-      if (lane == 0) left = kBig;
-      if (lane == 31) right = kBig;
-      const int p2a = max(p2min, p2 / (abs(it - prev_i) + 1));
-      const int mp = m + p2a;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int dn = k == 0 ? left : prev[k - 1];
-        const int up = k == K - 1 ? right : prev[k + 1];
-        const int upd = min(min(prev[k], min(up, dn) + p1), mp);
-        nv[k] = cur[k] + upd - m;
-      }
+      min_plus<K>(prev, cur, lane, p1,
+                  max(p2min, p2 / (abs(it - prev_i) + 1)), nv);
     }
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -297,12 +426,267 @@ cudaError_t launch_k(const void* cost, const void* inten, void* out_f,
   }
 }
 
+// Shared memory of a sweep block: the new diagonal lines by step parity,
+// and a ring of kStages scan positions (each line's cost and accumulator,
+// and the intensities of the tile's lines and the one line past each end).
+// Row w + 1 of `diag` is warp w's line; rows 0 and kTile + 1 hold the
+// neighbouring blocks' edge lines, which the edge warps copy in.
+template <int K>
+struct SweepSmem {
+  int diag[2][2][kTile + 2][32 * K];          // [parity][+1, -1][row][d]
+  int16_t line[kStages][kTile][2][32 * K];    // [stage][warp][cost, acc][d]
+  int inten[kStages][kTile + 2];              // lines l0 - 1 .. l0 + kTile
+  int p2a[256];                               // P2a by |dI| below 256
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most kStages - 2 of this thread's copy groups are pending.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 2) : "memory");
+}
+
+// One sweep of the paths selected by `paths` (bit 0: straight, bit 1: +1,
+// bit 2: -1) over B int16 problems, out += paths in place. Block
+// (b, tile) owns lines [tile * kTile, tile * kTile + kTile) of problem b,
+// warp w line tile * kTile + w. edge: [B, tiles, parity, (+1, -1), kEdge]
+// tagged words, all -1 before the launch. async16: every line's depth run
+// is 16-byte aligned and D % 8 == 0, so the ring is filled by cp.async in
+// 16-byte pieces; otherwise by plain loads.
+template <int K>
+__global__ void __launch_bounds__(kTile * 32, 2)
+    sgm_sweep3_kernel(const int16_t* __restrict__ cost,
+                      const int32_t* __restrict__ inten,
+                      int16_t* __restrict__ out,
+                      unsigned long long* __restrict__ edge, int X, int L,
+                      int D, long long vb, long long vx, long long vl,
+                      long long ib, long long ix, long long il, int reverse,
+                      int paths, int p1, int p2, bool vec, bool async16) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SweepSmem<K>& sm = *reinterpret_cast<SweepSmem<K>*>(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int tiles = (L + kTile - 1) / kTile;
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const int l = tile * kTile + w;
+  const bool active = l < L;
+  const int last = min(kTile, L - tile * kTile) - 1;  // warp of the last line
+  const bool straight = paths & 1, plus = paths & 2, minus = paths & 4;
+  const bool diag = plus || minus;
+  // The edge warps trade with the neighbouring blocks whenever a diagonal
+  // runs, in both directions even if one diagonal is absent: a block reads
+  // its neighbour's edge of step t - 1 before it writes its own of step t,
+  // so it cannot overwrite a slot (step parity) that the neighbour has not
+  // read yet.
+  const bool left = diag && w == 0 && tile > 0;
+  const bool right = diag && w == last && tile + 1 < tiles;
+  const int d0 = lane * K;
+  const int p2min = p1 * 3 / 2;
+  const int16_t* cb = cost + b * vb;
+  int16_t* ob = out + b * vb;
+  const int32_t* ibase = inten + b * ib;
+  // Edge line (tile, parity, direction 0: +1 of the last line, 1: -1 of
+  // the first line), this lane's depths.
+  auto edge_line = [&](int tl, int par, int dir) {
+    return edge + ((static_cast<long long>(b) * tiles + tl) * 4 + par * 2 +
+                   dir) * kEdge + d0;
+  };
+
+  // Fill the ring stage of scan step s, kStages - 1 steps ahead of its
+  // use; one copy group per step, empty past the end.
+  auto fill = [&](int s) {
+    if (s < X) {
+      const int q = s % kStages;
+      const int xs = reverse ? X - 1 - s : s;
+      if (active) {
+        const long long go = xs * vx + l * vl;
+        int16_t* rc = sm.line[q][w][0];
+        int16_t* ra = sm.line[q][w][1];
+        if (async16) {
+          const int chunks = D / 8;
+          for (int c = lane; c < 2 * chunks; c += 32) {
+            if (c < chunks)
+              cp_async16(rc + c * 8, cb + go + c * 8);
+            else
+              cp_async16(ra + (c - chunks) * 8, ob + go + (c - chunks) * 8);
+          }
+        } else {
+          for (int d = lane; d < D; d += 32) {
+            rc[d] = cb[go + d];
+            ra[d] = ob[go + d];
+          }
+        }
+      }
+      const int li = tile * kTile - 1 + lane;
+      if (w == 0 && lane < kTile + 2 && li >= 0 && li < L)
+        cp_async4(&sm.inten[q][lane], ibase + xs * ix + li * il);
+    }
+    cp_async_commit();
+  };
+
+  for (int s = 0; s < kStages - 1; ++s) fill(s);
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    sm.p2a[i] = max(p2min, p2 / (i + 1));
+  cp_async_wait_ring();
+  __syncthreads();
+  // P2a of an intensity step; |dI| is the same across the warp.
+  auto p2a_of = [&](int i_cur, int i_prev) {
+    const int d = abs(i_cur - i_prev);
+    return d < 256 ? sm.p2a[d] : max(p2min, p2 / (d + 1));
+  };
+
+  int prev[K];  // the straight path's line
+  // I at the previous position of lines l, l - 1 and l + 1.
+  int prev_i = 0, prev_il = 0, prev_ir = 0;
+  for (int t = 0; t < X; ++t) {
+    fill(t + kStages - 1);  // into the stage read at step t - 1
+    const int q = t % kStages;
+    const int par = t & 1;
+    const int pp = par ^ 1;
+    if (active) {
+      int cur[K], av[K], nv[K], nb[K];
+      if (t > 0) {  // the neighbours' edge lines of step t - 1
+        if (left) {
+          poll_edge<K>(edge_line(tile - 1, pp, 0), t - 1, nb);
+          store_line<K>(&sm.diag[pp][0][0][d0], nb);
+        }
+        if (right) {
+          poll_edge<K>(edge_line(tile + 1, pp, 1), t - 1, nb);
+          store_line<K>(&sm.diag[pp][1][kTile + 1][d0], nb);
+        }
+      }
+      load_k<int16_t, K>(sm.line[q][w][0] + d0, cur, d0, D, true);
+      load_k<int16_t, K>(sm.line[q][w][1] + d0, av, d0, D, true);
+      const int it = sm.inten[q][w + 1];
+      if (straight) {
+        if (t == 0) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) nv[k] = cur[k];
+        } else {
+          min_plus<K, true>(prev, cur, lane, p1, p2a_of(it, prev_i), nv);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (d0 + k >= D) nv[k] = kBig;
+          prev[k] = nv[k];
+          av[k] += nv[k];
+        }
+      }
+      if (plus) {  // line l continues line l - 1
+        if (t == 0 || l == 0) {  // restart: scan start, or the border line
+#pragma unroll
+          for (int k = 0; k < K; ++k) nv[k] = cur[k];
+        } else {
+          load_line<K>(&sm.diag[pp][0][w][d0], nb);  // line l - 1
+          min_plus<K, true>(nb, cur, lane, p1, p2a_of(it, prev_il), nv);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (d0 + k >= D) nv[k] = kBig;
+          av[k] += nv[k];
+        }
+        store_line<K>(&sm.diag[par][0][w + 1][d0], nv);
+        if (right) publish_edge<K>(edge_line(tile, par, 0), t, nv);
+      } else if (right) {
+        publish_edge<K>(edge_line(tile, par, 0), t, cur);  // no +1 path
+      }
+      if (minus) {  // line l continues line l + 1
+        if (t == 0 || l == L - 1) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) nv[k] = cur[k];
+        } else {
+          load_line<K>(&sm.diag[pp][1][w + 2][d0], nb);  // line l + 1
+          min_plus<K, true>(nb, cur, lane, p1, p2a_of(it, prev_ir), nv);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (d0 + k >= D) nv[k] = kBig;
+          av[k] += nv[k];
+        }
+        store_line<K>(&sm.diag[par][1][w + 1][d0], nv);
+        if (left) publish_edge<K>(edge_line(tile, par, 1), t, nv);
+      } else if (left) {
+        publish_edge<K>(edge_line(tile, par, 1), t, cur);  // no -1 path
+      }
+      const int xt = reverse ? X - 1 - t : t;
+      store_k<int16_t, K>(ob + xt * vx + l * vl + d0, av, d0, D, vec);
+      prev_i = it;
+      prev_il = sm.inten[q][w];
+      prev_ir = sm.inten[q][w + 2];
+    }
+    cp_async_wait_ring();  // this thread's copies for step t + 1
+    __syncthreads();
+  }
+}
+
+template <int K>
+cudaError_t sweep3_smem(int* bytes) {
+  *bytes = static_cast<int>(sizeof(SweepSmem<K>));
+  return cudaFuncSetAttribute(sgm_sweep3_kernel<K>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *bytes);
+}
+
+template <int K>
+cudaError_t launch_sweep3(const void* cost, const void* inten, void* out,
+                          void* edge, int B, int X, int L,
+                          int D, long long vb, long long vx, long long vl,
+                          long long ib, long long ix, long long il,
+                          int reverse, int paths, int p1, int p2,
+                          cudaStream_t stream) {
+  const uintptr_t align = sizeof(int16_t) * K;
+  bool vec = (K == 2 || K == 4) && D % K == 0 && vb % K == 0 &&
+             vx % K == 0 && vl % K == 0 &&
+             reinterpret_cast<uintptr_t>(out) % align == 0;
+  bool async16 = D % 8 == 0 && vb % 8 == 0 && vx % 8 == 0 && vl % 8 == 0 &&
+                 reinterpret_cast<uintptr_t>(cost) % 16 == 0 &&
+                 reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  int smem = 0;
+  const cudaError_t e = sweep3_smem<K>(&smem);
+  if (e != cudaSuccess) return e;
+  const int16_t* c = static_cast<const int16_t*>(cost);
+  const int32_t* i = static_cast<const int32_t*>(inten);
+  int16_t* o = static_cast<int16_t*>(out);
+  unsigned long long* ed = static_cast<unsigned long long*>(edge);
+  void* args[] = {&c,  &i,  &o,       &ed,    &X,  &L,  &D,   &vb, &vx, &vl,
+                  &ib, &ix, &il, &reverse, &paths, &p1, &p2, &vec, &async16};
+  const int tiles = (L + kTile - 1) / kTile;
+  return cudaLaunchCooperativeKernel(
+      (const void*)sgm_sweep3_kernel<K>,
+      dim3(static_cast<unsigned>(B) * tiles), dim3(kTile * 32), args, smem,
+      stream);
+}
+
+template <int K>
+cudaError_t sweep3_per_sm(int* per_sm) {
+  int smem = 0;
+  const cudaError_t e = sweep3_smem<K>(&smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, sgm_sweep3_kernel<K>, kTile * 32, smem);
+}
+
 }  // namespace
 
 // One path of B problems, in one direction (dirs = 1, `reverse` picks it)
 // or in both (dirs = 2: forward into out_f, backward into out_b).
 // elem_bytes = 2 with add = 1: int16 volumes, out += path costs, in place
-// (rows 1-4). elem_bytes = 4 with add = 0: int32 volumes, out = path costs
+// (rows 2-3). elem_bytes = 4 with add = 0: int32 volumes, out = path costs
 // (row 5). cost/out: depth stride 1 and element strides (vb, vx, vl) for
 // problem, scan position and line; inten: int32 with strides (ib, ix, il).
 // shift is 0 (straight) or +-1 (diagonal: the line index moves by shift per
@@ -326,4 +710,53 @@ extern "C" int sgm_agg_path(const void* cost, const void* inten, void* out_f,
         cost, inten, out_f, out_b, B, X, L, D, vb, vx, vl, ib, ix, il, dirs,
         reverse, shift, p1, p2, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The vertical sweep kernel's geometry for D depths on the current device:
+// lines per block, edge-buffer words per block, and the most blocks the
+// device keeps resident at once (the largest cooperative grid).
+extern "C" int sgm_sweep3_geometry(int D, int* tile, int* edge_words,
+                                   int* resident) {
+  if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  switch ((D + 31) / 32) {
+    case 1: e = sweep3_per_sm<1>(&per_sm); break;
+    case 2: e = sweep3_per_sm<2>(&per_sm); break;
+    case 3: e = sweep3_per_sm<3>(&per_sm); break;
+    default: e = sweep3_per_sm<4>(&per_sm); break;
+  }
+  *tile = kTile;
+  *edge_words = 2 * 2 * kEdge;
+  *resident = per_sm * sms;
+  return static_cast<int>(e);
+}
+
+// One sweep of the distinct shifts in `paths` (bit 0: 0, bit 1: +1,
+// bit 2: -1) over B int16 problems, out += path costs in place (rows 1
+// and 4), as one cooperative launch of B * ceil(L / tile) blocks, which
+// must all be resident (sgm_sweep3_geometry). Strides as for sgm_agg_path;
+// edge as sgm_sweep3_kernel describes it (all -1). Returns the
+// cudaError_t of the launch.
+extern "C" int sgm_agg_sweep3(const void* cost, const void* inten, void* out,
+                              void* edge, int B, int X, int L,
+                              int D, long long vb, long long vx, long long vl,
+                              long long ib, long long ix, long long il,
+                              int reverse, int paths, int p1, int p2,
+                              void* stream) {
+  if (B < 1 || X < 1 || L < 1 || D < 1 || D > 128 || paths < 1 || paths > 7)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((D + 31) / 32) {
+    case 1: return static_cast<int>(launch_sweep3<1>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
+    case 2: return static_cast<int>(launch_sweep3<2>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
+    case 3: return static_cast<int>(launch_sweep3<3>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
+    default: return static_cast<int>(launch_sweep3<4>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
+  }
 }

@@ -4,8 +4,8 @@ Port of `smvs_tpu/sgm/pallas_agg.py`. The entry points keep the JAX
 signatures and results, one for each TPU kernel:
 
 - `fused_pass` (`_fused_pass`, row 1; with ``loop=True`` row 4): one sweep
-  of ``len(shifts)`` paths over an [X, L, D] int16 volume scanned along
-  X, added to ``acc``;
+  of ``len(shifts)`` distinct paths over an [X, L, D] int16 volume scanned
+  along X, added to ``acc``;
 - `fused_pass_batch` (`_fused_pass_batch`, row 2): the same over
   [B, X, L, D];
 - `fused_pass_bidir` (`_fused_pass_bidir`, row 3): the forward and the
@@ -17,12 +17,15 @@ and the two 8-path sums built on them: `aggregate_batch` (B problems,
 rows 1-2, the rectified SGM) and `aggregate` (one problem, row 3, the
 general-warp SGM).
 
-For a CUDA tensor they launch the hand-written kernel of
-`csrc/sgm_agg.cu` or raise; for a CPU tensor they run the plain version
-below, the `lax.scan` recurrence of `smvs_tpu/sgm/stereo.py:aggregate` as a
-Python loop over the scan axis. The TPU's pad to multiples of 8, its VMEM
-dispatch models and the ``xb`` blocking of row 4 are not needed: the
-kernel takes any H, W and D <= 128, the plane count of both SGM paths.
+For a CUDA tensor they launch a hand-written kernel of `csrc/sgm_agg.cu`
+or raise: `sgm_sweep3_kernel`, one cooperative launch per sweep carrying
+all its paths, for rows 1 and 4 and `aggregate_batch`'s vertical sweeps;
+`sgm_path_kernel`, one launch per path, for the rest. For a CPU tensor
+they run the plain version below, the `lax.scan` recurrence of
+`smvs_tpu/sgm/stereo.py:aggregate` as a Python loop over the scan axis.
+The TPU's pad to multiples of 8, its VMEM dispatch models and the ``xb``
+blocking of row 4 are not needed: the kernels take any H, W and D <= 128,
+the plane count of both SGM paths.
 
 ``launches`` counts kernel launches by TPU kernel row (and nothing else),
 so a run can show which kernels it went through.
@@ -51,6 +54,7 @@ ROWS = ("fused_pass", "fused_pass_batch", "fused_pass_bidir",
         "fused_pass_loop", "scan_direction")
 launches = dict.fromkeys(ROWS, 0)  # kernel launches per row
 _lib = None
+_sweep_geometry_cache = {}  # (device, D) -> (tile, edge_words, resident)
 
 
 def reset_launches() -> None:
@@ -115,6 +119,14 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = lib.sgm_agg_sweep3
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.sgm_sweep3_geometry
+        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -122,9 +134,10 @@ def _library() -> ctypes.CDLL:
 def _launch_paths(row: str, cost, inten, out, dims, vstrides, istrides,
                   reverse: bool, shifts: tuple, p1: int, p2: int,
                   out_b=None) -> None:
-    """One kernel launch per path. int16 volumes: ``out += path costs`` in
-    place, and with ``out_b`` the reverse sweep in the same launch
-    (``out_b += reverse path costs``). int32 volumes: ``out = path cost``.
+    """One `sgm_path_kernel` launch per path. int16 volumes: ``out += path
+    costs`` in place, and with ``out_b`` the reverse sweep in the same
+    launch (``out_b += reverse path costs``). int32 volumes: ``out = path
+    cost``.
     """
     fn = _library().sgm_agg_path
     B, X, L, D = dims
@@ -141,6 +154,67 @@ def _launch_paths(row: str, cost, inten, out, dims, vstrides, istrides,
                 raise RuntimeError(f"sgm_agg_path launch failed: CUDA error "
                                    f"{err}")
             launches[row] += 1
+
+
+def sweep_geometry(device: torch.device, D: int) -> tuple:
+    """(lines per block, edge-buffer words per block, most blocks resident
+    at once) of the vertical sweep kernel for D depths on ``device``."""
+    key = (device, D)
+    if key not in _sweep_geometry_cache:
+        vals = [ctypes.c_int() for _ in range(3)]
+        with torch.cuda.device(device):
+            err = _library().sgm_sweep3_geometry(
+                D, *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"sgm_sweep3_geometry failed: CUDA error "
+                               f"{err}")
+        _sweep_geometry_cache[key] = tuple(v.value for v in vals)
+    return _sweep_geometry_cache[key]
+
+
+def _launch_sweep(row: str, cost, inten, out, dims, vstrides, istrides,
+                  reverse: bool, shifts: tuple, p1: int, p2: int) -> None:
+    """``out += path costs`` of all ``shifts`` (distinct, from 0, +1, -1)
+    in place, in one cooperative `sgm_sweep3_kernel` launch per chunk of
+    problems (one launch unless B problems exceed the resident blocks)."""
+    if len(set(shifts)) != len(shifts) or not set(shifts) <= {0, 1, -1}:
+        raise ValueError(f"the kernel takes distinct shifts from 0, 1 and "
+                         f"-1, got {shifts}")
+    fn = _library().sgm_agg_sweep3
+    B, X, L, D = dims
+    tile, edge_words, resident = sweep_geometry(cost.device, D)
+    tiles = -(-L // tile)
+    paths = sum({0: 1, 1: 2, -1: 4}[s] for s in shifts)
+    vsize, isize = cost.element_size(), inten.element_size()
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream(cost.device).cuda_stream
+        for b0, nb in plan_chunks(B, tiles, resident):
+            # Each word carries the scan step that wrote it; -1 is none.
+            edge = torch.full((nb * tiles * edge_words,), -1,
+                              dtype=torch.int64, device=cost.device)
+            voff = b0 * vstrides[0] * vsize
+            err = fn(cost.data_ptr() + voff,
+                     inten.data_ptr() + b0 * istrides[0] * isize,
+                     out.data_ptr() + voff, edge.data_ptr(), nb, X, L, D,
+                     *vstrides, *istrides,
+                     int(reverse), paths, int(p1), int(p2), stream)
+            if err != 0:
+                raise RuntimeError(f"sgm_agg_sweep3 launch failed: CUDA "
+                                   f"error {err}")
+            launches[row] += 1
+
+
+def plan_chunks(B: int, tiles: int, resident: int) -> list:
+    """``(first problem, problem count)`` of each launch of the vertical
+    sweep kernel over B problems of ``tiles`` blocks each. Its blocks wait
+    on their neighbours, so a launch may hold only as many blocks as the
+    card keeps resident at once (``resident``); a problem is never split.
+    """
+    if tiles > resident:
+        raise ValueError(f"one problem needs {tiles} resident blocks of the "
+                         f"vertical sweep kernel; the card holds {resident}")
+    per = resident // tiles
+    return [(b, min(per, B - b)) for b in range(0, B, per)]
 
 
 def _check(cost, inten, acc, vol_ndim: int, dtype=torch.int16) -> None:
@@ -273,16 +347,16 @@ def fused_pass_batch(cost: torch.Tensor, inten: torch.Tensor,
                              "fused_pass_batch")
 
 
-def _fused_pass_batch(cost, inten, acc, reverse, shifts, p1, p2, row):
+def _fused_pass_batch(cost, inten, acc, reverse, shifts, p1, p2, row,
+                      launch=_launch_paths):
     _check(cost, inten, acc, 4)
     if cost.device.type == "cpu":
         return plain_fused_pass_batch(cost, inten, acc, reverse, shifts,
                                       p1, p2).to(torch.int16)
     B, X, L, D = cost.shape
     out = acc.clone()
-    _launch_paths(row, cost, inten, out, (B, X, L, D),
-                  (X * L * D, L * D, D), (X * L, L, 1), reverse, shifts, p1,
-                  p2)
+    launch(row, cost, inten, out, (B, X, L, D), (X * L * D, L * D, D),
+           (X * L, L, 1), reverse, shifts, p1, p2)
     return out
 
 
@@ -293,15 +367,15 @@ def fused_pass(cost: torch.Tensor, inten: torch.Tensor, acc: torch.Tensor,
     volume scanned along X (inten [X, L] int32); returns acc + paths.
 
     ``loop`` selects the TPU's `fori_loop` kernel (row 4), which computes
-    the same result; on the card both forms launch the one chain-per-warp
-    kernel, counted as row 4 when ``loop`` is set. ``xb``, that kernel's
-    scan-block size on the TPU, is taken for the JAX signature and not
-    read: the card has no counterpart.
+    the same result; on the card both forms are one launch of the vertical
+    sweep kernel, counted as row 4 when ``loop`` is set. ``xb``, that
+    kernel's scan-block size on the TPU, is taken for the JAX signature and
+    not read: the card has no counterpart.
     """
     _check(cost, inten, acc, 3)
     row = "fused_pass_loop" if loop else "fused_pass"
     return _fused_pass_batch(cost[None], inten[None], acc[None], reverse,
-                             shifts, p1, p2, row)[0]
+                             shifts, p1, p2, row, launch=_launch_sweep)[0]
 
 
 def fused_pass_bidir(cost: torch.Tensor, inten: torch.Tensor,
@@ -365,8 +439,9 @@ def aggregate_batch(cost: torch.Tensor, intensity: torch.Tensor, p1: int,
     with intensities [B, H, W]; returns the int16 8-path sum.
 
     On the card: two horizontal launches (scan along W, no transposed
-    copy), counted as row 2, and six vertical/diagonal ones, counted as
-    row 1, accumulating in place.
+    copy), counted as row 2, and one launch of the vertical sweep kernel
+    per vertical direction carrying the straight path and both diagonals,
+    counted as row 1, accumulating in place.
     """
     _check(cost, intensity, None, 4)
     if cost.device.type == "cpu":
@@ -378,7 +453,7 @@ def aggregate_batch(cost: torch.Tensor, intensity: torch.Tensor, p1: int,
         _launch_paths("fused_pass_batch", cost, intensity, acc, (B, W, H, D),
                       (vb, D, W * D), (ib, 1, W), reverse, (0,), p1, p2)
     for reverse in (False, True):  # vertical + diagonals: scan y
-        _launch_paths("fused_pass", cost, intensity, acc, (B, H, W, D),
+        _launch_sweep("fused_pass", cost, intensity, acc, (B, H, W, D),
                       (vb, W * D, D), (ib, W, 1), reverse, (0, 1, -1), p1,
                       p2)
     return acc

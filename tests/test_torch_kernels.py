@@ -1,5 +1,10 @@
-"""The CUDA SGM aggregation kernel against its plain PyTorch versions,
-for every TPU kernel row it replaces.
+"""The CUDA SGM aggregation kernels against their plain PyTorch versions,
+for every TPU kernel row they replace.
+
+The vertical sweep kernel (rows 1 and 4) gives each block a tile of lines
+and trades the diagonals' edge lines between blocks at every step; the
+shapes below include a ragged last tile, fewer lines than a tile, one
+line, and B = 3, and one test repeats a sweep to catch a rare race.
 
 These tests need a CUDA device and skip without one. This file imports
 neither JAX nor the JAX package, so on the GPU machine it runs without
@@ -32,30 +37,79 @@ def _volume(shape, seed, device, hi=127):
 
 @pytest.mark.parametrize("shape", [(2, 11, 13, 16), (2, 10, 12, 24),
                                    (2, 37, 53, 128), (1, 9, 7, 40),
-                                   (3, 6, 70, 33), (1, 9, 11, 100)])
+                                   (3, 6, 70, 33), (1, 9, 11, 100),
+                                   (2, 9, 1, 32), (3, 12, 48, 64)])
 def test_aggregate_batch_equals_plain(cuda, shape):
+    """Vertical sweeps over W lines: fewer than a tile, ragged, one line,
+    whole tiles."""
     cost, inten = _volume(shape, seed=sum(shape), device=cuda)
     cuda_agg.reset_launches()
     got = cuda_agg.aggregate_batch(cost, inten, 6, 96)
     torch.cuda.synchronize()
     assert cuda_agg.launches["fused_pass_batch"] == 2
-    assert cuda_agg.launches["fused_pass"] == 6
+    assert cuda_agg.launches["fused_pass"] == 2
     want = cuda_agg.plain_aggregate_batch(cost, inten, 6, 96)
     assert got.dtype == torch.int16
     assert torch.equal(got.to(torch.int32), want)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("shifts", [(0,), (0, 1, -1)])
-def test_fused_pass_equals_plain(cuda, reverse, shifts):
-    cost, inten = _volume((21, 34, 128), seed=3, device=cuda)
-    acc, _ = _volume((21, 34, 128), seed=4, device=cuda, hi=500)
+@pytest.mark.parametrize("shifts", [(0,), (0, 1, -1), (1,), (-1, 0)])
+@pytest.mark.parametrize("shape", [(21, 34, 128), (7, 1, 64), (9, 5, 40),
+                                   (12, 35, 128), (10, 48, 16)])
+def test_fused_pass_equals_plain(cuda, shape, reverse, shifts):
+    cost, inten = _volume(shape, seed=3, device=cuda)
+    acc, _ = _volume(shape, seed=4, device=cuda, hi=500)
+    cuda_agg.reset_launches()
     got = cuda_agg.fused_pass(cost, inten, acc, reverse, shifts, 6, 96)
+    assert cuda_agg.launches["fused_pass"] == 1
     want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None], acc[None],
                                            reverse, shifts, 6, 96)[0]
     assert torch.equal(got.to(torch.int32), want)
-    assert torch.equal(acc, _volume((21, 34, 128), seed=4, device=cuda,
+    assert torch.equal(acc, _volume(shape, seed=4, device=cuda,
                                     hi=500)[0])  # input left untouched
+
+
+def test_fused_pass_repeats_bit_equal(cuda):
+    """A race in the blocks' hand-off shows as a rare mismatch: the 3-path
+    sweep 20 times on one input, each bit-equal to the plain version."""
+    shape = (300, 400, 128)
+    cost, inten = _volume(shape, seed=21, device=cuda)
+    acc, _ = _volume(shape, seed=22, device=cuda, hi=500)
+    want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None], acc[None],
+                                           False, (0, 1, -1), 6, 96)[0]
+    for rep in range(20):
+        got = cuda_agg.fused_pass(cost, inten, acc, False, (0, 1, -1), 6, 96)
+        assert torch.equal(got.to(torch.int32), want), f"repetition {rep}"
+
+
+def test_fused_pass_rejects_repeated_shifts(cuda):
+    cost, inten = _volume((8, 20, 32), seed=23, device=cuda)
+    for shifts in ((1, 1), (0, 1, 0), (0, 2)):
+        with pytest.raises(ValueError, match="distinct shifts"):
+            cuda_agg.fused_pass(cost, inten, torch.zeros_like(cost), False,
+                                shifts, 6, 96)
+
+
+def test_vertical_sweep_splits_problems_beyond_the_resident_blocks(cuda):
+    """One tile per problem and one problem more than the card keeps
+    resident: two launches per vertical sweep."""
+    _, _, resident = cuda_agg.sweep_geometry(cuda, 16)
+    shape = (resident + 1, 3, 16, 16)
+    cost, inten = _volume(shape, seed=24, device=cuda)
+    cuda_agg.reset_launches()
+    got = cuda_agg.aggregate_batch(cost, inten, 6, 96)
+    assert cuda_agg.launches["fused_pass"] == 4
+    want = cuda_agg.plain_aggregate_batch(cost, inten, 6, 96)
+    assert torch.equal(got.to(torch.int32), want)
+
+
+def test_vertical_sweep_rejects_a_problem_beyond_the_resident_blocks(cuda):
+    tile, _, resident = cuda_agg.sweep_geometry(cuda, 16)
+    cost, inten = _volume((2, resident * tile + 1, 16), seed=25, device=cuda)
+    with pytest.raises(ValueError, match="resident blocks"):
+        cuda_agg.fused_pass(cost, inten, torch.zeros_like(cost), False,
+                            (0, 1, -1), 6, 96)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -111,7 +165,7 @@ def test_fused_pass_loop_equals_plain(cuda, reverse):
     cuda_agg.reset_launches()
     got = cuda_agg.fused_pass(cost, inten, acc, reverse, (0, 1, -1), 6, 96,
                               loop=True, xb=4)
-    assert cuda_agg.launches["fused_pass_loop"] == 3
+    assert cuda_agg.launches["fused_pass_loop"] == 1
     want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None],
                                            acc[None], reverse, (0, 1, -1),
                                            6, 96)[0]
