@@ -11,12 +11,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. kernel rows 1-2 against their plain PyTorch versions at the rectified
    path's shapes: `aggregate_batch` on a seeded [2, 1440, 1696, 128] int16
    volume (with the INVALID column band of the padded main problem; 2 + 2
-   launches), `fused_pass_batch` and `fused_pass`; bit-equal or fail, on
-   the first run and on every timed repetition; CUDA-event times;
+   launches), `fused_pass_batch` (1 launch for shifts (0,)) and
+   `fused_pass`; bit-equal or fail, on the first run and on every timed
+   repetition; CUDA-event times. Beside them, each of `aggregate_batch`'s
+   four launches timed on its own (horizontal write and add, the two
+   vertical sweeps), and one in-place straight sweep at its horizontal
+   launch through `sgm_line_kernel` and through `sgm_path_kernel` (the
+   route row 2 took before), in turns, both bit-equal to plain;
 4. kernel rows 3-5 the same way at the general path's per-direction shape
-   [1440, 1440, 128]: `aggregate` and `fused_pass_bidir` (row 3),
-   `fused_pass(loop=True)` (row 4), `scan_direction` on int32 costs above
-   2^15 (row 5);
+   [1440, 1440, 128]: `aggregate` (4 launches) and `fused_pass_bidir` (2
+   launches, row 3), `fused_pass(loop=True)` (row 4), `scan_direction` on
+   int32 costs above 2^15 (row 5); then `aggregate_batch` on [1, 8, W, 16]
+   with W one tile more than the vertical sweep kernel's resident blocks
+   hold, whose vertical sweeps take one `sgm_path_kernel` launch per path,
+   bit-equal to plain;
 5. the rectified main path: `bench_main.run_once(1440, 2)` once to warm up
    and once timed, with the kernel's launch counts; coverage >= 0.84 and
    median relative error <= 1e-4 against the analytic depth;
@@ -42,7 +50,8 @@ just after; the `launches` of each kernel row come from the path named in
 its `path` key (rows 4 and 5 have no user path). It prints one
 `{"kernels": [...]}` line with the five TPU kernel rows, each naming the
 CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
-`sgm_path_kernel` for rows 2, 3 and 5), then as the last line
+`sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
+5), then as the last line
 `{"ok": true, "device": {...}}`. It imports nothing of JAX.
 """
 
@@ -119,9 +128,11 @@ REPLACES = {
     "scan_direction": ("smvs_tpu/sgm/pallas_agg.py:99", "_scan_kernel"),
 }
 # The CUDA kernel that serves each row.
-KERNEL = {row: "sgm_path_kernel" for row in REPLACES}
-KERNEL.update(fused_pass="sgm_sweep3_kernel",
-              fused_pass_loop="sgm_sweep3_kernel")
+KERNEL = {"fused_pass": "sgm_sweep3_kernel",
+          "fused_pass_batch": "sgm_line_kernel",
+          "fused_pass_bidir": "sgm_line_kernel + sgm_sweep3_kernel",
+          "fused_pass_loop": "sgm_sweep3_kernel",
+          "scan_direction": "sgm_path_kernel"}
 REPS = 10  # timed repetitions of each kernel, each checked bit-equal
 P1, P2 = 6, 96
 
@@ -248,6 +259,70 @@ def check_argmin_ties(agg: torch.Tensor) -> None:
             f"({ties} pixels with ties)")
 
 
+def time_launches(name: str, plan: list, cost, inten, acc, want,
+                  bounds: list) -> list:
+    """Each launch of ``plan`` timed on its own with CUDA events, median of
+    ``REPS`` runs after a warm-up, each run's result bit-equal to
+    ``want``."""
+    times = [[] for _ in plan]
+    for rep in range(REPS + 1):
+        events = [torch.cuda.Event(enable_timing=True) for _ in
+                  range(len(plan) + 1)]
+        out = cuda_agg.run_plan(plan, cost, inten, acc, P1, P2,
+                                on_launch=lambda i: events[i].record())
+        events[-1].synchronize()
+        if not torch.equal(out, want):
+            raise RuntimeError(f"{name}: run {rep + 1} differs from the "
+                               "plain version")
+        if rep:
+            for i in range(len(plan)):
+                times[i].append(events[i].elapsed_time(events[i + 1]))
+    rows = []
+    for ln, ts, b in zip(plan, times, bounds):
+        ms = statistics.median(ts)
+        rows.append({"kernel": ln.kernel, "scan": ln.scan,
+                     "reverse": ln.reverse, "mode": ln.mode, "ms": ms,
+                     "bound_ms": b})
+        log(f"  {name}: {ln.kernel} scan {ln.scan} reverse {ln.reverse} "
+            f"{ln.mode}: {ms:.3f} ms, bound {b:.4f} ms")
+    return rows
+
+
+def line_against_path(cost, inten) -> dict:
+    """One in-place straight sweep at `aggregate_batch`'s horizontal
+    launch (scan along W, chain-contiguous) through `sgm_line_kernel` and
+    through `sgm_path_kernel`, in turns (line, path, path, line, ...),
+    each launch timed alone and its result held bit-equal to plain."""
+    g = torch.Generator(device="cuda").manual_seed(77)
+    acc = torch.randint(0, 500, cost.shape, generator=g, device="cuda",
+                        dtype=torch.int16)
+    plans = {k: [cuda_agg.Launch(k, 2, False, "add", (0,),
+                                 "fused_pass_batch", 0, cost.shape[0])]
+             for k in ("line", "path")}
+    want = cuda_agg.plain_run_plan(plans["line"], cost, inten, acc, P1, P2)
+    times = {k: [] for k in plans}
+    for rep in range(2 * REPS + 2):
+        k = ("line", "path", "path", "line")[rep % 4]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        out = cuda_agg.run_plan(plans[k], cost, inten, acc, P1, P2,
+                                on_launch=lambda i: events[i].record())
+        events[1].synchronize()
+        if not torch.equal(out, want):
+            raise RuntimeError(f"the {k} kernel's straight sweep differs "
+                               "from the plain version")
+        if rep >= 2:  # the first of each is a warm-up
+            times[k].append(events[0].elapsed_time(events[1]))
+        del out
+    res = {f"{k}_ms": statistics.median(v) for k, v in times.items()}
+    res["bound_ms"] = bound(cost.numel(), cost.shape[-1], True)["bound_ms"]
+    res["shape"] = list(cost.shape)
+    log(f"straight sweep in place at {list(cost.shape)}, scan W: "
+        f"sgm_line_kernel {res['line_ms']:.3f} ms, sgm_path_kernel "
+        f"{res['path_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms, "
+        f"bit-equal on every run")
+    return res
+
+
 def phase_kernel_rectified() -> dict:
     """Rows 1-2 at the rectified path's shapes."""
     cost, inten = _seeded(SHAPE, 1234)
@@ -264,6 +339,18 @@ def phase_kernel_rectified() -> dict:
                   lambda: cuda_agg.plain_aggregate_batch(cost, inten, P1,
                                                          P2),
                   acc_in=False)
+    # The split of its time over its four launches.
+    want = cuda_agg.aggregate_batch(cost, inten, P1, P2)
+    tile, _, resident = cuda_agg.sweep_geometry(cost.device, SHAPE[3])
+    plan = cuda_agg.plan_route("aggregate_batch", SHAPE[0], SHAPE[2],
+                               resident, tile=tile)
+    n = cost.numel()
+    bounds = [bound(n, SHAPE[3], ln.mode == "add")["bound_ms"]
+              for ln in plan]
+    agg["launches"] = time_launches("aggregate_batch", plan, cost, inten,
+                                    None, want, bounds)
+    del want
+    line_path = line_against_path(cost, inten)
 
     # The two TPU entry points at the main path's sweep shapes: the
     # horizontal 1-path sweep of both problems, the 3-path sweep of one.
@@ -271,6 +358,10 @@ def phase_kernel_rectified() -> dict:
     it = inten.transpose(1, 2).contiguous()
     acc = torch.zeros_like(ct)
     acc1 = torch.zeros_like(cost[1])
+    cuda_agg.reset_launches()
+    cuda_agg.fused_pass_batch(ct, it, acc, False, (0,), P1, P2)
+    if cuda_agg.launches["fused_pass_batch"] != 1:
+        raise RuntimeError("fused_pass_batch (0,) did not launch 1 kernel")
     rows = {
         "fused_pass_batch": compare(
             "fused_pass_batch (row 2)",
@@ -290,6 +381,7 @@ def phase_kernel_rectified() -> dict:
     }
     for r in rows.values():
         r["aggregate_batch"] = agg
+    rows["fused_pass_batch"]["line_against_path"] = line_path
     return rows
 
 
@@ -302,6 +394,10 @@ def phase_kernel_general() -> dict:
     cuda_agg.aggregate(cost, inten, P1, P2)
     if cuda_agg.launches["fused_pass_bidir"] != 4:
         raise RuntimeError("aggregate did not launch 4 kernels")
+    cuda_agg.reset_launches()
+    cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1), P1, P2)
+    if cuda_agg.launches["fused_pass_bidir"] != 2:
+        raise RuntimeError("fused_pass_bidir did not launch 2 kernels")
     agg = compare("aggregate (row 3, 4 launches)",
                   lambda: cuda_agg.aggregate(cost, inten, P1, P2),
                   lambda: cuda_agg.plain_aggregate(cost, inten, P1, P2),
@@ -335,6 +431,28 @@ def phase_kernel_general() -> dict:
                                                   P2),
             acc_in=False, elem=4)
     return rows
+
+
+def phase_wide() -> dict:
+    """`aggregate_batch` on one problem one tile wider than the vertical
+    sweep kernel's resident blocks hold, at D = 16: its vertical sweeps
+    take one `sgm_path_kernel` launch per path, bit-equal to plain."""
+    tile, _, resident = cuda_agg.sweep_geometry(torch.device("cuda", 0), 16)
+    shape = (1, 8, (resident + 1) * tile, 16)
+    cost, inten = _seeded(shape, 99)
+    cuda_agg.reset_launches()
+    got = cuda_agg.aggregate_batch(cost, inten, P1, P2)
+    launches = dict(cuda_agg.launches)
+    if (launches["fused_pass_batch"], launches["fused_pass"]) != (2, 6):
+        raise RuntimeError(f"the wide problem launched {launches}, not "
+                           "2 line + 6 path kernels")
+    want = cuda_agg.plain_aggregate_batch(cost, inten, P1, P2)
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0:
+        raise RuntimeError(f"the wide problem differs from plain: {err}")
+    log(f"aggregate_batch {list(shape)} beyond {resident} resident blocks "
+        f"of {tile} lines: launches {launches}, bit-equal to plain")
+    return {"shape": list(shape), "launches": launches, "max_abs_err": err}
 
 
 def phase_main() -> dict:
@@ -470,6 +588,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernel_rectified()
     rows.update(phase_kernel_general())
+    rows["fused_pass"]["wide_problem"] = phase_wide()
     main_launches = phase_main()
     phase_general()
     phase_cli("cli", None, CLI_MIN_POINT_SHARE, CLI_MAX_ERR,

@@ -1,5 +1,5 @@
 // SGM path-cost aggregation on Hopper (sm_90a), bound with ctypes from
-// smvs_tpu_torch/sgm/cuda_agg.py. Two kernels.
+// smvs_tpu_torch/sgm/cuda_agg.py. Three kernels.
 //
 // They replace the five TPU kernels of smvs_tpu/sgm/pallas_agg.py:
 //   1. _fused_kernel, reached through _fused_pass (pallas_agg.py:137-194,
@@ -16,7 +16,17 @@
 //   5. _scan_kernel, reached through scan_direction (pallas_agg.py:40-117,
 //      call at :99): one path in one direction over an int32 [L, X, D]
 //      volume scanned along axis 1, written out (not accumulated).
-// sgm_sweep3_kernel serves rows 1 and 4; sgm_path_kernel rows 2, 3 and 5.
+// Which kernel serves a call is chosen from its shape by
+// cuda_agg.plan_route:
+// - sgm_line_kernel: every straight-only sweep of rows 2 and 3 (the
+//   horizontal sweeps of aggregate_batch and aggregate, and
+//   fused_pass_batch / fused_pass_bidir with shifts (0,));
+// - sgm_sweep3_kernel: rows 1 and 4, and every sweep of rows 2 and 3
+//   with distinct shifts that include a diagonal, whose problem fits the
+//   resident blocks (the vertical sweeps of aggregate_batch and aggregate);
+// - sgm_path_kernel: row 5, and one launch per path of a sweep that the
+//   other two cannot take (a repeated shift, or a problem wider than the
+//   resident blocks of sgm_sweep3_kernel).
 //
 // Recurrence, per line and depth d (int32 arithmetic):
 //   new[d] = cost[d] + min(prev[d], prev[d-1] + P1, prev[d+1] + P1,
@@ -25,28 +35,37 @@
 // A path restarts from the raw cost at the start of the scan and, for a
 // diagonal, where it enters through the border line.
 //
-// Both kernels hold the D depths of a line in registers across the 32
+// Every kernel holds the D depths of a line in registers across the 32
 // lanes of a warp (K = ceil(D/32) per lane, 4 at D = 128); prev[d +- 1]
-// across lanes come from __shfl_up/down_sync and min(prev) from a
-// butterfly reduction. Depths d >= D hold BIG and take no part in a
-// neighbour; costs stay below BIG - P2, so they never win a min either.
-// P2a is computed in the kernel from the int32 intensities of the current
-// and the previous position on the path. Scan, line and problem strides
-// are arguments, so a horizontal sweep, and row 5's scan along axis 1,
-// need no transposed copy.
+// across lanes come from __shfl_up/down_sync. Depths d >= D hold BIG and
+// take no part in a neighbour; costs stay below BIG - P2, so they never
+// win a min either. P2a is computed in the kernel from the int32
+// intensities of the current and the previous position on the path. Scan,
+// line and problem strides are arguments, so a horizontal sweep, and row
+// 5's scan along axis 1, need no transposed copy. int16 sums wrap modulo
+// 2^16, so the order in which the sweeps add into one accumulator does
+// not change its bits: a forward and a backward sweep can run one after
+// the other into the same volume.
 //
-// sgm_path_kernel: one warp walks one chain of one path: a straight chain
-// is a line; a diagonal chain walks (x, l0 + s*k) from x = 0 or from the
-// border line, so no two warps share a carried line and no
-// synchronisation is needed. One launch per path, in one direction (rows
-// 2, 5) or in both (row 3: the first half of the warps walks forward and
-// read-modify-writes `out_f`, the second half walks backward into the
-// separate `out_b`; the caller adds `out_b` into `out_f` once after the
-// last path). Storage is a template parameter: int16 for rows 2-3, int32
-// for row 5, whose costs exceed int16; rows 2-3 add into their output,
-// row 5 writes the path cost itself. The next position's cost and
-// accumulator are loaded one step ahead, since they do not depend on the
-// recurrence.
+// sgm_line_kernel: one straight sweep (shift 0) of B problems, one warp
+// per line, every line an independent chain. Its input accumulator `acc`
+// and its output `out` are separate arguments: acc == out adds in place,
+// acc != out writes acc + path elsewhere (no copy of acc first), and a
+// null acc writes the path cost itself (no zeroed volume, no accumulator
+// read). sgm_path_kernel, which served this sweep before, was paced by
+// load latency: one position in flight per warp (a one-step register
+// prefetch), about 1.6 us a step against the bytes' 0.66. Here each warp
+// fills a private ring of kLineStages scan positions (cost and
+// accumulator) in shared memory kLineStages - 1 steps ahead with cp.async
+// 16-byte pieces (lanes 0-15 the cost, 16-31 the accumulator at D = 128):
+// 15 positions, 7.5 KB, in flight per warp (3.75 KB with no accumulator),
+// 80 to 160 KB per SM at the paths' shapes. The ring is private to its
+// warp, so __syncwarp orders it and no step waits on a block barrier.
+// The int32 intensities are read 32 steps at a time, one per lane, and
+// handed out by a shuffle; min(prev) is one redux.sync instruction and
+// P2a comes from a table of its 256 values for |dI| < 256 (a division
+// above). Depth runs that are not 16-byte aligned (D % 8 != 0, or an odd
+// stride) fill the ring with plain loads.
 //
 // sgm_sweep3_kernel: one cooperative launch per sweep carries the
 // straight path and both diagonals at once, so each position's cost and
@@ -77,31 +96,36 @@
 //   so a block writes slot t again at step t + 2 only after its neighbour
 //   has finished step t + 1, which read it. The waits need every block
 //   resident at once: the cooperative launch fails, rather than hangs, if
-//   the grid is too large, and the wrapper splits B into launches that
-//   fit. A ragged last tile's idle warps stay in the loop and reach every
+//   the grid is too large; the wrapper splits B into launches that fit
+//   and sends a problem that alone does not fit to sgm_path_kernel.
+//   A ragged last tile's idle warps stay in the loop and reach every
 //   barrier.
-// - Arithmetic. min(prev) across the warp is one redux.sync instruction,
-//   and P2a comes from a table of its 256 values for |dI| < 256 (a
-//   division above), where sgm_path_kernel shuffles and divides.
 //
-// Bound on the H100 (3.35 TB/s). One vertical sweep at the main path's
-// shape, B=2 x 1440 x 1696 x 128 int16, must read the cost and the
-// accumulator and write the accumulator once (3.75 GB) and read the int32
-// intensities once (0.02 GB): 1.126 ms, 0.563 ms for one problem. One
-// launch per path moves each of those bytes three times; this kernel moves
-// them once, plus per step and block two edge lines of 1 KB through L2.
-// NVIDIA's data sheet gives no peak rate for integer min and add work, so
-// the bound is the bytes. That work is of the same order: about 3
-// instructions per element and path in Hopper's 16x2 DPX forms, 16 G for
-// the 8 paths of aggregate_batch, 0.5 to 1 ms at one or two per int32 lane
-// and clock; these kernels issue about 10 int32 instructions per element
-// and path. Measured (PERF.md, tools/sweep_pace.py), the sweep kernel is
-// paced neither by the bytes nor by the hand-off but by the work of one
-// step inside a block: a dependent chain per path and a barrier, with 16
-// warps per SM; a deeper ring does not help. The horizontal sweep (row 2)
-// still runs one path per launch over a chain per warp; row 3 halves the
-// launches of a single-problem aggregate at the cost of one extra int16
-// volume and add per sweep.
+// sgm_path_kernel: one warp walks one chain of one path (a straight chain
+// is a line; a diagonal chain walks (x, l0 + s*k) from x = 0 or from the
+// border line), so no two warps share a carried line and no
+// synchronisation is needed; one launch per path and direction. Storage
+// is a template parameter: int16 adding into `out` in place (rows 1-3 on
+// the wide-problem route), or int32 writing the path cost (row 5, whose
+// costs exceed int16). The next position is loaded one step ahead.
+//
+// Bounds on the H100 (3.35 TB/s). A sweep must read the cost once, read
+// the accumulator once if there is one and write the result once, and
+// read the int32 intensities once. sgm_line_kernel at the main path's
+// horizontal sweep, B=2 x 1440 lines x 1696 steps x 128 int16: 3 x the
+// volume with an accumulator (3.75 GB, 1.126 ms), 2 x without one (2.50
+// GB, 0.751 ms). sgm_sweep3_kernel's vertical sweep at the same shape
+// also 1.126 ms (0.563 ms for one problem); one launch per path would
+// move those bytes three times. NVIDIA's data sheet gives no peak rate for
+// integer min and add work, so the bound is the bytes. That work is of
+// the same order: about 3 instructions per element and path in Hopper's
+// 16x2 DPX forms, 16 G for the 8 paths of aggregate_batch, 0.5 to 1 ms at
+// one or two per int32 lane and clock; these kernels issue about 10 int32
+// instructions per element and path. Measured (PERF.md,
+// tools/sweep_pace.py), the sweep kernel is paced neither by the bytes
+// nor by the hand-off but by the work of one step inside a block: a
+// dependent chain per path and a barrier, with 16 warps per SM; a deeper
+// ring does not help there.
 
 #include <cuda_runtime.h>
 
@@ -114,6 +138,21 @@ constexpr int kWarpsPerBlock = 8;   // sgm_path_kernel
 constexpr int kTile = 16;           // lines (one warp each) per sweep block
 constexpr int kEdge = 128;          // words per edge line (32 lanes x K <= 4)
 constexpr int kStages = 4;          // scan positions in a sweep block's ring
+// sgm_line_kernel: warps per block and scan positions in a warp's ring.
+// Small blocks of one line per warp balance the SMs: the main path's
+// horizontal sweep (B = 2 x 1440 lines) is 720 blocks, at most 6 per SM
+// against 5.45 on average, and every block is resident at once (each
+// takes 33 KB of shared memory, 128 threads and 64 registers a thread, so
+// 6 fit an SM by shared memory, 8 by registers, 16 by threads: 792 on
+// the card). tools/line_pace.py builds other ring depths with
+// -DSGM_LINE_STAGES=n and times them: 16 positions beat 8 by 6% on the
+// write launch and by 9% at B = 1, and tie 4 over the main path's two
+// horizontal launches (PERF.md).
+constexpr int kLineWarps = 4;
+#ifndef SGM_LINE_STAGES
+#define SGM_LINE_STAGES 16
+#endif
+constexpr int kLineStages = SGM_LINE_STAGES;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Loads depths [d0, d0 + K) of one position; depths >= D read as 0.
@@ -288,27 +327,22 @@ __device__ __forceinline__ void poll_edge(const unsigned long long* p,
   } while (!__all_sync(kFull, ok));
 }
 
-// kAdd: out += path (rows 2-3); otherwise out = path (row 5).
+// kAdd: out += path (int16, rows 1-3 on the wide-problem route);
+// otherwise out = path (int32, row 5).
 template <typename T, int K, bool kAdd>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     sgm_path_kernel(const T* __restrict__ cost,
-                    const int32_t* __restrict__ inten, T* __restrict__ out_f,
-                    T* __restrict__ out_b, int B, int X, int L, int D,
-                    long long vb, long long vx, long long vl, long long ib,
-                    long long ix, long long il, int dirs, int reverse,
-                    int shift, int p1, int p2, bool vec) {
+                    const int32_t* __restrict__ inten, T* __restrict__ out,
+                    int B, int X, int L, int D, long long vb, long long vx,
+                    long long vl, long long ib, long long ix, long long il,
+                    int reverse, int shift, int p1, int p2, bool vec) {
   const int lane = threadIdx.x & 31;
   const long long n_chains = shift ? static_cast<long long>(L) + X - 1
                                    : static_cast<long long>(L);
-  const long long per_dir = static_cast<long long>(B) * n_chains;
-  long long warp =
+  const long long warp =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp >= dirs * per_dir) return;  // whole warp
-  // With dirs == 2 the second half of the warps walks the reverse sweep
-  // into out_b.
-  const bool second = warp >= per_dir;
-  if (second) warp -= per_dir;
-  const bool rev = dirs == 2 ? second : reverse != 0;
+  if (warp >= B * n_chains) return;  // whole warp
+  const bool rev = reverse != 0;
   const long long b = warp / n_chains;
   const long long c = warp - b * n_chains;
 
@@ -322,7 +356,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     l = shift > 0 ? 0 : L - 1;
   }
   const T* cb = cost + b * vb;
-  T* ob = (second ? out_b : out_f) + b * vb;
+  T* ob = out + b * vb;
   const int32_t* ibase = inten + b * ib;
   const int p2min = p1 * 3 / 2;
   const int d0 = lane * K;
@@ -388,41 +422,40 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 }
 
 template <typename T, int K, bool kAdd>
-cudaError_t launch(const void* cost, const void* inten, void* out_f,
-                   void* out_b, int B, int X, int L, int D, long long vb,
-                   long long vx, long long vl, long long ib, long long ix,
-                   long long il, int dirs, int reverse, int shift, int p1,
-                   int p2, cudaStream_t stream) {
+cudaError_t launch(const void* cost, const void* inten, void* out, int B,
+                   int X, int L, int D, long long vb, long long vx,
+                   long long vl, long long ib, long long ix, long long il,
+                   int reverse, int shift, int p1, int p2,
+                   cudaStream_t stream) {
   // Vector loads need every position's depth run aligned to K elements.
   const uintptr_t align = sizeof(T) * K;
   const bool vec = (K == 2 || K == 4) && D % K == 0 && vb % K == 0 &&
                    vx % K == 0 && vl % K == 0 &&
                    reinterpret_cast<uintptr_t>(cost) % align == 0 &&
-                   reinterpret_cast<uintptr_t>(out_f) % align == 0 &&
-                   (dirs == 1 || reinterpret_cast<uintptr_t>(out_b) % align == 0);
+                   reinterpret_cast<uintptr_t>(out) % align == 0;
   const long long n_chains =
       shift ? static_cast<long long>(L) + X - 1 : static_cast<long long>(L);
-  const long long warps = static_cast<long long>(dirs) * B * n_chains;
+  const long long warps = static_cast<long long>(B) * n_chains;
   const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
   sgm_path_kernel<T, K, kAdd>
       <<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(
           static_cast<const T*>(cost), static_cast<const int32_t*>(inten),
-          static_cast<T*>(out_f), static_cast<T*>(out_b), B, X, L, D, vb, vx,
-          vl, ib, ix, il, dirs, reverse, shift, p1, p2, vec);
+          static_cast<T*>(out), B, X, L, D, vb, vx, vl, ib, ix, il, reverse,
+          shift, p1, p2, vec);
   return cudaGetLastError();
 }
 
 template <typename T, bool kAdd>
-cudaError_t launch_k(const void* cost, const void* inten, void* out_f,
-                     void* out_b, int B, int X, int L, int D, long long vb,
-                     long long vx, long long vl, long long ib, long long ix,
-                     long long il, int dirs, int reverse, int shift, int p1,
-                     int p2, cudaStream_t s) {
+cudaError_t launch_k(const void* cost, const void* inten, void* out, int B,
+                     int X, int L, int D, long long vb, long long vx,
+                     long long vl, long long ib, long long ix, long long il,
+                     int reverse, int shift, int p1, int p2,
+                     cudaStream_t s) {
   switch ((D + 31) / 32) {
-    case 1: return launch<T, 1, kAdd>(cost, inten, out_f, out_b, B, X, L, D, vb, vx, vl, ib, ix, il, dirs, reverse, shift, p1, p2, s);
-    case 2: return launch<T, 2, kAdd>(cost, inten, out_f, out_b, B, X, L, D, vb, vx, vl, ib, ix, il, dirs, reverse, shift, p1, p2, s);
-    case 3: return launch<T, 3, kAdd>(cost, inten, out_f, out_b, B, X, L, D, vb, vx, vl, ib, ix, il, dirs, reverse, shift, p1, p2, s);
-    default: return launch<T, 4, kAdd>(cost, inten, out_f, out_b, B, X, L, D, vb, vx, vl, ib, ix, il, dirs, reverse, shift, p1, p2, s);
+    case 1: return launch<T, 1, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 2: return launch<T, 2, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 3: return launch<T, 3, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    default: return launch<T, 4, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
   }
 }
 
@@ -455,9 +488,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// Waits until at most kStages - 2 of this thread's copy groups are pending.
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 2) : "memory");
+// Waits until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // One sweep of the paths selected by `paths` (bit 0: straight, bit 1: +1,
@@ -542,7 +576,7 @@ __global__ void __launch_bounds__(kTile * 32, 2)
   for (int s = 0; s < kStages - 1; ++s) fill(s);
   for (int i = threadIdx.x; i < 256; i += blockDim.x)
     sm.p2a[i] = max(p2min, p2 / (i + 1));
-  cp_async_wait_ring();
+  cp_async_wait<kStages - 2>();
   __syncthreads();
   // P2a of an intensity step; |dI| is the same across the warp.
   auto p2a_of = [&](int i_cur, int i_prev) {
@@ -629,7 +663,7 @@ __global__ void __launch_bounds__(kTile * 32, 2)
       prev_il = sm.inten[q][w];
       prev_ir = sm.inten[q][w + 2];
     }
-    cp_async_wait_ring();  // this thread's copies for step t + 1
+    cp_async_wait<kStages - 2>();  // this thread's copies for step t + 1
     __syncthreads();
   }
 }
@@ -681,35 +715,183 @@ cudaError_t sweep3_per_sm(int* per_sm) {
       per_sm, sgm_sweep3_kernel<K>, kTile * 32, smem);
 }
 
+// One straight sweep of B int16 problems: out = acc + path, or out = path
+// where acc is null. acc may be out (in place); no other warp touches a
+// line, and each position is read into the ring before it is written.
+// async16: every depth run is 16-byte aligned and D % 8 == 0, so the ring
+// is filled by cp.async in 16-byte pieces; otherwise by plain loads.
+template <int K>
+__global__ void __launch_bounds__(kLineWarps * 32)
+    sgm_line_kernel(const int16_t* __restrict__ cost,
+                    const int32_t* __restrict__ inten, const int16_t* acc,
+                    int16_t* out, int B, int X, int L, int D, long long vb,
+                    long long vx, long long vl, long long ib, long long ix,
+                    long long il, int reverse, int p1, int p2, bool vec,
+                    bool async16) {
+  // [warp][stage][cost, acc][d]
+  __shared__ __align__(16) int16_t ring[kLineWarps][kLineStages][2][128];
+  __shared__ int p2a_tab[256];  // P2a by |dI| below 256
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int p2min = p1 * 3 / 2;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    p2a_tab[i] = max(p2min, p2 / (i + 1));
+  __syncthreads();  // the only block barrier
+  const long long line =
+      static_cast<long long>(blockIdx.x) * kLineWarps + w;
+  if (line >= static_cast<long long>(B) * L) return;  // whole warp
+  const long long b = line / L;
+  const long long l = line - b * L;
+  const int16_t* cl = cost + b * vb + l * vl;
+  const int16_t* al = acc == nullptr ? nullptr : acc + b * vb + l * vl;
+  int16_t* ol = out + b * vb + l * vl;
+  const int32_t* il0 = inten + b * ib + l * il;
+  const int d0 = lane * K;
+  auto pos = [&](int t) {
+    return static_cast<long long>(reverse ? X - 1 - t : t);
+  };
+
+  // Ring stage of scan step s, kLineStages - 1 steps ahead of its use; one
+  // copy group per step, empty past the end.
+  auto fill = [&](int s) {
+    if (s < X) {
+      int16_t* rc = ring[w][s % kLineStages][0];
+      int16_t* ra = ring[w][s % kLineStages][1];
+      const long long go = pos(s) * vx;
+      if (async16) {
+        const int chunks = D / 8;
+        const int n = al == nullptr ? chunks : 2 * chunks;
+        for (int c = lane; c < n; c += 32) {
+          if (c < chunks)
+            cp_async16(rc + c * 8, cl + go + c * 8);
+          else
+            cp_async16(ra + (c - chunks) * 8, al + go + (c - chunks) * 8);
+        }
+      } else {
+        for (int d = lane; d < D; d += 32) {
+          rc[d] = cl[go + d];
+          if (al != nullptr) ra[d] = al[go + d];
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // Intensities of scan steps [32c, 32c + 32), lane j holding step 32c + j.
+  auto inten_run = [&](int c) {
+    const int s = c * 32 + lane;
+    return s < X ? il0[pos(s) * ix] : 0;
+  };
+  auto p2a_of = [&](int i_cur, int i_prev) {
+    const int d = abs(i_cur - i_prev);
+    return d < 256 ? p2a_tab[d] : max(p2min, p2 / (d + 1));
+  };
+
+  for (int s = 0; s < kLineStages - 1; ++s) fill(s);
+  int run = inten_run(0), next_run = inten_run(1);
+  int prev[K];
+  int prev_i = 0;
+  for (int t = 0; t < X; ++t) {
+    __syncwarp();  // every lane has read the stage of step t - 1
+    fill(t + kLineStages - 1);  // into that stage
+    cp_async_wait<kLineStages - 1>();  // this lane's copies for step t
+    __syncwarp();  // and every other lane's
+    const int q = t % kLineStages;
+    if (t > 0 && (t & 31) == 0) {
+      run = next_run;
+      next_run = inten_run((t >> 5) + 1);
+    }
+    const int it = __shfl_sync(kFull, run, t & 31);
+    int cur[K], av[K], nv[K];
+    load_k<int16_t, K>(ring[w][q][0] + d0, cur, d0, D, true);
+    if (al != nullptr) load_k<int16_t, K>(ring[w][q][1] + d0, av, d0, D, true);
+    if (t == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) nv[k] = cur[k];
+    } else {
+      min_plus<K, true>(prev, cur, lane, p1, p2a_of(it, prev_i), nv);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (d0 + k >= D) nv[k] = kBig;
+      prev[k] = nv[k];
+      av[k] = al == nullptr ? nv[k] : av[k] + nv[k];
+    }
+    store_k<int16_t, K>(ol + pos(t) * vx + d0, av, d0, D, vec);
+    prev_i = it;
+  }
+}
+
+template <int K>
+cudaError_t launch_line(const void* cost, const void* inten, const void* acc,
+                        void* out, int B, int X, int L, int D, long long vb,
+                        long long vx, long long vl, long long ib,
+                        long long ix, long long il, int reverse, int p1,
+                        int p2, cudaStream_t stream) {
+  const uintptr_t align = sizeof(int16_t) * K;
+  const bool vec = (K == 2 || K == 4) && D % K == 0 && vb % K == 0 &&
+                   vx % K == 0 && vl % K == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % align == 0;
+  const bool async16 =
+      D % 8 == 0 && vb % 8 == 0 && vx % 8 == 0 && vl % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(cost) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(acc) % 16 == 0;
+  const long long lines = static_cast<long long>(B) * L;
+  const long long blocks = (lines + kLineWarps - 1) / kLineWarps;
+  sgm_line_kernel<K>
+      <<<static_cast<unsigned>(blocks), kLineWarps * 32, 0, stream>>>(
+          static_cast<const int16_t*>(cost),
+          static_cast<const int32_t*>(inten),
+          static_cast<const int16_t*>(acc), static_cast<int16_t*>(out), B, X,
+          L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, vec, async16);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// One path of B problems, in one direction (dirs = 1, `reverse` picks it)
-// or in both (dirs = 2: forward into out_f, backward into out_b).
-// elem_bytes = 2 with add = 1: int16 volumes, out += path costs, in place
-// (rows 2-3). elem_bytes = 4 with add = 0: int32 volumes, out = path costs
+// One path of B problems in one direction. elem_bytes = 2 with add = 1:
+// int16 volumes, out += path costs, in place (rows 1-3 on the wide-problem
+// route). elem_bytes = 4 with add = 0: int32 volumes, out = path costs
 // (row 5). cost/out: depth stride 1 and element strides (vb, vx, vl) for
 // problem, scan position and line; inten: int32 with strides (ib, ix, il).
 // shift is 0 (straight) or +-1 (diagonal: the line index moves by shift per
 // scan step). Returns the cudaError_t of the launch.
-extern "C" int sgm_agg_path(const void* cost, const void* inten, void* out_f,
-                            void* out_b, int elem_bytes, int add, int B,
-                            int X, int L, int D, long long vb, long long vx,
-                            long long vl, long long ib, long long ix,
-                            long long il, int dirs, int reverse, int shift,
-                            int p1, int p2, void* stream) {
-  if (B < 1 || X < 1 || L < 1 || D < 1 || D > 128 || shift < -1 ||
-      shift > 1 || dirs < 1 || dirs > 2 || (dirs == 2 && out_b == nullptr))
+extern "C" int sgm_agg_path(const void* cost, const void* inten, void* out,
+                            int elem_bytes, int add, int B, int X, int L,
+                            int D, long long vb, long long vx, long long vl,
+                            long long ib, long long ix, long long il,
+                            int reverse, int shift, int p1, int p2,
+                            void* stream) {
+  if (B < 1 || X < 1 || L < 1 || D < 1 || D > 128 || shift < -1 || shift > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 2 && add)
     return static_cast<int>(launch_k<int16_t, true>(
-        cost, inten, out_f, out_b, B, X, L, D, vb, vx, vl, ib, ix, il, dirs,
-        reverse, shift, p1, p2, s));
+        cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
+        p1, p2, s));
   if (elem_bytes == 4 && !add)
     return static_cast<int>(launch_k<int32_t, false>(
-        cost, inten, out_f, out_b, B, X, L, D, vb, vx, vl, ib, ix, il, dirs,
-        reverse, shift, p1, p2, s));
+        cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
+        p1, p2, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One straight sweep of B int16 problems (rows 2 and 3): out = acc + path
+// costs, in place where acc == out, or out = path costs where acc is null.
+// Strides as for sgm_agg_path. Returns the cudaError_t of the launch.
+extern "C" int sgm_agg_line(const void* cost, const void* inten,
+                            const void* acc, void* out, int B, int X, int L,
+                            int D, long long vb, long long vx, long long vl,
+                            long long ib, long long ix, long long il,
+                            int reverse, int p1, int p2, void* stream) {
+  if (B < 1 || X < 1 || L < 1 || D < 1 || D > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((D + 31) / 32) {
+    case 1: return static_cast<int>(launch_line<1>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
+    case 2: return static_cast<int>(launch_line<2>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
+    case 3: return static_cast<int>(launch_line<3>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
+    default: return static_cast<int>(launch_line<4>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
+  }
 }
 
 // The vertical sweep kernel's geometry for D depths on the current device:

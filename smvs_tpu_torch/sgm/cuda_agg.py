@@ -1,4 +1,4 @@
-"""SGM path-cost aggregation: the CUDA kernel and its plain PyTorch twins.
+"""SGM path-cost aggregation: the CUDA kernels and their plain PyTorch twins.
 
 Port of `smvs_tpu/sgm/pallas_agg.py`. The entry points keep the JAX
 signatures and results, one for each TPU kernel:
@@ -17,15 +17,25 @@ and the two 8-path sums built on them: `aggregate_batch` (B problems,
 rows 1-2, the rectified SGM) and `aggregate` (one problem, row 3, the
 general-warp SGM).
 
-For a CUDA tensor they launch a hand-written kernel of `csrc/sgm_agg.cu`
-or raise: `sgm_sweep3_kernel`, one cooperative launch per sweep carrying
-all its paths, for rows 1 and 4 and `aggregate_batch`'s vertical sweeps;
-`sgm_path_kernel`, one launch per path, for the rest. For a CPU tensor
-they run the plain version below, the `lax.scan` recurrence of
-`smvs_tpu/sgm/stereo.py:aggregate` as a Python loop over the scan axis.
-The TPU's pad to multiples of 8, its VMEM dispatch models and the ``xb``
-blocking of row 4 are not needed: the kernels take any H, W and D <= 128,
-the plane count of both SGM paths.
+`plan_route` chooses from the shape which hand-written kernel of
+`csrc/sgm_agg.cu` runs each sweep of a call, before anything launches:
+`sgm_line_kernel` for a straight-only sweep (the horizontal sweeps, and
+rows 2-3 with shifts (0,)), one launch writing or adding the path costs;
+`sgm_sweep3_kernel` for a sweep of distinct shifts with a diagonal, all
+its paths in one cooperative launch, where one problem fits the blocks
+the card keeps resident; `sgm_path_kernel`, one launch per path, for the
+rest and for row 5. `aggregate_batch` makes 2 line launches (row 2) and 2
+sweep launches (row 1); `aggregate` the same 4, counted as row 3;
+`fused_pass_bidir` 2. The sweeps of one call add into one int16
+accumulator in place: int16 sums wrap modulo 2^16, so their order does
+not change the bits, and no second volume or copy is needed.
+
+For a CUDA tensor the entry points launch those kernels or raise. For a
+CPU tensor they run the same plan through the plain sweep below, the
+`lax.scan` recurrence of `smvs_tpu/sgm/stereo.py:aggregate` as a Python
+loop over the scan axis. The TPU's pad to multiples of 8, its VMEM
+dispatch models and the ``xb`` blocking of row 4 are not needed: the
+kernels take any H, W and D <= 128, the plane count of both SGM paths.
 
 ``launches`` counts kernel launches by TPU kernel row (and nothing else),
 so a run can show which kernels it went through.
@@ -33,6 +43,7 @@ so a run can show which kernels it went through.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -56,6 +67,23 @@ launches = dict.fromkeys(ROWS, 0)  # kernel launches per row
 _lib = None
 _sweep_geometry_cache = {}  # (device, D) -> (tile, edge_words, resident)
 
+TILE = 16  # lines per block of sgm_sweep3_kernel (kTile in the source)
+# Blocks of sgm_sweep3_kernel the H100 keeps resident at once (two per SM,
+# `sweep_geometry` at D = 128). CPU tensors are planned as for that card.
+CPU_RESIDENT = 264
+# The plain run's stand-in for the card's uninitialised output before the
+# first write, so that a plan which adds into it first gives other sums.
+UNSET = 0x2AAA
+
+# One kernel launch of a plan (`plan_route`). kernel: "line", "sweep3" or
+# "path"; scan: the axis of the [B, A, C, D] volume it scans (1 or 2; its
+# lines run along the other); reverse: the direction; mode: "write" (out =
+# path costs), "into" (out = acc + path costs) or "add" (out += path costs
+# in place); shifts: its paths; row: the TPU kernel row it counts under;
+# b0, nb: the problems it takes.
+Launch = collections.namedtuple(
+    "Launch", "kernel scan reverse mode shifts row b0 nb")
+
 
 def reset_launches() -> None:
     """Set every row's launch count to 0."""
@@ -75,18 +103,22 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> str:
-    """Where the built kernel lives, keyed by the source's content."""
+def library_path(defines: tuple = ()) -> str:
+    """Where the built kernels live, keyed by the source's content and the
+    preprocessor ``defines`` (``"NAME=value"``) they were built with."""
+    h = hashlib.sha256()
     with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libsgm_agg_{digest}.so")
+        h.update(f.read())
+    for d in defines:
+        h.update(b"\0" + d.encode())
+    return os.path.join(BUILD_DIR, f"libsgm_agg_{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> str:
+def build(verbose: bool = False, defines: tuple = ()) -> str:
     """Compile `csrc/sgm_agg.cu` for sm_90a with nvcc (once per source
-    version) and return the library path. ``verbose`` prints nvcc's
-    register and spill report."""
-    out = library_path()
+    version and ``defines``) and return the library path. ``verbose``
+    prints nvcc's register and spill report."""
+    out = library_path(defines)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -94,6 +126,7 @@ def build(verbose: bool = False) -> str:
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
+    cmd[1:1] = [f"-D{d}" for d in defines]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
     try:
@@ -110,50 +143,27 @@ def build(verbose: bool = False) -> str:
     return out
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a built library's functions."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.sgm_agg_path.argtypes = ([ptr] * 3 + [i32] * 6 + [i64] * 6
+                                 + [i32] * 4 + [ptr])
+    lib.sgm_agg_line.argtypes = ([ptr] * 4 + [i32] * 4 + [i64] * 6
+                                 + [i32] * 3 + [ptr])
+    lib.sgm_agg_sweep3.argtypes = ([ptr] * 4 + [i32] * 4 + [i64] * 6
+                                   + [i32] * 4 + [ptr])
+    lib.sgm_sweep3_geometry.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+    for fn in (lib.sgm_agg_path, lib.sgm_agg_line, lib.sgm_agg_sweep3,
+               lib.sgm_sweep3_geometry):
+        fn.restype = i32
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.sgm_agg_path
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fn = lib.sgm_agg_sweep3
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fn = lib.sgm_sweep3_geometry
-        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
-        fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(ctypes.CDLL(build()))
     return _lib
-
-
-def _launch_paths(row: str, cost, inten, out, dims, vstrides, istrides,
-                  reverse: bool, shifts: tuple, p1: int, p2: int,
-                  out_b=None) -> None:
-    """One `sgm_path_kernel` launch per path. int16 volumes: ``out += path
-    costs`` in place, and with ``out_b`` the reverse sweep in the same
-    launch (``out_b += reverse path costs``). int32 volumes: ``out = path
-    cost``.
-    """
-    fn = _library().sgm_agg_path
-    B, X, L, D = dims
-    add = cost.dtype == torch.int16
-    with torch.cuda.device(cost.device):
-        stream = torch.cuda.current_stream(cost.device).cuda_stream
-        for shift in shifts:
-            err = fn(cost.data_ptr(), inten.data_ptr(), out.data_ptr(),
-                     None if out_b is None else out_b.data_ptr(),
-                     cost.element_size(), int(add), B, X, L, D, *vstrides,
-                     *istrides, 1 if out_b is None else 2, int(reverse),
-                     int(shift), int(p1), int(p2), stream)
-            if err != 0:
-                raise RuntimeError(f"sgm_agg_path launch failed: CUDA error "
-                                   f"{err}")
-            launches[row] += 1
 
 
 def sweep_geometry(device: torch.device, D: int) -> tuple:
@@ -172,36 +182,16 @@ def sweep_geometry(device: torch.device, D: int) -> tuple:
     return _sweep_geometry_cache[key]
 
 
-def _launch_sweep(row: str, cost, inten, out, dims, vstrides, istrides,
-                  reverse: bool, shifts: tuple, p1: int, p2: int) -> None:
-    """``out += path costs`` of all ``shifts`` (distinct, from 0, +1, -1)
-    in place, in one cooperative `sgm_sweep3_kernel` launch per chunk of
-    problems (one launch unless B problems exceed the resident blocks)."""
-    if len(set(shifts)) != len(shifts) or not set(shifts) <= {0, 1, -1}:
-        raise ValueError(f"the kernel takes distinct shifts from 0, 1 and "
-                         f"-1, got {shifts}")
-    fn = _library().sgm_agg_sweep3
-    B, X, L, D = dims
-    tile, edge_words, resident = sweep_geometry(cost.device, D)
-    tiles = -(-L // tile)
-    paths = sum({0: 1, 1: 2, -1: 4}[s] for s in shifts)
-    vsize, isize = cost.element_size(), inten.element_size()
-    with torch.cuda.device(cost.device):
-        stream = torch.cuda.current_stream(cost.device).cuda_stream
-        for b0, nb in plan_chunks(B, tiles, resident):
-            # Each word carries the scan step that wrote it; -1 is none.
-            edge = torch.full((nb * tiles * edge_words,), -1,
-                              dtype=torch.int64, device=cost.device)
-            voff = b0 * vstrides[0] * vsize
-            err = fn(cost.data_ptr() + voff,
-                     inten.data_ptr() + b0 * istrides[0] * isize,
-                     out.data_ptr() + voff, edge.data_ptr(), nb, X, L, D,
-                     *vstrides, *istrides,
-                     int(reverse), paths, int(p1), int(p2), stream)
-            if err != 0:
-                raise RuntimeError(f"sgm_agg_sweep3 launch failed: CUDA "
-                                   f"error {err}")
-            launches[row] += 1
+def _geometry(cost: torch.Tensor) -> dict:
+    """``plan_route``'s ``resident`` and ``tile`` for ``cost``'s device."""
+    if cost.device.type == "cpu":
+        return {"resident": CPU_RESIDENT, "tile": TILE}
+    tile, _, resident = sweep_geometry(cost.device, cost.shape[-1])
+    return {"resident": resident, "tile": tile}
+
+
+# ---------------------------------------------------------------------------
+# routes
 
 
 def plan_chunks(B: int, tiles: int, resident: int) -> list:
@@ -215,6 +205,149 @@ def plan_chunks(B: int, tiles: int, resident: int) -> list:
                          f"vertical sweep kernel; the card holds {resident}")
     per = resident // tiles
     return [(b, min(per, B - b)) for b in range(0, B, per)]
+
+
+def plan_route(entry: str, B: int, L: int, resident: int,
+               shifts: tuple | None = None, reverse: bool = False,
+               tile: int = TILE) -> list:
+    """The kernel launches (`Launch`) of one call of the entry point
+    ``entry``, in order, chosen from the shape alone.
+
+    B problems whose scan-1 sweep has L lines (W for `aggregate_batch`
+    and `aggregate`, whose horizontal sweeps scan axis 2 with shifts (0,)
+    and vertical ones axis 1 with (0, 1, -1)); ``shifts`` and ``reverse``
+    as the other entry points take them; ``resident`` blocks of ``tile``
+    lines of `sgm_sweep3_kernel` fit the card at once.
+
+    A straight-only sweep takes `sgm_line_kernel` (row 1 keeps its sweep
+    kernel); distinct shifts take `sgm_sweep3_kernel` where one problem
+    fits the resident blocks (in chunks of problems, `plan_chunks`);
+    anything else one `sgm_path_kernel` launch per path. Only the first
+    launch may write ("write" or "into"); a first "add" adds into a copy
+    of acc, and every later launch adds in place.
+    """
+    tiles = -(-L // tile)
+
+    def sweep(row, scan, rev, paths, first, line=True):
+        if paths == (0,) and line:
+            return [Launch("line", scan, rev, first, paths, row, 0, B)]
+        if len(set(paths)) == len(paths) and tiles <= resident:
+            return [Launch("sweep3", scan, rev, "add", paths, row, b0, nb)
+                    for b0, nb in plan_chunks(B, tiles, resident)]
+        return [Launch("path", scan, rev, "add", (s,), row, 0, B)
+                for s in paths]
+
+    if entry in ("aggregate_batch", "aggregate"):
+        h, v = (("fused_pass_batch", "fused_pass")
+                if entry == "aggregate_batch" else ("fused_pass_bidir",) * 2)
+        return (sweep(h, 2, False, (0,), "write") + sweep(h, 2, True, (0,), "add")
+                + sweep(v, 1, False, (0, 1, -1), "add")
+                + sweep(v, 1, True, (0, 1, -1), "add"))
+    shifts = tuple(shifts)
+    valid = set(shifts) <= {0, 1, -1}
+    if entry in ("fused_pass", "fused_pass_loop"):
+        if len(set(shifts)) != len(shifts) or not valid:
+            raise ValueError(f"the kernel takes distinct shifts from 0, 1 "
+                             f"and -1, got {shifts}")
+    if not shifts or not valid:
+        raise ValueError(f"the kernels take one or more shifts from 0, 1 "
+                         f"and -1, got {shifts}")
+    if entry in ("fused_pass", "fused_pass_loop"):
+        return sweep(entry, 1, reverse, shifts, "add", line=False)
+    if entry == "fused_pass_batch":
+        return sweep(entry, 1, reverse, shifts, "into")
+    if entry == "fused_pass_bidir":
+        return (sweep(entry, 1, False, shifts, "into")
+                + sweep(entry, 1, True, shifts, "add"))
+    raise ValueError(f"no route for the entry point {entry!r}")
+
+
+def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
+             on_launch=None) -> torch.Tensor:
+    """Runs ``plan`` over ``cost`` [B, A, C, D] with ``inten`` [B, A, C]
+    int32 and ``acc`` (like ``cost``; None where no launch reads it) and
+    returns the result in ``cost``'s dtype: the kernels for CUDA tensors,
+    the plain sweep for CPU tensors. On the card, ``on_launch(i)`` (if
+    given) is called just before launch i and once after the last (i =
+    ``len(plan)``), where a caller can record CUDA events.
+    """
+    for i, ln in enumerate(plan):
+        if (ln.mode != "add" and i > 0) or (ln.mode == "into" and acc is None):
+            raise ValueError(f"launch {i} cannot {ln.mode}: only the first "
+                             "launch writes, and 'into' reads acc")
+    if acc is None and plan[0].mode == "add":
+        raise ValueError("the plan adds into an accumulator; none given")
+    if cost.device.type == "cpu":
+        return plain_run_plan(plan, cost, inten, acc, p1, p2)
+    lib = _library()
+    B, A, C, D = cost.shape
+    vb, ib = A * C * D, A * C
+    esize = cost.element_size()
+    by_scan = {1: ((A, C), (C * D, D), (C, 1)),
+               2: ((C, A), (D, C * D), (1, C))}
+    out = acc.clone() if plan[0].mode == "add" else torch.empty_like(cost)
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream(cost.device).cuda_stream
+        for i, ln in enumerate(plan):
+            if on_launch is not None:
+                on_launch(i)
+            (X, L), (vx, vl), (ix, il) = by_scan[ln.scan]
+            voff = ln.b0 * vb * esize
+            ptrs = (cost.data_ptr() + voff,
+                    inten.data_ptr() + ln.b0 * ib * inten.element_size())
+            dims = (ln.nb, X, L, D, vb, vx, vl, ib, ix, il, int(ln.reverse))
+            if ln.kernel == "line":
+                src = {"write": None, "into": acc, "add": out}[ln.mode]
+                err = lib.sgm_agg_line(
+                    *ptrs, None if src is None else src.data_ptr() + voff,
+                    out.data_ptr() + voff, *dims, int(p1), int(p2), stream)
+            elif ln.kernel == "sweep3":
+                tile, edge_words, _ = sweep_geometry(cost.device, D)
+                # Each word carries the scan step that wrote it; -1 is none.
+                edge = torch.full((ln.nb * -(-L // tile) * edge_words,), -1,
+                                  dtype=torch.int64, device=cost.device)
+                paths = sum({0: 1, 1: 2, -1: 4}[s] for s in ln.shifts)
+                err = lib.sgm_agg_sweep3(
+                    *ptrs, out.data_ptr() + voff, edge.data_ptr(), *dims,
+                    paths, int(p1), int(p2), stream)
+            else:
+                (shift,) = ln.shifts
+                err = lib.sgm_agg_path(
+                    *ptrs, out.data_ptr() + voff, esize,
+                    int(ln.mode == "add"), *dims, shift, int(p1), int(p2),
+                    stream)
+            if err != 0:
+                raise RuntimeError(f"the {ln.kernel} kernel's launch failed: "
+                                   f"CUDA error {err}")
+            launches[ln.row] += 1
+        if on_launch is not None:
+            on_launch(len(plan))
+    return out
+
+
+def plain_run_plan(plan, cost, inten, acc, p1, p2) -> torch.Tensor:
+    """Plain version of `run_plan`: the plain sweep for each launch, in
+    its mode, in int32 (int16 sums wrap to the same bits at the end)."""
+    if plan[0].mode == "add":
+        out = acc.to(torch.int32, copy=True)
+    else:
+        out = torch.full(cost.shape, UNSET, dtype=torch.int32,
+                         device=cost.device)
+    for ln in plan:
+        pb = slice(ln.b0, ln.b0 + ln.nb)
+        c, i = cost[pb], inten[pb]
+        if ln.scan == 2:
+            c, i = c.transpose(1, 2), i.transpose(1, 2)
+        path = plain_paths(c, i, ln.reverse, ln.shifts, p1, p2)
+        if ln.scan == 2:
+            path = path.transpose(1, 2)
+        if ln.mode == "write":
+            out[pb] = path
+        elif ln.mode == "into":
+            out[pb] = acc[pb].to(torch.int32) + path
+        else:
+            out[pb] += path
+    return out.to(cost.dtype)
 
 
 def _check(cost, inten, acc, vol_ndim: int, dtype=torch.int16) -> None:
@@ -259,12 +392,12 @@ def _min_plus(prev, cost, p1: int, p2a):
     return cost + upd - min_prev
 
 
-def plain_fused_pass_batch(cost, inten, acc, reverse: bool, shifts: tuple,
-                           p1: int, p2: int) -> torch.Tensor:
-    """Plain version of `fused_pass_batch`: returns ``acc`` plus the paths
-    in int32. cost/acc [B, X, L, D], inten [B, X, L]."""
+def plain_paths(cost, inten, reverse: bool, shifts: tuple, p1: int,
+                p2: int) -> torch.Tensor:
+    """The plain sweep: the sum of the path costs of ``shifts`` in int32.
+    cost [B, X, L, D] scanned along X, inten [B, X, L]."""
     B, X, L, D = cost.shape
-    out = acc.to(torch.int32, copy=True)
+    out = torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)
     inten = inten.to(torch.int32)
     order = range(X - 1, -1, -1) if reverse else range(X)
     prevs = [None] * len(shifts)
@@ -289,6 +422,14 @@ def plain_fused_pass_batch(cost, inten, acc, reverse: bool, shifts: tuple,
             out[:, x] += new
         prev_int = it
     return out
+
+
+def plain_fused_pass_batch(cost, inten, acc, reverse: bool, shifts: tuple,
+                           p1: int, p2: int) -> torch.Tensor:
+    """Plain version of `fused_pass_batch`: returns ``acc`` plus the paths
+    in int32. cost/acc [B, X, L, D], inten [B, X, L]."""
+    return acc.to(torch.int32) + plain_paths(cost, inten, reverse, shifts,
+                                             p1, p2)
 
 
 def plain_fused_pass_bidir(cost, inten, acc, shifts: tuple, p1: int,
@@ -325,9 +466,8 @@ def plain_scan_direction(cost, intensity, shift: int, p1: int, p2: int
     """Plain version of `scan_direction`: the path cost [L, X, D] in the
     cost's dtype."""
     c = cost.transpose(0, 1)[None]  # [1, X, L, D]
-    it = intensity.to(cost.dtype).transpose(0, 1)[None]
-    zero = torch.zeros(c.shape, dtype=torch.int32, device=cost.device)
-    out = plain_fused_pass_batch(c, it, zero, False, (shift,), p1, p2)
+    it = intensity.transpose(0, 1)[None]
+    out = plain_paths(c, it, False, (shift,), p1, p2)
     return out[0].transpose(0, 1).to(cost.dtype).contiguous()
 
 
@@ -341,41 +481,36 @@ def fused_pass_batch(cost: torch.Tensor, inten: torch.Tensor,
     """One scan sweep of ``len(shifts)`` paths over B problems.
 
     cost/acc [B, X, L, D] int16 scanned along X; inten [B, X, L] int32.
-    Returns ``acc`` plus the path costs as a new int16 tensor.
+    Returns ``acc`` plus the path costs as a new int16 tensor. On the card
+    (`plan_route`): shifts (0,) is one `sgm_line_kernel` launch writing
+    acc + path into the result; distinct shifts with a diagonal one
+    `sgm_sweep3_kernel` launch; anything else one launch per path.
     """
-    return _fused_pass_batch(cost, inten, acc, reverse, shifts, p1, p2,
-                             "fused_pass_batch")
-
-
-def _fused_pass_batch(cost, inten, acc, reverse, shifts, p1, p2, row,
-                      launch=_launch_paths):
     _check(cost, inten, acc, 4)
-    if cost.device.type == "cpu":
-        return plain_fused_pass_batch(cost, inten, acc, reverse, shifts,
-                                      p1, p2).to(torch.int16)
     B, X, L, D = cost.shape
-    out = acc.clone()
-    launch(row, cost, inten, out, (B, X, L, D), (X * L * D, L * D, D),
-           (X * L, L, 1), reverse, shifts, p1, p2)
-    return out
+    plan = plan_route("fused_pass_batch", B, L, shifts=shifts,
+                      reverse=reverse, **_geometry(cost))
+    return run_plan(plan, cost, inten, acc, p1, p2)
 
 
 def fused_pass(cost: torch.Tensor, inten: torch.Tensor, acc: torch.Tensor,
                reverse: bool, shifts: tuple, p1: int, p2: int,
                loop: bool = False, xb: int = 1) -> torch.Tensor:
-    """One scan sweep of ``len(shifts)`` paths over one [X, L, D] int16
-    volume scanned along X (inten [X, L] int32); returns acc + paths.
+    """One scan sweep of ``len(shifts)`` distinct paths over one [X, L, D]
+    int16 volume scanned along X (inten [X, L] int32); returns acc + paths.
 
     ``loop`` selects the TPU's `fori_loop` kernel (row 4), which computes
     the same result; on the card both forms are one launch of the vertical
-    sweep kernel, counted as row 4 when ``loop`` is set. ``xb``, that
+    sweep kernel, counted as row 4 when ``loop`` is set (one launch per
+    path where the problem is wider than the resident blocks). ``xb``, that
     kernel's scan-block size on the TPU, is taken for the JAX signature and
     not read: the card has no counterpart.
     """
     _check(cost, inten, acc, 3)
-    row = "fused_pass_loop" if loop else "fused_pass"
-    return _fused_pass_batch(cost[None], inten[None], acc[None], reverse,
-                             shifts, p1, p2, row, launch=_launch_sweep)[0]
+    X, L, D = cost.shape
+    plan = plan_route("fused_pass_loop" if loop else "fused_pass", 1, L,
+                      shifts=shifts, reverse=reverse, **_geometry(cost))
+    return run_plan(plan, cost[None], inten[None], acc[None], p1, p2)[0]
 
 
 def fused_pass_bidir(cost: torch.Tensor, inten: torch.Tensor,
@@ -385,28 +520,15 @@ def fused_pass_bidir(cost: torch.Tensor, inten: torch.Tensor,
     int16 volume scanned along X (inten [X, L] int32); returns acc plus the
     forward and the backward paths as a new int16 tensor.
 
-    On the card: one launch per path, its forward chains adding into the
-    result and its backward chains into a second volume, added once at
-    the end.
+    On the card: the forward sweep, then the backward one adding into the
+    same result in place (2 launches for (0,) or distinct shifts with a
+    diagonal; one launch per path and direction otherwise).
     """
     _check(cost, inten, acc, 3)
-    if cost.device.type == "cpu":
-        return plain_fused_pass_bidir(cost, inten, acc, shifts, p1,
-                                      p2).to(torch.int16)
     X, L, D = cost.shape
-    out = acc.clone()
-    _sweep_bidir(cost, inten, out, (1, X, L, D), (X * L * D, L * D, D),
-                 (X * L, L, 1), shifts, p1, p2)
-    return out
-
-
-def _sweep_bidir(cost, inten, out, dims, vstrides, istrides, shifts, p1, p2
-                 ) -> None:
-    """``out += forward and backward paths`` in place (row 3)."""
-    bwd = torch.zeros_like(out)
-    _launch_paths("fused_pass_bidir", cost, inten, out, dims, vstrides,
-                  istrides, False, shifts, p1, p2, out_b=bwd)
-    out += bwd
+    plan = plan_route("fused_pass_bidir", 1, L, shifts=shifts,
+                      **_geometry(cost))
+    return run_plan(plan, cost[None], inten[None], acc[None], p1, p2)[0]
 
 
 def aggregate(cost: torch.Tensor, intensity: torch.Tensor, p1: int, p2: int
@@ -415,22 +537,15 @@ def aggregate(cost: torch.Tensor, intensity: torch.Tensor, p1: int, p2: int
     intensities [H, W]; returns the int16 8-path sum.
 
     Casts like the JAX entry point (cost to int16, intensity to int32).
-    On the card: four bidirectional launches (row 3), one horizontal
-    (scan along W, no transposed copy) and three vertical/diagonal.
+    On the card: `aggregate_batch`'s 4 launches for one problem, counted
+    as row 3.
     """
     cost = cost.to(torch.int16).contiguous()
     intensity = intensity.to(torch.int32).contiguous()
     _check(cost, intensity, None, 3)
-    if cost.device.type == "cpu":
-        return plain_aggregate(cost, intensity, p1, p2).to(torch.int16)
     H, W, D = cost.shape
-    acc = torch.zeros_like(cost)
-    vb, ib = H * W * D, H * W
-    _sweep_bidir(cost, intensity, acc, (1, W, H, D), (vb, D, W * D),
-                 (ib, 1, W), (0,), p1, p2)
-    _sweep_bidir(cost, intensity, acc, (1, H, W, D), (vb, W * D, D),
-                 (ib, W, 1), (0, 1, -1), p1, p2)
-    return acc
+    plan = plan_route("aggregate", 1, W, **_geometry(cost))
+    return run_plan(plan, cost[None], intensity[None], None, p1, p2)[0]
 
 
 def aggregate_batch(cost: torch.Tensor, intensity: torch.Tensor, p1: int,
@@ -438,41 +553,27 @@ def aggregate_batch(cost: torch.Tensor, intensity: torch.Tensor, p1: int,
     """All 8 SGM paths for B cost volumes [B, H, W, D] (values <= 255)
     with intensities [B, H, W]; returns the int16 8-path sum.
 
-    On the card: two horizontal launches (scan along W, no transposed
-    copy), counted as row 2, and one launch of the vertical sweep kernel
-    per vertical direction carrying the straight path and both diagonals,
-    counted as row 1, accumulating in place.
+    On the card: two horizontal `sgm_line_kernel` launches (scan along W,
+    no transposed copy; the first writes the path cost, so nothing is
+    zeroed), counted as row 2, and one `sgm_sweep3_kernel` launch per
+    vertical direction carrying the straight path and both diagonals,
+    counted as row 1, all into one accumulator.
     """
     _check(cost, intensity, None, 4)
-    if cost.device.type == "cpu":
-        return plain_aggregate_batch(cost, intensity, p1, p2).to(torch.int16)
     B, H, W, D = cost.shape
-    acc = torch.zeros_like(cost)
-    vb, ib = H * W * D, H * W
-    for reverse in (False, True):  # horizontal: scan x, lines are rows
-        _launch_paths("fused_pass_batch", cost, intensity, acc, (B, W, H, D),
-                      (vb, D, W * D), (ib, 1, W), reverse, (0,), p1, p2)
-    for reverse in (False, True):  # vertical + diagonals: scan y
-        _launch_sweep("fused_pass", cost, intensity, acc, (B, H, W, D),
-                      (vb, W * D, D), (ib, W, 1), reverse, (0, 1, -1), p1,
-                      p2)
-    return acc
+    plan = plan_route("aggregate_batch", B, W, **_geometry(cost))
+    return run_plan(plan, cost, intensity, None, p1, p2)
 
 
 def scan_direction(cost: torch.Tensor, intensity: torch.Tensor, shift: int,
                    p1: int, p2: int) -> torch.Tensor:
     """One path, one direction, along axis 1 of an int32 cost [L, X, D];
-    intensity [L, X] is cast to the cost's dtype. Returns the path cost
-    [L, X, D] (not accumulated)."""
+    intensity [L, X] is cast to int32. Returns the path cost [L, X, D] (not
+    accumulated): one `sgm_path_kernel` launch on the card."""
     intensity = intensity.to(torch.int32).contiguous()
     if shift not in (-1, 0, 1):
         raise ValueError(f"shift must be -1, 0 or 1, got {shift}")
     _check(cost, intensity, None, 3, dtype=torch.int32)
-    if cost.device.type == "cpu":
-        return plain_scan_direction(cost, intensity, shift, p1, p2)
-    L, X, D = cost.shape
-    out = torch.empty_like(cost)
-    _launch_paths("scan_direction", cost, intensity, out,
-                  (1, X, L, D), (L * X * D, D, X * D), (L * X, 1, X), False,
-                  (shift,), p1, p2)
-    return out
+    plan = [Launch("path", 2, False, "write", (shift,), "scan_direction", 0,
+                   1)]
+    return run_plan(plan, cost[None], intensity[None], None, p1, p2)[0]

@@ -4,7 +4,11 @@ for every TPU kernel row they replace.
 The vertical sweep kernel (rows 1 and 4) gives each block a tile of lines
 and trades the diagonals' edge lines between blocks at every step; the
 shapes below include a ragged last tile, fewer lines than a tile, one
-line, and B = 3, and one test repeats a sweep to catch a rare race.
+line, and B = 3, and one test repeats a sweep to catch a rare race. The
+line kernel (the straight sweeps of rows 2 and 3) is held in both layouts
+the entry points give it and in its three modes (write, add in place,
+acc + path elsewhere), at depth counts that do and do not allow 16-byte
+copies, one scan step, fewer lines than a block, and B = 3.
 
 These tests need a CUDA device and skip without one. This file imports
 neither JAX nor the JAX package, so on the GPU machine it runs without
@@ -105,22 +109,100 @@ def test_vertical_sweep_splits_problems_beyond_the_resident_blocks(cuda):
 
 
 def test_vertical_sweep_rejects_a_problem_beyond_the_resident_blocks(cuda):
+    """The sweep kernel cannot take one problem wider than the resident
+    blocks; the wrapper does not raise but routes it to one
+    `sgm_path_kernel` launch per path, bit-equal to the plain version."""
     tile, _, resident = cuda_agg.sweep_geometry(cuda, 16)
     cost, inten = _volume((2, resident * tile + 1, 16), seed=25, device=cuda)
-    with pytest.raises(ValueError, match="resident blocks"):
-        cuda_agg.fused_pass(cost, inten, torch.zeros_like(cost), False,
-                            (0, 1, -1), 6, 96)
+    acc, _ = _volume((2, resident * tile + 1, 16), seed=26, device=cuda,
+                     hi=500)
+    cuda_agg.reset_launches()
+    got = cuda_agg.fused_pass(cost, inten, acc, False, (0, 1, -1), 6, 96)
+    assert cuda_agg.launches["fused_pass"] == 3
+    want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None], acc[None],
+                                           False, (0, 1, -1), 6, 96)[0]
+    assert torch.equal(got.to(torch.int32), want)
+
+
+def test_aggregate_batch_beyond_the_resident_blocks_equals_plain(cuda):
+    """W one tile more than the resident blocks hold: the vertical sweeps
+    take 3 path launches each, the horizontal ones the line kernel."""
+    tile, _, resident = cuda_agg.sweep_geometry(cuda, 16)
+    cost, inten = _volume((1, 8, (resident + 1) * tile, 16), seed=27,
+                          device=cuda)
+    cuda_agg.reset_launches()
+    got = cuda_agg.aggregate_batch(cost, inten, 6, 96)
+    assert cuda_agg.launches["fused_pass_batch"] == 2
+    assert cuda_agg.launches["fused_pass"] == 6
+    want = cuda_agg.plain_aggregate_batch(cost, inten, 6, 96)
+    assert torch.equal(got.to(torch.int32), want)
+
+
+LINE_SHAPES = [(3, 9, 7, 1), (2, 11, 13, 24), (1, 12, 5, 33),
+               (2, 7, 10, 100), (2, 21, 34, 128), (3, 1, 6, 64),
+               (1, 40, 3, 128), (2, 70, 9, 128)]
+
+
+@pytest.mark.parametrize("mode", ["write", "add", "into"])
+@pytest.mark.parametrize("scan", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", LINE_SHAPES)
+def test_line_kernel_equals_plain(cuda, shape, reverse, scan, mode):
+    """One launch of the line kernel over [B, A, C, D]: scan 1 is the
+    lines-adjacent layout of `fused_pass_batch`, scan 2 the
+    chain-contiguous one of the horizontal sweeps (a line's positions are
+    one run of bytes). X = 1 and 70 scan steps, fewer lines than a block,
+    D from 1 to 128, B = 3."""
+    cost, inten = _volume(shape, seed=sum(shape) + scan, device=cuda)
+    acc, _ = _volume(shape, seed=sum(shape) + 7, device=cuda, hi=500)
+    keep = acc.clone()
+    plan = [cuda_agg.Launch("line", scan, reverse, mode, (0,),
+                            "fused_pass_batch", 0, shape[0])]
+    cuda_agg.reset_launches()
+    got = cuda_agg.run_plan(plan, cost, inten,
+                            None if mode == "write" else acc, 6, 96)
+    torch.cuda.synchronize()
+    assert cuda_agg.launches["fused_pass_batch"] == 1
+    base = torch.zeros_like(acc) if mode == "write" else acc
+    if scan == 1:
+        want = cuda_agg.plain_fused_pass_batch(cost, inten, base, reverse,
+                                               (0,), 6, 96)
+    else:
+        want = cuda_agg.plain_fused_pass_batch(
+            cost.transpose(1, 2), inten.transpose(1, 2),
+            base.transpose(1, 2), reverse, (0,), 6, 96).transpose(1, 2)
+    assert torch.equal(got.to(torch.int32), want)
+    assert torch.equal(acc, keep)  # the input accumulator left untouched
+
+
+def test_line_kernel_repeats_bit_equal(cuda):
+    """Row 2's straight sweep 20 times on one input, each bit-equal to the
+    plain version."""
+    shape = (2, 300, 400, 128)
+    cost, inten = _volume(shape, seed=28, device=cuda)
+    acc, _ = _volume(shape, seed=29, device=cuda, hi=500)
+    want = cuda_agg.plain_fused_pass_batch(cost, inten, acc, True, (0,), 6,
+                                           96)
+    for rep in range(20):
+        cuda_agg.reset_launches()
+        got = cuda_agg.fused_pass_batch(cost, inten, acc, True, (0,), 6, 96)
+        assert cuda_agg.launches["fused_pass_batch"] == 1
+        assert torch.equal(got.to(torch.int32), want), f"repetition {rep}"
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_fused_pass_batch_equals_plain(cuda, reverse):
     cost, inten = _volume((2, 17, 19, 24), seed=5, device=cuda)
     acc = torch.zeros_like(cost)
-    got = cuda_agg.fused_pass_batch(cost, inten, acc, reverse, (0, 1, -1),
-                                    6, 96)
-    want = cuda_agg.plain_fused_pass_batch(cost, inten, acc, reverse,
-                                           (0, 1, -1), 6, 96)
-    assert torch.equal(got.to(torch.int32), want)
+    for shifts, n in (((0, 1, -1), 1), ((0,), 1), ((1,), 1), ((0, 0), 2),
+                      ((1, 0, 1), 3)):
+        cuda_agg.reset_launches()
+        got = cuda_agg.fused_pass_batch(cost, inten, acc, reverse, shifts,
+                                        6, 96)
+        assert cuda_agg.launches["fused_pass_batch"] == n, shifts
+        want = cuda_agg.plain_fused_pass_batch(cost, inten, acc, reverse,
+                                               shifts, 6, 96)
+        assert torch.equal(got.to(torch.int32), want), shifts
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
@@ -153,7 +235,9 @@ def test_aggregate_equals_plain(cuda, shape):
 def test_fused_pass_bidir_equals_plain(cuda, shifts):
     cost, inten = _volume((21, 34, 128), seed=8, device=cuda)
     acc, _ = _volume((21, 34, 128), seed=9, device=cuda, hi=500)
+    cuda_agg.reset_launches()
     got = cuda_agg.fused_pass_bidir(cost, inten, acc, shifts, 6, 96)
+    assert cuda_agg.launches["fused_pass_bidir"] == 2
     want = cuda_agg.plain_fused_pass_bidir(cost, inten, acc, shifts, 6, 96)
     assert torch.equal(got.to(torch.int32), want)
 

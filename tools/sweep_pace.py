@@ -10,8 +10,8 @@ the 1440 rows (one problem, as `fused_pass` takes it, and two, as
 
 - the 3-path sweep through `sgm_sweep3_kernel` (one launch) against the
   same sweep as three `sgm_path_kernel` launches, one per path (the route
-  rows 1 and 4 took before the sweep kernel; `fused_pass_batch` still
-  takes it), in turns, and holds the two bit-equal;
+  rows 1 and 4 took before the sweep kernel, and a problem wider than the
+  resident blocks takes now), in turns, and holds the two bit-equal;
 - `sgm_sweep3_kernel` with the straight path only (no block waits on
   another), one diagonal, and all three paths, to tell the blocks'
   per-step hand-off from the bytes and the arithmetic.
@@ -73,13 +73,16 @@ def main() -> int:
     X = SHAPE[0]
 
     def sweep3(B, shifts):
-        return lambda: cuda_agg._fused_pass_batch(
-            cost[:B], inten[:B], acc[:B], False, shifts, P1, P2,
-            "fused_pass", launch=cuda_agg._launch_sweep)
+        plan = [cuda_agg.Launch("sweep3", 1, False, "add", shifts,
+                                "fused_pass", 0, B)]
+        return lambda: cuda_agg.run_plan(plan, cost[:B], inten[:B], acc[:B],
+                                         P1, P2)
 
     def per_path(B, shifts):
-        return lambda: cuda_agg.fused_pass_batch(
-            cost[:B], inten[:B], acc[:B], False, shifts, P1, P2)
+        plan = [cuda_agg.Launch("path", 1, False, "add", (s,),
+                                "fused_pass", 0, B) for s in shifts]
+        return lambda: cuda_agg.run_plan(plan, cost[:B], inten[:B], acc[:B],
+                                         P1, P2)
 
     cases = {}
     for B in (1, 2):
