@@ -43,11 +43,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
    pairs do not rectify: the chain CLI -> `reconstruct_auto_multi` ->
    `reconstruct_auto`'s general-warp fallback -> `reconstruct` ->
    `aggregate`, with row-3 launches > 0 and no row 1-2 launch, and limits
-   set the same way (`tools/jax_cpu_reference.py forward`).
+   set the same way (`tools/jax_cpu_reference.py forward`);
+9. the SGM kernels beyond their first reach: a repeated shift through
+   `fused_pass` and `fused_pass(loop=True)` (one `sgm_path_kernel` launch
+   per listed path), and every entry point at D = 129, 192, 256 and 512
+   (`sgm_path_kernel` with 8 or 16 depths per lane), each bit-equal to
+   plain on every timed run, with times, at [640, 640, D];
+10. the shading-aware flagship: `bench_main.run_shading_once(1440, 2)`
+   once to warm up, once timed with the kernel's launch counts (rows 1-2
+   > 0), and once with its stages synchronized for their split and its
+   Newton and CG counts; coverage >= 0.85 and median relative error <=
+   1e-2; the fitted lighting finite with band 0 > 0; and one shading
+   assembly of its final surface on the card against the same on the CPU
+   (float64): the norms of g and H within rtol 1e-6 in float64 and 0.1 in
+   float32, and the shading term moving H by more than half;
+11. the CLI with `-S` on the 4-view 1280 x 1280 scene of phase 7: an
+   `smvs-S0` embedding per view, `smvs-S0.ply`, row 1-2 launches > 0, and
+   limits set from the JAX package's CLI with `-S`
+   (`tools/jax_cpu_reference.py shading`).
 
 The launch counts of each path are set to 0 just before it runs and read
 just after; the `launches` of each kernel row come from the path named in
-its `path` key (rows 4 and 5 have no user path). It prints one
+its `path` key (rows 4 and 5 have no user path), and rows 1 and 2 also
+list their launches on the flagship and the CLI with `-S`. It prints one
+`{"flagship": {...}}` line with the flagship's numbers, one
 `{"kernels": [...]}` line with the five TPU kernel rows, each naming the
 CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
 `sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
@@ -58,6 +77,7 @@ CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -82,9 +102,12 @@ from smvs_tpu_torch.core import scene as sc  # noqa: E402
 from smvs_tpu_torch.core import synthetic as syn  # noqa: E402
 from smvs_tpu_torch.device import set_cuda_precision  # noqa: E402
 from smvs_tpu_torch.mesh.ply import load_ply  # noqa: E402
+from smvs_tpu_torch.pipeline import optimizer as O  # noqa: E402
+from smvs_tpu_torch.pipeline.views import make_view  # noqa: E402
 from smvs_tpu_torch.sgm import cuda_agg  # noqa: E402
 from smvs_tpu_torch.sgm import stereo  # noqa: E402
 from smvs_tpu_torch.sgm.stereo import INVALID_COST  # noqa: E402
+from smvs_tpu_torch.solver import gn  # noqa: E402
 
 # H100 SXM memory bandwidth (NVIDIA data sheet; full 700 W power limit).
 # The data sheet gives no peak rate for integer min and add work, so the
@@ -114,6 +137,24 @@ CLI_MAX_ERR = 4.1e-4
 # 640), so the reference is taken at the largest size run on the CPU.
 FORWARD_MIN_POINT_SHARE = 0.71
 FORWARD_MAX_ERR = 1.0e-3
+# Limits of the shading-aware flagship `run_shading_once(1440, 2)`: 90%
+# of the JAX package's coverage on the TPU (0.9397, `bench_r5_final.json`)
+# and an error bound of the JAX package's class there (3.553e-3); its
+# endpoint is chaotic (PERF_NOTES.md r5), so the class, not the digits.
+SHADING_MIN_COVERAGE = 0.85
+SHADING_MAX_ERR = 1e-2
+# The card's shading assembly against the CPU's float64 one (norms of g
+# and H): in float64, and in float32 (see `shading_assembly_check`).
+SHADING_F64_RTOL = 1e-6
+SHADING_F32_RTOL = 0.1
+# Limits of the CLI with -S on 4 x 1280^2, from the JAX package's CLI with
+# -S on the same configuration at dim 640 on the CPU (611,754 points of
+# 4 x 640^2 pixels, 0.3734; median fused error 3.920e-3; PERF.md): 80% of
+# its points per pixel, three times its error.
+SHADING_CLI_MIN_POINT_SHARE = 0.29
+SHADING_CLI_MAX_ERR = 1.2e-2
+DEEP = (129, 192, 256, 512)  # depth counts beyond the line and sweep kernels
+DEEP_HW = 640  # [640, 640, D] problems for them
 
 SOURCE = "smvs_tpu_torch/csrc/sgm_agg.cu"
 # Each row's `pl.pallas_call` and the TPU kernel it runs.
@@ -539,10 +580,11 @@ def fused_error(vertices: np.ndarray, scene, view: int = 1) -> float:
 
 
 def phase_cli(label: str, cameras, min_share: float, max_err: float,
-              rows: tuple) -> dict:
-    """The CLI with its defaults on a 4-view 1280^2 plane scene (``cameras``
-    None: the sideways views of `make_plane_scene`); ``rows`` are the
-    kernel rows its SGM must launch."""
+              rows: tuple, flags: tuple = ()) -> dict:
+    """The CLI with its defaults and ``flags`` on a 4-view 1280^2 plane
+    scene (``cameras`` None: the sideways views of `make_plane_scene`);
+    ``rows`` are the kernel rows its SGM must launch."""
+    name = "smvs-S0" if "-S" in flags else "smvs-B0"
     dim, n_views = 1280, 4
     scene = syn.make_plane_scene(n_views=n_views, dim=dim, cameras=cameras)
     with tempfile.TemporaryDirectory() as path:
@@ -551,7 +593,7 @@ def phase_cli(label: str, cameras, min_share: float, max_err: float,
         cuda_agg.reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            rc = cli.main([path])
+            rc = cli.main([path, *flags])
         seconds = time.perf_counter() - t0
         launches = dict(cuda_agg.launches)
         text = out.getvalue()
@@ -559,10 +601,10 @@ def phase_cli(label: str, cameras, min_share: float, max_err: float,
         if rc != 0:
             raise RuntimeError(f"{label}: the CLI exited with {rc}")
         for v in sc.Scene.load(path).views:
-            if not v.has_embedding("smvs-B0"):
+            if not v.has_embedding(name):
                 raise RuntimeError(f"{label}: view {v.view_id} has no "
-                                   "smvs-B0")
-        ps = load_ply(os.path.join(path, "smvs-B0.ply"))
+                                   f"{name}")
+        ps = load_ply(os.path.join(path, f"{name}.ply"))
     stages = re.search(r"Stage seconds: (.*)", text).group(1)
     share = len(ps.vertices) / (n_views * dim * dim)
     err = fused_error(ps.vertices, scene)
@@ -582,6 +624,213 @@ def phase_cli(label: str, cameras, min_share: float, max_err: float,
     return launches
 
 
+def phase_deep(rows: dict) -> None:
+    """Repeated shifts in rows 1 and 4, and every entry point at D > 128,
+    bit-equal to plain with times; each kernel row gets a ``deep`` entry
+    by D and rows 1 and 4 a ``repeated_shifts`` entry."""
+    hw = DEEP_HW
+    cost, inten = _seeded((hw, hw, 64), 555)
+    g = torch.Generator(device="cuda").manual_seed(556)
+    acc = torch.randint(0, 500, cost.shape, generator=g, device="cuda",
+                        dtype=torch.int16)
+    for loop, row in ((False, "fused_pass"), (True, "fused_pass_loop")):
+        rep = {}
+        for shifts in ((1, 1), (0, 1, 0)):
+            cuda_agg.reset_launches()
+            cuda_agg.fused_pass(cost, inten, acc, False, shifts, P1, P2,
+                                loop=loop)
+            if cuda_agg.launches[row] != len(shifts):
+                raise RuntimeError(f"{row} {shifts}: {cuda_agg.launches}")
+            rep[str(shifts)] = compare(
+                f"{row} repeated shifts {shifts}",
+                lambda: cuda_agg.fused_pass(cost, inten, acc, False, shifts,
+                                            P1, P2, loop=loop),
+                lambda: cuda_agg.plain_fused_pass_batch(
+                    cost[None], inten[None], acc[None], False, shifts, P1,
+                    P2)[0], acc_in=True)
+            rep[str(shifts)]["launches"] = len(shifts)
+        rows[row]["repeated_shifts"] = rep
+    del cost, inten, acc
+
+    for row in cuda_agg.ROWS:
+        rows[row]["deep"] = {}
+    for D in DEEP:
+        cost, inten = _seeded((hw, hw, D), 600 + D)
+        g = torch.Generator(device="cuda").manual_seed(700 + D)
+        acc = torch.randint(0, 500, cost.shape, generator=g, device="cuda",
+                            dtype=torch.int16)
+        b2 = (cost[None], inten[None], acc[None])
+        cases = {
+            "fused_pass": (
+                "aggregate_batch (8 path launches)",
+                lambda: cuda_agg.aggregate_batch(cost[None], inten[None],
+                                                 P1, P2),
+                lambda: cuda_agg.plain_aggregate_batch(cost[None],
+                                                       inten[None], P1, P2),
+                False, 2),
+            "fused_pass_batch": (
+                "fused_pass_batch (0,)",
+                lambda: cuda_agg.fused_pass_batch(*b2, False, (0,), P1, P2),
+                lambda: cuda_agg.plain_fused_pass_batch(*b2, False, (0,), P1,
+                                                        P2), True, 2),
+            "fused_pass_bidir": (
+                "aggregate (8 path launches)",
+                lambda: cuda_agg.aggregate(cost, inten, P1, P2),
+                lambda: cuda_agg.plain_aggregate(cost, inten, P1, P2),
+                False, 2),
+            "fused_pass_loop": (
+                "fused_pass(loop=True) (0, 1, -1)",
+                lambda: cuda_agg.fused_pass(cost, inten, acc, True,
+                                            (0, 1, -1), P1, P2, loop=True),
+                lambda: cuda_agg.plain_fused_pass_batch(
+                    *b2, True, (0, 1, -1), P1, P2)[0], True, 2),
+        }
+        extra = {
+            "fused_pass": (
+                "fused_pass (0, 1, -1)",
+                lambda: cuda_agg.fused_pass(cost, inten, acc, False,
+                                            (0, 1, -1), P1, P2),
+                lambda: cuda_agg.plain_fused_pass_batch(
+                    *b2, False, (0, 1, -1), P1, P2)[0], True, 2),
+            "fused_pass_bidir": (
+                "fused_pass_bidir (0, 1, -1)",
+                lambda: cuda_agg.fused_pass_bidir(cost, inten, acc,
+                                                  (0, 1, -1), P1, P2),
+                lambda: cuda_agg.plain_fused_pass_bidir(cost, inten, acc,
+                                                        (0, 1, -1), P1, P2),
+                True, 2),
+        }
+        for row, (name, fn, plain, acc_in, elem) in cases.items():
+            rows[row]["deep"][D] = {"aggregate" if "aggregate" in name
+                                    else "sweep": compare(
+                                        f"D = {D}: {name}", fn, plain,
+                                        acc_in, elem)}
+        for row, (name, fn, plain, acc_in, elem) in extra.items():
+            rows[row]["deep"][D]["sweep"] = compare(
+                f"D = {D}: {name}", fn, plain, acc_in, elem)
+        cost32 = cost.to(torch.int32) * 300
+        del cost, acc, b2
+        rows["scan_direction"]["deep"][D] = {"sweep": compare(
+            f"D = {D}: scan_direction shift 1",
+            lambda: cuda_agg.scan_direction(cost32, inten, 1, P1, P2),
+            lambda: cuda_agg.plain_scan_direction(cost32, inten, 1, P1, P2),
+            False, 4)}
+        del cost32, inten
+    torch.cuda.empty_cache()
+
+
+def _norms(g, H) -> tuple:
+    return (float(torch.linalg.vector_norm(g.double())),
+            float(torch.linalg.vector_norm(H.double())))
+
+
+def shading_assembly_check(details: dict) -> dict:
+    """One shading assembly of the flagship's final surface on the card
+    and on the CPU (float64), from the same surface, lighting and
+    visibility: a shading stage that silently dropped out or went wrong
+    on the card would pass the error bounds of the whole run.
+
+    The card assembles in float64, whose norms of g and H must equal the
+    CPU's within rtol 1e-6 (the same arithmetic in another order), and in
+    float32, the optimizer's precision, within rtol 0.1 of them: on this
+    converged surface many shading residuals are far below the IRLS floor
+    of 1e-4, where a weight 1/(1e-4 + |r|) turns float32 rounding of
+    ~1e-7 into differences of a few 1e-3 in |g| and ~2e-2 in |H| (the CPU
+    shows the same at dim 128, 8e-4 in |H|). The shading term itself moves
+    H by a factor of ~1000, far beyond either bound."""
+    res, main, subs = details["result"], details["main"], details["subs"]
+    opts = details["opts"]
+    surf = res.surface
+    view = O._build_viewset(main, subs, surf.scale, torch.float32,
+                            use_shading=True)
+    surf, vis = O.compute_visibility(surf, view, None)
+    act = surf.node_valid
+    gopts = gn.GNOptions(regularization=opts.regularization,
+                         light_surf_regularization=(
+                             opts.light_surf_regularization))
+    card32 = _norms(*gn.assemble(surf, view, vis, act, gopts, res.lighting))
+    base = _norms(*gn.assemble(surf, view, vis, act, gopts))
+
+    f64 = torch.float64
+
+    def in_f64(device):
+        views = [make_view(v.camera, v.image.cpu().numpy(), view_id=v.view_id,
+                           device=device, dtype=f64) for v in (main, *subs)]
+        s64 = dataclasses.replace(
+            surf, nodes=surf.nodes.to(device, f64),
+            node_valid=surf.node_valid.to(device),
+            patch_valid=surf.patch_valid.to(device))
+        v64 = O._build_viewset(views[0], views[1:], surf.scale, f64,
+                               use_shading=True)
+        return _norms(*gn.assemble(s64, v64, vis.to(device), act.to(device),
+                                   gopts, res.lighting.to(device, f64)))
+
+    card64, cpu = in_f64(surf.nodes.device), in_f64(torch.device("cpu"))
+    out = {"scale": surf.scale, "card_float32_g_H": card32,
+           "card_float64_g_H": card64, "cpu_float64_g_H": cpu,
+           "card_float32_g_H_without_lighting": base}
+    log(f"shading assembly at scale {surf.scale}: |g|, |H| card float32 "
+        f"{card32[0]:.6e}, {card32[1]:.6e}; card float64 {card64[0]:.9e}, "
+        f"{card64[1]:.9e}; CPU float64 {cpu[0]:.9e}, {cpu[1]:.9e}; card "
+        f"float32 without the lighting {base[0]:.6e}, {base[1]:.6e}")
+    for i, what in enumerate(("g", "H")):
+        if not abs(card64[i] - cpu[i]) <= SHADING_F64_RTOL * cpu[i]:
+            raise RuntimeError(f"the card's float64 shading assembly "
+                               f"|{what}| {card64[i]:.9e} differs from the "
+                               f"CPU's {cpu[i]:.9e}")
+        if not abs(card32[i] - cpu[i]) <= SHADING_F32_RTOL * cpu[i]:
+            raise RuntimeError(f"the card's float32 shading assembly "
+                               f"|{what}| {card32[i]:.6e} differs from the "
+                               f"CPU's float64 {cpu[i]:.6e}")
+    if not abs(card32[1] - base[1]) > 0.5 * card32[1]:
+        raise RuntimeError("the shading term does not move the system")
+    return out
+
+
+def phase_shading() -> dict:
+    dim = 1440
+    t0 = time.perf_counter()
+    bench_main.run_shading_once(dim, 2, device="cuda")
+    log(f"warm-up run_shading_once({dim}, 2): "
+        f"{time.perf_counter() - t0:.1f} s")
+    details = {}
+    cuda_agg.reset_launches()
+    t_sgm, t_opt, cov, err = bench_main.run_shading_once(
+        dim, 2, device="cuda", details=details)
+    launches = dict(cuda_agg.launches)
+    mps = dim * dim / 1e6 / (t_sgm + t_opt)
+    light = details["result"].lighting
+    log(f"run_shading_once({dim}, 2): sgm {t_sgm:.3f} s, optimizer "
+        f"{t_opt:.3f} s, {mps:.3f} MP/s, coverage {cov:.4f}, median_rel_err "
+        f"{err:.3e}, kernel launches {launches}")
+    if launches["fused_pass"] <= 0 or launches["fused_pass_batch"] <= 0:
+        raise RuntimeError("the flagship did not launch the SGM kernels")
+    if light is None or not bool(torch.isfinite(light).all()) or \
+            not float(light[0]) > 0:
+        raise RuntimeError(f"the fitted lighting is not usable: {light}")
+    log("lighting: " + " ".join(f"{x:.4e}" for x in light.tolist()))
+    if not cov >= SHADING_MIN_COVERAGE:
+        raise RuntimeError(f"flagship coverage {cov:.4f} < "
+                           f"{SHADING_MIN_COVERAGE}")
+    if not err <= SHADING_MAX_ERR:
+        raise RuntimeError(f"flagship median_rel_err {err:.3e} > "
+                           f"{SHADING_MAX_ERR}")
+    assembly = shading_assembly_check(details)
+    del details
+    # The optimizer's stage split, Newton steps and CG iterations per step,
+    # with the device synchronized at each stage boundary.
+    _, t_opt_sync, cov_s, err_s = bench_main.run_shading_once(
+        dim, 2, device="cuda", sync_stages=True,
+        log=lambda m: log("\n".join("  flagship: " + x
+                                     for x in str(m).splitlines())))
+    log(f"run_shading_once({dim}, 2) with synchronized stages: optimizer "
+        f"{t_opt_sync:.3f} s, coverage {cov_s:.4f}, median_rel_err "
+        f"{err_s:.3e}")
+    return {"t_sgm": t_sgm, "t_opt": t_opt, "mps": mps, "coverage": cov,
+            "median_rel_err": err, "launches": launches,
+            "lighting": light.tolist(), "assembly": assembly}
+
+
 def main() -> int:
     set_cuda_precision()
     device = phase_card()
@@ -596,6 +845,11 @@ def main() -> int:
     forward = phase_cli("cli forward", syn.forward_cameras(),
                         FORWARD_MIN_POINT_SHARE, FORWARD_MAX_ERR,
                         ("fused_pass_bidir",))
+    phase_deep(rows)
+    shading = phase_shading()
+    shading_cli = phase_cli("cli -S", None, SHADING_CLI_MIN_POINT_SHARE,
+                            SHADING_CLI_MAX_ERR,
+                            ("fused_pass", "fused_pass_batch"), flags=("-S",))
     main_path = "bench_main.run_once(1440, 2): rectified SGM"
     path_launches = {  # (path, launches on it)
         "fused_pass": (main_path, main_launches["fused_pass"]),
@@ -605,6 +859,10 @@ def main() -> int:
         "fused_pass_loop": (None, 0),  # tests only: no user path
         "scan_direction": (None, 0),  # tests only: no user path
     }
+    flagship = "bench_main.run_shading_once(1440, 2): rectified SGM of 2 pairs"
+    for row in ("fused_pass", "fused_pass_batch"):
+        rows[row]["other_paths"] = {flagship: shading["launches"][row],
+                                    "CLI -S on 4 x 1280^2": shading_cli[row]}
     kernels = []
     for row in cuda_agg.ROWS:
         r = rows[row]
@@ -625,6 +883,7 @@ def main() -> int:
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
         })
+    print(json.dumps({"flagship": shading}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -1,14 +1,18 @@
-"""The port's main path: one ~2 MP view against one neighbor, base mode.
+"""The port's benchmark paths: one ~2 MP view, base mode and shading-aware.
 
 `run_once` mirrors `bench.py:run_once` of the JAX package: the synthetic
 two-view scene with a resolution-independent slanted plane, rectified SGM,
-then the coarse-to-fine optimizer from the SGM depth. It returns
-``(t_sgm, t_opt, coverage, median_rel_err)``, the times in seconds on the
-host clock around work that ends in a device synchronize.
+then the coarse-to-fine optimizer from the SGM depth. `run_shading_once`
+mirrors `bench.py:run_shading_once`, the flagship: the 3-view plane scene,
+the SGM of both neighbors averaged, then the shading-aware (`-S`)
+optimizer against both. Each returns ``(t_sgm, t_opt, coverage,
+median_rel_err)``, the times in seconds on the host clock around work
+that ends in a device synchronize.
 
 Run it directly for one warm-up and one timed pass on the GPU:
 
     python -m smvs_tpu_torch.bench_main --dim 1440 --min-scale 2
+    python -m smvs_tpu_torch.bench_main --dim 1440 --shading
 
 ``--profile DIR`` adds one pass under `torch.profiler` and writes its
 table of device time by operation to ``DIR/profile_<dim>.txt``; and one
@@ -28,7 +32,8 @@ import torch
 
 from torch.profiler import record_function
 
-from smvs_tpu_torch.core.synthetic import make_two_view_scene
+from smvs_tpu_torch.core.synthetic import (make_plane_scene,
+                                           make_two_view_scene)
 from smvs_tpu_torch.device import resolve_device, synchronize
 from smvs_tpu_torch.pipeline import optimizer as O
 from smvs_tpu_torch.pipeline.views import make_view
@@ -78,6 +83,57 @@ def run_once(dim: int, min_scale: int,
                                  device=dev, log=log)
         synchronize(dev)
     t_opt = time.perf_counter() - t0
+
+    depth = result.depth.cpu().numpy()
+    mask = depth > 0
+    gt = scene.depths[1]
+    rel = np.abs(depth[mask] - gt[mask]) / gt[mask]
+    return t_sgm, t_opt, float(mask.mean()), float(np.median(rel))
+
+
+def run_shading_once(dim: int, min_scale: int,
+                     device: str | torch.device | None = None,
+                     verbose: bool = False, sync_stages: bool = False,
+                     log=None, details: dict | None = None):
+    """The flagship, shading-aware (`-S`) with 2 neighbors on the 3-view
+    plane scene -> (t_sgm, t_opt, coverage, median_rel_err), with the
+    options of `bench.py:run_shading_once`. ``verbose`` and
+    ``sync_stages`` as for `run_once`; ``log`` (a callable) receives the
+    optimizer's progress lines and stage report instead of stderr;
+    ``details`` (a dict), if given, receives the optimizer's `DepthResult`
+    ("result"), the views ("main", "subs") and its options ("opts").
+    """
+    dev = resolve_device(device)
+    if log is None and verbose:
+        log = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
+    scene = make_plane_scene(n_views=3, dim=dim)
+    views = [make_view(scene.cameras[i], scene.images[i], view_id=i,
+                       device=dev) for i in range(3)]
+    main_v = views[1]
+    subs = [views[0], views[2]]
+    synchronize(dev)  # images resident before the clock starts
+
+    t0 = time.perf_counter()
+    with record_function(SPANS[0]):
+        sgm_depth = sgm.reconstruct_auto_multi(
+            scene.cameras[1], [scene.cameras[s.view_id] for s in subs],
+            main_v.image * 255.0, [s.image * 255.0 for s in subs],
+            (3.4, 6.6), [(3.4, 6.6)] * len(subs), device=dev)
+        synchronize(dev)
+    t_sgm = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    opts = O.OptimizerOptions(
+        regularization=0.01, light_surf_regularization=0.0,
+        num_iterations=5, min_scale=min_scale, use_sgm=True,
+        use_shading=True, debug_lvl=2 if sync_stages else 0)
+    with record_function(SPANS[1]):
+        result = O.optimize_view(main_v, subs, opts, sgm_depth=sgm_depth,
+                                 device=dev, log=log)
+        synchronize(dev)
+    t_opt = time.perf_counter() - t0
+    if details is not None:
+        details.update(result=result, main=main_v, subs=subs, opts=opts)
 
     depth = result.depth.cpu().numpy()
     mask = depth > 0
@@ -149,14 +205,20 @@ def main(argv=None) -> int:
     ap.add_argument("--dim", type=int, default=1440)
     ap.add_argument("--min-scale", type=int, default=2)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--shading", action="store_true",
+                    help="the shading-aware flagship (run_shading_once)")
     ap.add_argument("--profile", metavar="DIR", default=None)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    run_once(args.dim, args.min_scale, dev)  # warm-up
-    t_sgm, t_opt, cov, err = run_once(args.dim, args.min_scale, dev,
-                                      verbose=True)
+    if args.shading and args.profile:
+        ap.error("--profile traces run_once only")
+    run = run_shading_once if args.shading else run_once
+    run(args.dim, args.min_scale, dev)  # warm-up
+    t_sgm, t_opt, cov, err = run(args.dim, args.min_scale, dev,
+                                 verbose=True)
     out = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
-           else "cpu", "dim": args.dim, "t_sgm": t_sgm, "t_opt": t_opt,
+           else "cpu", "path": run.__name__, "dim": args.dim,
+           "t_sgm": t_sgm, "t_opt": t_opt,
            "mps": args.dim * args.dim / 1e6 / (t_sgm + t_opt),
            "coverage": cov, "median_rel_err": err}
     if args.profile:

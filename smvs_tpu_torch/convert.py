@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from smvs_tpu_torch.core.camera import Camera
+from smvs_tpu_torch.pipeline.optimizer import DepthResult
 from smvs_tpu_torch.pipeline.views import StereoViewState, make_view
 from smvs_tpu_torch.solver.gn import ViewSet
 from smvs_tpu_torch.surface.state import Surface
@@ -57,13 +58,37 @@ def surface(nodes, node_valid, patch_valid, meta: dict, device) -> Surface:
         start_y=int(meta["start_y"]))
 
 
-def viewset(grad_main, sub_gh, M, t, flen, device) -> ViewSet:
-    """A ViewSet from its arrays (``sub_gh`` f32 [N,H,W,5] or bf16 [N,H,W,10])."""
+def viewset(grad_main, sub_gh, M, t, flen, device, shading_gi=None
+            ) -> ViewSet:
+    """A ViewSet from its arrays (``sub_gh`` f32 [N,H,W,5] or bf16
+    [N,H,W,10]; ``shading_gi`` [H, W, 3] or None)."""
     g = tensor(grad_main, device)
     return ViewSet(grad_main=g, sub_gh=tensor(sub_gh, device),
                    M=tensor(M, device, g.dtype), t=tensor(t, device, g.dtype),
                    flen=torch.as_tensor(float(flen), dtype=g.dtype,
-                                        device=device))
+                                        device=device),
+                   shading_gi=None if shading_gi is None
+                   else tensor(shading_gi, device, g.dtype))
+
+
+def lighting(params, device, dtype: torch.dtype | None = None
+             ) -> torch.Tensor:
+    """16 SH lighting coefficients (numpy [16]) -> tensor on ``device``."""
+    t = tensor(params, device, dtype)
+    if t.shape != (16,):
+        raise ValueError(f"lighting has 16 coefficients, got {tuple(t.shape)}")
+    return t
+
+
+def depth_result(depth, normals, surf: Surface, params=None) -> DepthResult:
+    """A DepthResult from a depth map [H, W], a normal map [H, W, 3], the
+    port's surface (`surface`) and the lighting [16] or None, on the
+    surface's device."""
+    dev = surf.nodes.device
+    return DepthResult(depth=tensor(depth, dev), normals=tensor(normals, dev),
+                       surface=surf,
+                       lighting=None if params is None
+                       else lighting(params, dev))
 
 
 def options(cls, d: dict):

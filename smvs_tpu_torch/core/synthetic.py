@@ -1,9 +1,11 @@
 """Synthetic scenes with analytic ground truth (numpy).
 
-The port's own copy of `make_two_view_scene`, `make_plane_scene` and
-`save_as_mve_scene` of `smvs_tpu/core/synthetic.py`. The arithmetic is
-the same numpy code, so the images and depths are bit-equal to the JAX
-package's scenes, and a saved scene loads in either package.
+The port's own copy of `make_two_view_scene`, `make_plane_scene`,
+`make_lambertian_sphere_scene` and `save_as_mve_scene` of
+`smvs_tpu/core/synthetic.py`. The arithmetic is the same numpy code (the
+sphere's SH shading in float64 through `shading.sh`), so the images and
+depths equal the JAX package's scenes, and a saved scene loads in either
+package.
 """
 
 from __future__ import annotations
@@ -12,9 +14,11 @@ import dataclasses
 import os
 
 import numpy as np
+import torch
 
 from smvs_tpu_torch.core import scene as sc
 from smvs_tpu_torch.core.camera import Camera
+from smvs_tpu_torch.shading import sh as shmod
 
 
 @dataclasses.dataclass
@@ -153,15 +157,7 @@ def make_plane_scene(
         )
 
     if cameras is None:
-        cameras = []
-        for i in range(n_views):
-            angle = 0.04 * (i - (n_views - 1) / 2)
-            ca, sa = np.cos(angle), np.sin(angle)
-            rot = np.array([[ca, 0, -sa], [0, 1, 0], [sa, 0, ca]])
-            cam_pos = np.array([baseline * (i - (n_views - 1) / 2), 0.0,
-                                0.0])
-            trans = -rot @ cam_pos
-            cameras.append(Camera(flen=1.0, rot=rot, trans=trans))
+        cameras = _sideways_cameras(n_views, baseline)
 
     images, depths = [], []
     xs, ys = np.meshgrid(np.arange(dim), np.arange(dim), indexing="xy")
@@ -177,6 +173,71 @@ def make_plane_scene(
         P = C + s[..., None] * dir_world
         depths.append(s.copy())  # z-depth: dir_cam's z-component is 1
         images.append(texture(P[..., 0], P[..., 1]).astype(np.float32))
+    return SyntheticScene(cameras=cameras, images=images, depths=depths,
+                          width=dim, height=dim)
+
+
+def _sideways_cameras(n_views: int, baseline: float) -> list[Camera]:
+    cameras = []
+    for i in range(n_views):
+        angle = 0.04 * (i - (n_views - 1) / 2)
+        ca, sa = np.cos(angle), np.sin(angle)
+        rot = np.array([[ca, 0, -sa], [0, 1, 0], [sa, 0, ca]])
+        cam_pos = np.array([baseline * (i - (n_views - 1) / 2), 0.0, 0.0])
+        trans = -rot @ cam_pos
+        cameras.append(Camera(flen=1.0, rot=rot, trans=trans))
+    return cameras
+
+
+def make_lambertian_sphere_scene(
+    n_views: int = 3,
+    dim: int = 200,
+    center=(0.0, 0.0, 6.0),
+    radius: float = 2.8,
+    baseline: float = 0.15,
+    light_params: np.ndarray | None = None,
+) -> SyntheticScene:
+    """N views of a textureless Lambertian sphere under SH lighting: the
+    shape-from-shading ground truth of the `-S` path. Uniform albedo,
+    intensity = SH(light, world normal) clipped to [0, 1], exact per-pixel
+    ray-sphere depth; background pixels get depth 0 and intensity 0 (below
+    the lighting fit's 0.05 gate)."""
+    if light_params is None:
+        # gentle directional lighting over a positive ambient floor
+        light_params = np.zeros(16)
+        light_params[0] = 0.55
+        light_params[1] = 0.18   # x band
+        light_params[2] = -0.12  # y band
+        light_params[3] = -0.25  # z band (camera-facing normals have z<0)
+    O = np.asarray(center, np.float64)
+
+    images, depths = [], []
+    xs, ys = np.meshgrid(np.arange(dim), np.arange(dim), indexing="xy")
+    cameras = _sideways_cameras(n_views, baseline)
+    for cam in cameras:
+        inv = cam.inverse_calibration(dim, dim)
+        dir_cam = np.stack(
+            [inv[0, 0] * (xs + 0.5) + inv[0, 2],
+             inv[1, 1] * (ys + 0.5) + inv[1, 2],
+             np.ones_like(xs, dtype=np.float64)], axis=-1)
+        dir_world = dir_cam @ cam.rot  # R^T d
+        C = cam.cam_position()
+        # |C + s*d - O|^2 = r^2, near root; z-depth = s (dir_cam z == 1).
+        oc = C - O
+        a = np.sum(dir_world**2, axis=-1)
+        b = 2.0 * (dir_world @ oc)
+        c = oc @ oc - radius * radius
+        disc = b * b - 4.0 * a * c
+        hit = disc > 0.0
+        s = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0.0))) / (2.0 * a),
+                     0.0)
+        P = C + s[..., None] * dir_world
+        n_world = (P - O) / radius
+        basis = shmod.eval_4_band(torch.from_numpy(n_world.reshape(-1, 3)))
+        val = basis.numpy() @ np.asarray(light_params)
+        val = np.clip(val.reshape(dim, dim), 0.0, 1.0)
+        images.append(np.where(hit, val, 0.0).astype(np.float32))
+        depths.append(np.where(hit, s, 0.0))
     return SyntheticScene(cameras=cameras, images=images, depths=depths,
                           width=dim, height=dim)
 

@@ -25,8 +25,9 @@
 //   with distinct shifts that include a diagonal, whose problem fits the
 //   resident blocks (the vertical sweeps of aggregate_batch and aggregate);
 // - sgm_path_kernel: row 5, and one launch per path of a sweep that the
-//   other two cannot take (a repeated shift, or a problem wider than the
-//   resident blocks of sgm_sweep3_kernel).
+//   other two cannot take (a repeated shift, in any row; a problem wider
+//   than the resident blocks of sgm_sweep3_kernel; or more than 128
+//   depths, up to 512).
 //
 // Recurrence, per line and depth d (int32 arithmetic):
 //   new[d] = cost[d] + min(prev[d], prev[d-1] + P1, prev[d+1] + P1,
@@ -36,7 +37,9 @@
 // diagonal, where it enters through the border line.
 //
 // Every kernel holds the D depths of a line in registers across the 32
-// lanes of a warp (K = ceil(D/32) per lane, 4 at D = 128); prev[d +- 1]
+// lanes of a warp (K = ceil(D/32) per lane, 4 at D = 128). The line and
+// sweep kernels take K <= 4; sgm_path_kernel also K = 8 and 16 (D <= 256
+// and <= 512), whose lanes hold 2 and 4 times the state. prev[d +- 1]
 // across lanes come from __shfl_up/down_sync. Depths d >= D hold BIG and
 // take no part in a neighbour; costs stay below BIG - P2, so they never
 // win a min either. P2a is computed in the kernel from the int32
@@ -137,6 +140,9 @@ constexpr int kBig = 1 << 24;
 constexpr int kWarpsPerBlock = 8;   // sgm_path_kernel
 constexpr int kTile = 16;           // lines (one warp each) per sweep block
 constexpr int kEdge = 128;          // words per edge line (32 lanes x K <= 4)
+// Depths sgm_path_kernel takes (32 lanes x K <= 16); the line and sweep
+// kernels take D <= 128 (K <= 4).
+constexpr int kPathMaxD = 512;
 constexpr int kStages = 4;          // scan positions in a sweep block's ring
 // sgm_line_kernel: warps per block and scan positions in a warp's ring.
 // Small blocks of one line per warp balance the SMs: the main path's
@@ -156,6 +162,8 @@ constexpr int kLineStages = SGM_LINE_STAGES;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Loads depths [d0, d0 + K) of one position; depths >= D read as 0.
+// vec: the whole run is aligned to sizeof(T) * K bytes (at most 16 bytes
+// used per access).
 template <typename T, int K>
 __device__ __forceinline__ void load_k(const T* p, int (&v)[K], int d0, int D,
                                        bool vec) {
@@ -183,6 +191,17 @@ __device__ __forceinline__ void load_k(const T* p, int (&v)[K], int d0, int D,
       const int2 s = *reinterpret_cast<const int2*>(p);
       v[0] = s.x;
       v[1] = s.y;
+      return;
+    } else if constexpr ((sizeof(T) * K) % 16 == 0) {
+      // K = 8 or 16 (D > 128): 16-byte pieces of 16 / sizeof(T) depths.
+      constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+      for (int c = 0; c < K / kPer; ++c) {
+        const int4 s = reinterpret_cast<const int4*>(p)[c];
+        const T* e = reinterpret_cast<const T*>(&s);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) v[c * kPer + j] = static_cast<int>(e[j]);
+      }
       return;
     }
   }
@@ -214,6 +233,17 @@ __device__ __forceinline__ void store_k(T* p, const int (&v)[K], int d0, int D,
       return;
     } else if constexpr (sizeof(T) == 4 && K == 2) {
       *reinterpret_cast<int2*>(p) = make_int2(v[0], v[1]);
+      return;
+    } else if constexpr ((sizeof(T) * K) % 16 == 0) {
+      constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+      for (int c = 0; c < K / kPer; ++c) {
+        int4 s;
+        T* e = reinterpret_cast<T*>(&s);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) e[j] = static_cast<T>(v[c * kPer + j]);
+        reinterpret_cast<int4*>(p)[c] = s;
+      }
       return;
     }
   }
@@ -327,8 +357,8 @@ __device__ __forceinline__ void poll_edge(const unsigned long long* p,
   } while (!__all_sync(kFull, ok));
 }
 
-// kAdd: out += path (int16, rows 1-3 on the wide-problem route);
-// otherwise out = path (int32, row 5).
+// kAdd: out += path (int16); otherwise out = path (int32 for row 5, int16
+// for the first launch of an 8-path sum at D > 128).
 template <typename T, int K, bool kAdd>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     sgm_path_kernel(const T* __restrict__ cost,
@@ -429,8 +459,8 @@ cudaError_t launch(const void* cost, const void* inten, void* out, int B,
                    cudaStream_t stream) {
   // Vector loads need every position's depth run aligned to K elements.
   const uintptr_t align = sizeof(T) * K;
-  const bool vec = (K == 2 || K == 4) && D % K == 0 && vb % K == 0 &&
-                   vx % K == 0 && vl % K == 0 &&
+  const bool vec = (K == 2 || K == 4 || K == 8 || K == 16) && D % K == 0 &&
+                   vb % K == 0 && vx % K == 0 && vl % K == 0 &&
                    reinterpret_cast<uintptr_t>(cost) % align == 0 &&
                    reinterpret_cast<uintptr_t>(out) % align == 0;
   const long long n_chains =
@@ -455,7 +485,11 @@ cudaError_t launch_k(const void* cost, const void* inten, void* out, int B,
     case 1: return launch<T, 1, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
     case 2: return launch<T, 2, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
     case 3: return launch<T, 3, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
-    default: return launch<T, 4, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 4: return launch<T, 4, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 5: case 6: case 7: case 8:
+      return launch<T, 8, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    default:
+      return launch<T, 16, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
   }
 }
 
@@ -848,24 +882,32 @@ cudaError_t launch_line(const void* cost, const void* inten, const void* acc,
 
 }  // namespace
 
-// One path of B problems in one direction. elem_bytes = 2 with add = 1:
-// int16 volumes, out += path costs, in place (rows 1-3 on the wide-problem
-// route). elem_bytes = 4 with add = 0: int32 volumes, out = path costs
-// (row 5). cost/out: depth stride 1 and element strides (vb, vx, vl) for
-// problem, scan position and line; inten: int32 with strides (ib, ix, il).
-// shift is 0 (straight) or +-1 (diagonal: the line index moves by shift per
-// scan step). Returns the cudaError_t of the launch.
+// One path of B problems in one direction. elem_bytes = 2: int16
+// volumes, out += path costs in place (add = 1; rows 1-3 beyond the other
+// kernels' reach), or out = path costs (add = 0; the first launch of an
+// 8-path sum at D > 128). elem_bytes = 4 with add = 0: int32 volumes, out
+// = path costs (row 5). 1 <= D <= kPathMaxD: the depths per lane K =
+// ceil(D / 32) is a template parameter, instantiated for 1-4, 8 and 16.
+// cost/out: depth stride 1 and element strides (vb, vx, vl) for problem,
+// scan position and line; inten: int32 with strides (ib, ix, il). shift is
+// 0 (straight) or +-1 (diagonal: the line index moves by shift per scan
+// step). Returns the cudaError_t of the launch.
 extern "C" int sgm_agg_path(const void* cost, const void* inten, void* out,
                             int elem_bytes, int add, int B, int X, int L,
                             int D, long long vb, long long vx, long long vl,
                             long long ib, long long ix, long long il,
                             int reverse, int shift, int p1, int p2,
                             void* stream) {
-  if (B < 1 || X < 1 || L < 1 || D < 1 || D > 128 || shift < -1 || shift > 1)
+  if (B < 1 || X < 1 || L < 1 || D < 1 || D > kPathMaxD || shift < -1 ||
+      shift > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 2 && add)
     return static_cast<int>(launch_k<int16_t, true>(
+        cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
+        p1, p2, s));
+  if (elem_bytes == 2 && !add)
+    return static_cast<int>(launch_k<int16_t, false>(
         cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
         p1, p2, s));
   if (elem_bytes == 4 && !add)

@@ -3,7 +3,9 @@ reference `lib/stereo_view.h/.cc`).
 
 Caches the float image and, per scale, its blur (scale space by blur, not
 downsampling, reference `lib/stereo_view.cc:27-31`) with the quadratic-fit
-gradients and Hessian. The shading images wait for the shading port.
+gradients and Hessian, and the shading image of a gray view with its
+gradients. Color views and the sRGB decode of the shading image
+(``gamma_correction``) are not ported yet (ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -28,12 +30,14 @@ class ScaleImages:
 
 @dataclasses.dataclass
 class StereoViewState:
-    """One view: camera + image scale space (by blur)."""
+    """One view: camera + image scale space (by blur) + shading image."""
 
     camera: Camera
     image: torch.Tensor  # gray float [H, W] in [0, 1]
     view_id: int = 0
+    gamma_correction: bool = False
     _scales: dict = dataclasses.field(default_factory=dict)
+    _shading: tuple | None = None
 
     @property
     def width(self) -> int:
@@ -60,12 +64,27 @@ class StereoViewState:
             self._scales[scale] = ScaleImages(blurred, grad, hess)
         return self._scales[scale]
 
+    def shading_images(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(shading image [H, W], its gradients [2, H, W]), cached: the
+        gray image itself (reference `StereoView::initialize_linear`,
+        `lib/stereo_view.cc:64-84`)."""
+        if self.gamma_correction:
+            raise NotImplementedError(
+                "the sRGB decode of the shading image (gamma_correction) is "
+                "not ported yet (ROADMAP.md queue 1, item 2)")
+        if self._shading is None:
+            grad, _ = igrad.gradients_and_hessian(self.image)
+            self._shading = (self.image, grad)
+        return self._shading
+
 
 def make_view(camera: Camera, image, view_id: int = 0,
               device: str | torch.device | None = None,
-              dtype=torch.float32) -> StereoViewState:
+              dtype=torch.float32, gamma_correction: bool = False
+              ) -> StereoViewState:
     """A view from a gray [H, W] image on ``device`` (the GPU unless
-    ``"cpu"`` is passed)."""
+    ``"cpu"`` is passed). ``gamma_correction`` asks for the sRGB decode of
+    the shading image, which raises when the shading image is made."""
     dev = resolve_device(device)
     if isinstance(image, torch.Tensor):
         img = image.to(device=dev, dtype=dtype)
@@ -74,5 +93,6 @@ def make_view(camera: Camera, image, view_id: int = 0,
     if img.ndim != 2:
         raise NotImplementedError(
             "color views (luminance and the shading image) are not ported "
-            "yet (ROADMAP.md queue 1)")
-    return StereoViewState(camera=camera, image=img, view_id=view_id)
+            "yet (ROADMAP.md queue 1, item 2)")
+    return StereoViewState(camera=camera, image=img, view_id=view_id,
+                           gamma_correction=gamma_correction)

@@ -4,8 +4,8 @@ Port of `smvs_tpu/sgm/pallas_agg.py`. The entry points keep the JAX
 signatures and results, one for each TPU kernel:
 
 - `fused_pass` (`_fused_pass`, row 1; with ``loop=True`` row 4): one sweep
-  of ``len(shifts)`` distinct paths over an [X, L, D] int16 volume scanned
-  along X, added to ``acc``;
+  of ``len(shifts)`` paths over an [X, L, D] int16 volume scanned along X,
+  added to ``acc``;
 - `fused_pass_batch` (`_fused_pass_batch`, row 2): the same over
   [B, X, L, D];
 - `fused_pass_bidir` (`_fused_pass_bidir`, row 3): the forward and the
@@ -24,9 +24,10 @@ rows 2-3 with shifts (0,)), one launch writing or adding the path costs;
 `sgm_sweep3_kernel` for a sweep of distinct shifts with a diagonal, all
 its paths in one cooperative launch, where one problem fits the blocks
 the card keeps resident; `sgm_path_kernel`, one launch per path, for the
-rest and for row 5. `aggregate_batch` makes 2 line launches (row 2) and 2
-sweep launches (row 1); `aggregate` the same 4, counted as row 3;
-`fused_pass_bidir` 2. The sweeps of one call add into one int16
+rest (a repeated shift, a problem wider than the resident blocks, more
+than 128 depths) and for row 5. `aggregate_batch` makes 2 line launches
+(row 2) and 2 sweep launches (row 1); `aggregate` the same 4, counted as
+row 3; `fused_pass_bidir` 2. The sweeps of one call add into one int16
 accumulator in place: int16 sums wrap modulo 2^16, so their order does
 not change the bits, and no second volume or copy is needed.
 
@@ -35,7 +36,12 @@ CPU tensor they run the same plan through the plain sweep below, the
 `lax.scan` recurrence of `smvs_tpu/sgm/stereo.py:aggregate` as a Python
 loop over the scan axis. The TPU's pad to multiples of 8, its VMEM
 dispatch models and the ``xb`` blocking of row 4 are not needed: the
-kernels take any H, W and D <= 128, the plane count of both SGM paths.
+kernels take any H and W. The line and sweep kernels hold up to 128 depths
+(4 per lane), the plane count of both SGM paths by default;
+`sgm_path_kernel` is built for 4, 8 and 16 depths per lane, so a call with
+128 < D <= 512 planes (`SGMOptions.num_steps`) takes it for every sweep.
+More than 512 depths raise on the card (``MAX_D``); the plain sweep takes
+any D.
 
 ``launches`` counts kernel launches by TPU kernel row (and nothing else),
 so a run can show which kernels it went through.
@@ -68,6 +74,10 @@ _lib = None
 _sweep_geometry_cache = {}  # (device, D) -> (tile, edge_words, resident)
 
 TILE = 16  # lines per block of sgm_sweep3_kernel (kTile in the source)
+# Depths the line and sweep kernels hold (32 lanes x 4), and the most that
+# sgm_path_kernel holds (32 lanes x 16; kPathMaxD in the source).
+SWEEP_MAX_D = 128
+MAX_D = 512
 # Blocks of sgm_sweep3_kernel the H100 keeps resident at once (two per SM,
 # `sweep_geometry` at D = 128). CPU tensors are planned as for that card.
 CPU_RESIDENT = 264
@@ -183,11 +193,14 @@ def sweep_geometry(device: torch.device, D: int) -> tuple:
 
 
 def _geometry(cost: torch.Tensor) -> dict:
-    """``plan_route``'s ``resident`` and ``tile`` for ``cost``'s device."""
-    if cost.device.type == "cpu":
-        return {"resident": CPU_RESIDENT, "tile": TILE}
-    tile, _, resident = sweep_geometry(cost.device, cost.shape[-1])
-    return {"resident": resident, "tile": tile}
+    """``plan_route``'s ``resident``, ``tile`` and ``D`` for ``cost``'s
+    device and depth count."""
+    D = cost.shape[-1]
+    if cost.device.type == "cpu" or D > SWEEP_MAX_D:
+        # Beyond SWEEP_MAX_D no sweep kernel runs, so none is asked.
+        return {"resident": CPU_RESIDENT, "tile": TILE, "D": D}
+    tile, _, resident = sweep_geometry(cost.device, D)
+    return {"resident": resident, "tile": tile, "D": D}
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +222,7 @@ def plan_chunks(B: int, tiles: int, resident: int) -> list:
 
 def plan_route(entry: str, B: int, L: int, resident: int,
                shifts: tuple | None = None, reverse: bool = False,
-               tile: int = TILE) -> list:
+               tile: int = TILE, D: int = SWEEP_MAX_D) -> list:
     """The kernel launches (`Launch`) of one call of the entry point
     ``entry``, in order, chosen from the shape alone.
 
@@ -217,25 +230,30 @@ def plan_route(entry: str, B: int, L: int, resident: int,
     and `aggregate`, whose horizontal sweeps scan axis 2 with shifts (0,)
     and vertical ones axis 1 with (0, 1, -1)); ``shifts`` and ``reverse``
     as the other entry points take them; ``resident`` blocks of ``tile``
-    lines of `sgm_sweep3_kernel` fit the card at once.
+    lines of `sgm_sweep3_kernel` fit the card at once; D depths.
 
     A straight-only sweep takes `sgm_line_kernel` (row 1 keeps its sweep
     kernel); distinct shifts take `sgm_sweep3_kernel` where one problem
     fits the resident blocks (in chunks of problems, `plan_chunks`);
-    anything else one `sgm_path_kernel` launch per path. Only the first
-    launch may write ("write" or "into"); a first "add" adds into a copy
-    of acc, and every later launch adds in place.
+    anything else one `sgm_path_kernel` launch per path, and so does every
+    sweep at D > ``SWEEP_MAX_D``. Only the first launch may write ("write"
+    or "into"); a first "add" adds into a copy of acc, and every later
+    launch adds in place.
     """
     tiles = -(-L // tile)
+    small = D <= SWEEP_MAX_D
 
     def sweep(row, scan, rev, paths, first, line=True):
-        if paths == (0,) and line:
+        if paths == (0,) and line and small:
             return [Launch("line", scan, rev, first, paths, row, 0, B)]
-        if len(set(paths)) == len(paths) and tiles <= resident:
+        if len(set(paths)) == len(paths) and tiles <= resident and small:
             return [Launch("sweep3", scan, rev, "add", paths, row, b0, nb)
                     for b0, nb in plan_chunks(B, tiles, resident)]
-        return [Launch("path", scan, rev, "add", (s,), row, 0, B)
-                for s in paths]
+        # The path kernel writes (the first launch of an 8-path sum) or
+        # adds; "into" adds into a copy of acc.
+        return [Launch("path", scan, rev,
+                       "write" if first == "write" and i == 0 else "add",
+                       (s,), row, 0, B) for i, s in enumerate(paths)]
 
     if entry in ("aggregate_batch", "aggregate"):
         h, v = (("fused_pass_batch", "fused_pass")
@@ -245,10 +263,6 @@ def plan_route(entry: str, B: int, L: int, resident: int,
                 + sweep(v, 1, True, (0, 1, -1), "add"))
     shifts = tuple(shifts)
     valid = set(shifts) <= {0, 1, -1}
-    if entry in ("fused_pass", "fused_pass_loop"):
-        if len(set(shifts)) != len(shifts) or not valid:
-            raise ValueError(f"the kernel takes distinct shifts from 0, 1 "
-                             f"and -1, got {shifts}")
     if not shifts or not valid:
         raise ValueError(f"the kernels take one or more shifts from 0, 1 "
                          f"and -1, got {shifts}")
@@ -312,6 +326,8 @@ def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
                     paths, int(p1), int(p2), stream)
             else:
                 (shift,) = ln.shifts
+                if ln.mode == "into":
+                    raise ValueError("the path kernel writes or adds")
                 err = lib.sgm_agg_path(
                     *ptrs, out.data_ptr() + voff, esize,
                     int(ln.mode == "add"), *dims, shift, int(p1), int(p2),
@@ -371,8 +387,9 @@ def _check(cost, inten, acc, vol_ndim: int, dtype=torch.int16) -> None:
         if not (cost.is_contiguous() and inten.is_contiguous()
                 and (acc is None or acc.is_contiguous())):
             raise ValueError("the kernel takes contiguous tensors")
-        if not 1 <= cost.shape[-1] <= 128:
-            raise ValueError("the kernel takes 1 <= D <= 128 depths")
+        if not 1 <= cost.shape[-1] <= MAX_D:
+            raise ValueError(f"the kernels take 1 <= D <= {MAX_D} depths, "
+                             f"got D = {cost.shape[-1]}")
     elif cost.device.type != "cpu":
         raise ValueError(f"unsupported device {cost.device}")
 
@@ -496,13 +513,15 @@ def fused_pass_batch(cost: torch.Tensor, inten: torch.Tensor,
 def fused_pass(cost: torch.Tensor, inten: torch.Tensor, acc: torch.Tensor,
                reverse: bool, shifts: tuple, p1: int, p2: int,
                loop: bool = False, xb: int = 1) -> torch.Tensor:
-    """One scan sweep of ``len(shifts)`` distinct paths over one [X, L, D]
-    int16 volume scanned along X (inten [X, L] int32); returns acc + paths.
+    """One scan sweep of ``len(shifts)`` paths over one [X, L, D] int16
+    volume scanned along X (inten [X, L] int32); returns acc + paths.
 
     ``loop`` selects the TPU's `fori_loop` kernel (row 4), which computes
     the same result; on the card both forms are one launch of the vertical
-    sweep kernel, counted as row 4 when ``loop`` is set (one launch per
-    path where the problem is wider than the resident blocks). ``xb``, that
+    sweep kernel for distinct shifts, counted as row 4 when ``loop`` is set
+    (one `sgm_path_kernel` launch per path, as the JAX kernel keeps one
+    scratch line per listed shift, for a repeated shift, a problem wider
+    than the resident blocks, or D > 128). ``xb``, that
     kernel's scan-block size on the TPU, is taken for the JAX signature and
     not read: the card has no counterpart.
     """

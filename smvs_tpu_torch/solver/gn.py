@@ -1,14 +1,14 @@
-"""Batched Gauss-Newton normal-equation assembly, analytic base mode
-(port of `smvs_tpu/solver/gn.py`, reference `lib/gauss_newton_step.cc`).
+"""Batched Gauss-Newton normal-equation assembly, analytic (port of
+`smvs_tpu/solver/gn.py`, reference `lib/gauss_newton_step.cc`).
 
 Per (patch, pixel) the data terms (warped neighbor gradient against the
 main gradient, IRLS-L1 weighted) get closed-form value-space Jacobian
 columns; the normal-divergence regularizer's columns come from forward-mode
-AD (`torch.func.jvp`, the counterpart of JAX's `jax.linearize`). The
-per-pixel quadratic forms are contracted to per-patch 16x16 systems with
-two matrix products and scattered into the 9-point stencil.
-
-The shading term is not ported yet; `assemble` has no lighting argument.
+AD (`torch.func.jvp`, the counterpart of JAX's `jax.linearize`); with a
+lighting, the SH shading term gets closed-form columns too. The per-pixel
+quadratic forms are contracted to per-patch 16x16 systems with two matrix
+products and scattered into the 9-point stencil. The autodiff oracle
+(`GNOptions(analytic=False)`) is not ported (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 
 from smvs_tpu_torch.geometry import normals as nrm
 from smvs_tpu_torch.image import ops as iops
+from smvs_tpu_torch.shading import sh as shmod
 from smvs_tpu_torch.solver import stencil
 from smvs_tpu_torch.surface import bicubic
 from smvs_tpu_torch.surface.state import Surface, patch_params
@@ -37,11 +38,17 @@ class ViewSet:
     M: torch.Tensor  # [N, 3, 3]
     t: torch.Tensor  # [N, 3]
     flen: torch.Tensor  # scalar, pixels
+    # The shading image packed channels-last with its gradients,
+    # [H, W, 3] = (gx, gy, value); None unless shading is active.
+    shading_gi: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
 class GNOptions:
     regularization: float = 0.01
+    # Weight of the normal-divergence regularizer under shading (x 1/100);
+    # 0 turns it off there (`smvs_tpu/solver/gn.py:554-561`).
+    light_surf_regularization: float = 0.0
 
 
 def _sampling_for_scale(scale: int) -> int:
@@ -219,13 +226,14 @@ def _contraction_tensors(patchsize: int, sampling: int, dtype, device):
 
 def _assemble_flat(params, pix_u, pix_v, gm, vis_f, patch_ok, view: ViewSet,
                    patchsize: int, sampling: int, opts: GNOptions,
-                   width: int, height: int):
+                   width: int, height: int,
+                   lighting: torch.Tensor | None = None):
     """Whole-grid GN assembly: accumulate the per-pixel quadratic form
     A = J6^T W J6 (21 symmetric entries) and b = J6^T W r elementwise,
     then contract to per-patch systems with two matrix products.
 
     params [B, 16], pix_u/v [B, P], gm [B, P, 2], vis_f [B, N],
-    patch_ok [B] -> (g [B, 16], H [B, 16, 16]).
+    patch_ok [B], lighting [16] or None -> (g [B, 16], H [B, 16, 16]).
     """
     dtype = params.dtype
     B, P = pix_u.shape
@@ -309,14 +317,23 @@ def _assemble_flat(params, pix_u, pix_v, gm, vis_f, patch_ok, view: ViewSet,
     gm_abs = torch.abs(gm).sum(-1)  # [B, P]
     basic_w = opts.regularization * 0.005 / torch.clamp(gm_abs, min=0.03)
     basic_w = basic_w * num_diffs
-    reg_gate = 0.0 if opts.regularization <= 0.0 else 1.0
+    # Under shading the regularizer is weighted by light_surf_regularization
+    # and is off where that is 0 (the flagship's setting).
+    shading = lighting is not None
+    geom = opts.light_surf_regularization / 100.0 if shading else 1.0
+    reg_gate = 0.0 if (opts.regularization <= 0.0 or (
+        shading and opts.light_surf_regularization <= 0.0)) else 1.0
     for i in range(6):
-        wi = reg_gate * basic_w / (R_FACTOR + torch.abs(div[..., i]))
+        wi = reg_gate * basic_w * geom / (R_FACTOR + torch.abs(div[..., i]))
         wi = wi * okw
         for (k, l) in _SYM_PAIRS:
             A[(k, l)] += wi * jdiv[k][..., i] * jdiv[l][..., i]
         for k in range(6):
             b[k] += wi * div[..., i] * jdiv[k][..., i]
+
+    if shading:
+        _accumulate_shading(A, b, lighting, view, pix_u, pix_v, xc, yc,
+                            vals, div, jdiv, num_diffs, okw, opts)
 
     # --- basis contraction: two matrix products ----------------------------
     A_packed = torch.stack([A[kl] for kl in _SYM_PAIRS], dim=-1)  # [B, P, 21]
@@ -326,17 +343,98 @@ def _assemble_flat(params, pix_u, pix_v, gm, vis_f, patch_ok, view: ViewSet,
     return g, H
 
 
+def _accumulate_shading(A, b, lighting, view: ViewSet, pix_u, pix_v, xc, yc,
+                        vals, div, jdiv, num_diffs, okw, opts: GNOptions):
+    """Add the SH shading term's per-pixel quadratic form to ``A`` / ``b``
+    (reference `lib/gauss_newton_step.cc:420-516`).
+
+    Residual, per axis c in {x, y}: r_c = (coef . dn_c) / sh - lin_c with
+    sh = lighting . SH(n), coef = lighting . dSH/dn (frozen with respect to
+    the node parameters, the reference's GN approximation, :480-495), dn_c
+    the normal's derivative along c (the regularizer's ``div`` columns) and
+    lin_c the shading image's log-gradient. Its value-space columns are in
+    closed form: d(dn_c)/d(vals) reuses ``jdiv``, and d sh/d(vals) flows
+    through the unit normal, whose only nonzero columns are (w, dx, dy).
+    """
+    dtype = vals.dtype
+    w, wdx, wdy = vals[..., 0], vals[..., 1], vals[..., 2]
+    inv_flen = 1.0 / view.flen
+    # float32 bilinear sample of the 3-channel image (not the bf16 gather).
+    gi = iops.sample_window(view.shading_gi, pix_u - 0.5, pix_v - 0.5)
+    lin_grad = _nan0(gi[..., :2])
+    lin_val = gi[..., 2]
+    lin_safe = torch.where(torch.abs(lin_val) < 1e-10, 1.0, lin_val)
+    lin_term = lin_grad / lin_safe[..., None]
+
+    u1 = wdx
+    u2 = -wdy
+    u3 = (xc * wdx + yc * wdy + w) * inv_flen
+    norm_u = torch.sqrt(u1 * u1 + u2 * u2 + u3 * u3)
+    inv_nu = 1.0 / norm_u
+    n1, n2, n3 = u1 * inv_nu, u2 * inv_nu, u3 * inv_nu
+    normal = torch.stack([n1, n2, n3], dim=-1)  # [B, P, 3]
+    sh_val = shmod.eval_4_band(normal) @ lighting
+    # Row 0 of the SH jacobian is zero: the reference's band-0-masked coef.
+    coef = torch.einsum("l,...lk->...k", lighting,
+                        shmod.eval_4_band_jac(normal))  # [B, P, 3]
+    sgrad = torch.stack([(coef * div[..., 0:3]).sum(-1),
+                         (coef * div[..., 3:6]).sum(-1)], dim=-1)
+    safe = torch.where(torch.abs(sh_val) < 1e-10, 1.0, sh_val)
+    inv_safe = 1.0 / safe
+    sh_res = _nan0(sgrad * inv_safe[..., None] - lin_term)
+
+    # d sh/d val_j = coef . dn/d val_j with dn_j = (du_j - n (n . du_j)) / |u|
+    # and du/dw = (0, 0, 1/f), du/ddx = (1, 0, xc/f), du/ddy = (0, -1, yc/f).
+    cn = coef[..., 0] * n1 + coef[..., 1] * n2 + coef[..., 2] * n3
+    dsh_dval = (
+        (coef[..., 2] * inv_flen - cn * (n3 * inv_flen)) * inv_nu,
+        (coef[..., 0] + coef[..., 2] * xc * inv_flen
+         - cn * (n1 + n3 * xc * inv_flen)) * inv_nu,
+        (-coef[..., 1] + coef[..., 2] * yc * inv_flen
+         - cn * (-n2 + n3 * yc * inv_flen)) * inv_nu,
+    )
+    # The 1e-10 floor makes `safe` piecewise: zero derivative on the floor
+    # (those pixels are weight-gated anyway).
+    live = (torch.abs(sh_val) >= 1e-10).to(dtype)
+    quot = live * inv_safe * inv_safe
+
+    lin_grad_abs = torch.abs(lin_grad).sum(-1)
+    shading_weight = 0.001 * num_diffs / (R_FACTOR + lin_grad_abs)
+    gate = ((lin_grad_abs**2 >= 1e-20).to(dtype)
+            * (sh_val**2 >= 1e-10).to(dtype)
+            * (lin_val**2 >= 1e-10).to(dtype))
+    if opts.regularization <= 0.0:
+        gate = gate * 0.0
+    for c in range(2):
+        sg = sgrad[..., c]
+        jsh_c = []
+        for k in range(6):
+            jc = (coef * jdiv[k][..., 3 * c:3 * c + 3]).sum(-1) * inv_safe
+            if k < 3:
+                jc = jc - sg * dsh_dval[k] * quot
+            jsh_c.append(_nan0(jc))
+        wc = gate * shading_weight / (
+            R_FACTOR + torch.abs(sh_res[..., c])) * okw
+        for (k, l) in _SYM_PAIRS:
+            A[(k, l)] += wc * jsh_c[k] * jsh_c[l]
+        for k in range(6):
+            b[k] += wc * sh_res[..., c] * jsh_c[k]
+
+
 # Grids at least this large assemble only the patches that touch an active
 # node (the JAX package's capacity tiers start at the same size).
 _COMPACT_MIN_PATCHES = 4096
 
 
 def assemble(surf: Surface, view: ViewSet, vis: torch.Tensor,
-             active: torch.Tensor, opts: GNOptions):
+             active: torch.Tensor, opts: GNOptions,
+             lighting: torch.Tensor | None = None):
     """Stencil normal equations for one Newton step
     (reference `GaussNewtonStep::construct`, :33-143).
 
-    vis [ny, nx, N] per patch/neighbor; active [ny+1, nx+1] bool. Returns
+    vis [ny, nx, N] per patch/neighbor; active [ny+1, nx+1] bool; lighting
+    [16] SH coefficients (adds the shading term; needs
+    ``view.shading_gi``) or None. Returns
     (g [4, ny+1, nx+1], Hb [3, 3, 4, 4, ny+1, nx+1]). On large grids only
     patches touching an active node are assembled — exact, since the
     others contribute nothing (`stencil.scatter_patch_systems` zeroes
@@ -362,7 +460,7 @@ def assemble(surf: Surface, view: ViewSet, vis: torch.Tensor,
         return _assemble_flat(params[sel], pix_u[sel], pix_v[sel], gm[sel],
                               vis_f[sel], patch_ok[sel], view,
                               surf.patchsize, sampling, opts, surf.width,
-                              surf.height)
+                              surf.height, lighting)
 
     if B >= _COMPACT_MIN_PATCHES:
         ca = (active[:-1, :-1] | active[:-1, 1:]

@@ -4,10 +4,11 @@
 A symmetric V(1,1) cycle whose coarse spaces are nested in the surface's
 own function space: Hermite-subdivision prolongation, Galerkin coarse
 operators ``A_c = P^T A P`` in closed form on the 9-point block stencil,
-and damped block-Jacobi smoothing with per-node relative row damping
-(the ``"rel"`` policy; the JAX package's ``SMVS_MG_OMEGA=const`` override
-has no counterpart here). A per-apply guard falls back to damped
-block-Jacobi when the V-cycle is indefinite for a system.
+and damped block-Jacobi smoothing: per-node relative row damping for base
+systems, a constant OMEGA for shading systems (`build`'s ``damp_rows``;
+the JAX package's ``SMVS_MG_OMEGA=const`` override has no counterpart
+here). A per-apply guard falls back to damped block-Jacobi when the
+V-cycle is indefinite for a system.
 """
 
 from __future__ import annotations
@@ -174,19 +175,31 @@ def num_levels(ny1: int, nx1: int, min_size: int = 8) -> int:
     return n
 
 
-def build(Hb: torch.Tensor, active: torch.Tensor, min_size: int = 8
-          ) -> Levels:
-    """The V-cycle hierarchy for one assembled system, with the relative
-    Gershgorin row damping of `_node_omega` (the JAX package's
-    ``damp_rows=True``, its base-mode policy; the shading systems'
-    constant OMEGA is not ported yet).
+def build(Hb: torch.Tensor, active: torch.Tensor, min_size: int = 8,
+          damp_rows: bool = True) -> Levels:
+    """The V-cycle hierarchy for one assembled system.
+
+    ``damp_rows`` selects the smoother damping per problem, as the JAX
+    package measured it: True (base photometric systems) damps each row
+    by its Gershgorin excess over the median row (`_node_omega`), whose
+    coarse levels otherwise grow outlier rows that make the V-cycle
+    indefinite; False (shading systems) keeps a constant OMEGA on every
+    level, because their stiff rows are the shading term's only strong
+    constraint on weakly textured nodes.
     """
+
+    def omega(H, pinv):
+        if damp_rows:
+            return _node_omega(H, pinv)
+        return torch.full(H.shape[-2:], OMEGA, dtype=H.dtype,
+                          device=H.device)
+
     ny1, nx1 = Hb.shape[-2:]
     pinv0 = stencil.block_jacobi_inverse(Hb, active)
     ops = [Hb]
     pinvs = [pinv0]
     shapes = [(ny1, nx1)]
-    omegas = [_node_omega(Hb, pinv0)]
+    omegas = [omega(Hb, pinv0)]
     act = active
     for _ in range(num_levels(ny1, nx1, min_size) - 1):
         Hb = galerkin_coarse(Hb)
@@ -195,7 +208,7 @@ def build(Hb: torch.Tensor, active: torch.Tensor, min_size: int = 8
         ops.append(Hb)
         pinvs.append(pinv)
         shapes.append(tuple(Hb.shape[-2:]))
-        omegas.append(_node_omega(Hb, pinv))
+        omegas.append(omega(Hb, pinv))
     return Levels(ops=tuple(ops), pinvs=tuple(pinvs), shapes=tuple(shapes),
                   omegas=tuple(omegas), active=active)
 

@@ -150,12 +150,83 @@ def test_cli_migrates_legacy_embeddings(runs):
     np.testing.assert_array_equal(v2.get_image("smvs-sgm"), fake)
 
 
-@pytest.mark.parametrize("flags", [["-S"], ["-R", "0.5"], ["--full-opt"],
-                                   ["-m"], ["-y"], ["--no-sgm"],
-                                   ["-d", "2"]])
+@pytest.mark.parametrize("flags", [["-S", "-g"], ["--full-opt"], ["-m"],
+                                   ["-y"], ["--no-sgm"], ["-d", "2"]])
 def test_cli_unported_flags_raise(runs, flags):
+    """`-S` and `-R` are ported (the tests below); `-g` with `-S` (the
+    sRGB decode of the shading image) is not."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tcli.main([runs["tpath"], "--device", "cpu", *flags])
+
+
+@pytest.fixture(scope="module")
+def shading_runs(runs):
+    """Both CLIs with `-S` on copies of the scenes above (their `smvs-sgm`
+    checkpoints are reused)."""
+    jpath, tpath = (str(runs["root"] / f"shading_{k}") for k in ("j", "t"))
+    shutil.copytree(runs["jpath"], jpath)
+    shutil.copytree(runs["tpath"], tpath)
+    jrc, _ = _run(jcli.main, [jpath, "--platform", "cpu", "--batch-views",
+                              "1", "-S", *ARGS])
+    trc, tout = _run(tcli.main, [tpath, "--device", "cpu", "-S", *ARGS])
+    return dict(jpath=jpath, tpath=tpath, jrc=jrc, trc=trc, tout=tout)
+
+
+def _fused(path, name, scene):
+    """(points per pixel, median relative error of the fused points
+    against view 1's analytic depth, as tests/test_cli.py reckons it)."""
+    ps = load_ply(os.path.join(path, name))
+    cam = scene.cameras[1]
+    p_cam = ps.vertices @ cam.rot.T + cam.trans
+    uv = cam.project(p_cam, DIM, DIM)
+    inb = (uv[:, 0] >= 0) & (uv[:, 0] < DIM) & (uv[:, 1] >= 0) & \
+        (uv[:, 1] < DIM) & (p_cam[:, 2] > 0)
+    gt = scene.depths[1][uv[inb, 1].astype(int), uv[inb, 0].astype(int)]
+    rel = np.abs(p_cam[inb, 2] - gt) / gt
+    return len(ps.vertices) / (4 * DIM * DIM), float(np.median(rel))
+
+
+def test_cli_shading_writes_smvs_s(shading_runs):
+    """`-S` writes `smvs-S0` depth and normal embeddings and
+    `smvs-S0.ply`, as the JAX CLI names them."""
+    assert shading_runs["jrc"] == 0 and shading_runs["trc"] == 0
+    assert "Output embedding: smvs-S0" in shading_runs["tout"]
+    for v in range(4):
+        vdir = os.path.join(shading_runs["tpath"], "views",
+                            f"view_{v:04d}.mve")
+        for name in ("smvs-S0", "smvs-S0N"):
+            assert os.path.exists(os.path.join(vdir, name + ".mvei"))
+    for path in (shading_runs["jpath"], shading_runs["tpath"]):
+        assert os.path.exists(os.path.join(path, "smvs-S0.ply"))
+
+
+def test_cli_shading_matches_jax_class(runs, shading_runs):
+    """The fused points of `-S` in the JAX CLI's class on the same scene:
+    points per pixel within 20% of JAX's, the median fused error at most
+    twice JAX's or 1e-2 (the shading endpoint is chaotic, so not pixel by
+    pixel)."""
+    want = _fused(shading_runs["jpath"], "smvs-S0.ply", runs["scene"])
+    got = _fused(shading_runs["tpath"], "smvs-S0.ply", runs["scene"])
+    assert want[0] > 0.1, want
+    assert abs(got[0] - want[0]) <= 0.2 * want[0], (got, want)
+    assert got[1] <= max(2 * want[1], 1e-2), (got, want)
+
+
+def test_cli_lighting_regularization_without_shading_equals_base(runs):
+    """`-R` weights the regularizer under shading only: without `-S` the
+    run equals the base run bit for bit."""
+    out = {}
+    for key, flags in (("base", []), ("R", ["-R", "0.5"])):
+        path = str(runs["root"] / f"regularize_{key}")
+        shutil.copytree(runs["tpath"], path)
+        rc, _ = _run(tcli.main, [path, "--device", "cpu", "-f", *flags,
+                                 *ARGS])
+        assert rc == 0
+        out[key] = (_embeddings(path, "smvs-B0"),
+                    load_ply(os.path.join(path, "smvs-B0.ply")).vertices)
+    for a, b in zip(out["R"][0], out["base"][0]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(out["R"][1], out["base"][1])
 
 
 def test_cli_color_input_raises(tmp_path):

@@ -1,0 +1,231 @@
+"""Two repaired faults of the SGM kernel router against the JAX package, on
+the CPU.
+
+1. Repeated shifts in rows 1 and 4 (`fused_pass`, `fused_pass(loop=True)`):
+   the JAX kernel keeps one scratch line per listed shift and returns acc
+   plus every path; the port routes such a sweep to one `sgm_path_kernel`
+   launch per path, as rows 2 and 3 already did.
+2. More than 128 depth planes: the line and sweep kernels hold 4 depths per
+   lane, so `plan_route` sends every sweep at D > 128 to `sgm_path_kernel`,
+   built for 8 and 16 depths per lane (D <= 512); the D <= 128 routes are
+   unchanged.
+
+On the CPU the entry points run their plan through the plain sweep, each
+launch in its mode, so holding them bit for bit against the Pallas kernels
+in interpret mode holds the plan; `tests/test_torch_kernels.py` holds the
+kernels bit-equal to the plain sweep on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smvs_tpu.core import synthetic as jsyn
+from smvs_tpu.sgm import pallas_agg
+from smvs_tpu.sgm import stereo as jst
+from smvs_tpu_torch.sgm import cuda_agg
+from smvs_tpu_torch.sgm import stereo as tst
+from torch_threads import one_torch_thread  # noqa: F401
+
+P1, P2 = 6, 96
+R = 264  # sgm_sweep3_kernel's resident blocks on the H100
+B1, B2, B3 = "fused_pass", "fused_pass_batch", "fused_pass_bidir"
+
+
+def _l(kernel, scan, reverse, mode, shifts, row, b0=0, nb=1):
+    return cuda_agg.Launch(kernel, scan, reverse, mode, shifts, row, b0, nb)
+
+
+def _volume(shape, seed, hi=63):
+    rng = np.random.default_rng(seed)
+    cost = rng.integers(0, hi, size=shape).astype(np.int16)
+    inten = rng.integers(0, 255, size=shape[:-1]).astype(np.int32)
+    return cost, inten
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+# ---------------------------------------------------------------------------
+# 1. repeated shifts in rows 1 and 4
+
+
+@pytest.mark.parametrize("entry", ["fused_pass", "fused_pass_loop"])
+@pytest.mark.parametrize("shifts", [(1, 1), (0, 1, 0)])
+def test_repeated_shift_route(entry, shifts):
+    """One path launch per listed shift, each adding in place."""
+    got = cuda_agg.plan_route(entry, 1, 1440, R, shifts=shifts,
+                              reverse=True)
+    assert got == [_l("path", 1, True, "add", (s,), entry) for s in shifts]
+
+
+@pytest.mark.parametrize("loop", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shifts", [(1, 1), (0, 1, 0)])
+def test_fused_pass_repeated_shifts_match_pallas(shifts, reverse, loop):
+    """acc plus every listed path, bit for bit with the Pallas kernel in
+    interpret mode and with the plain sweep; H and W not multiples of 8."""
+    cost, inten = _volume((10, 13, 24), seed=len(shifts) + 2 * reverse)
+    acc, _ = _volume((10, 13, 24), seed=7, hi=500)
+    want = np.asarray(pallas_agg._fused_pass(
+        *_j(cost, inten, acc), reverse, shifts, P1, P2, interpret=True,
+        loop=loop))
+    got = cuda_agg.fused_pass(*_t(cost, inten, acc), reverse, shifts, P1, P2,
+                              loop=loop)
+    np.testing.assert_array_equal(got.numpy(), want)
+    plain = cuda_agg.plain_fused_pass_batch(
+        *[t[None] for t in _t(cost, inten, acc)], reverse, shifts, P1, P2)
+    np.testing.assert_array_equal(plain[0].to(torch.int16).numpy(), want)
+
+
+@pytest.mark.parametrize("shifts", [(0, 2), (2,), ()])
+def test_fused_pass_rejects_shifts_outside_the_paths(shifts):
+    """No SGM path has another slope than 0 and +-1."""
+    cost, inten = _volume((6, 8, 16), seed=9)
+    with pytest.raises(ValueError, match="shifts"):
+        cuda_agg.fused_pass(*_t(cost, inten), torch.zeros(6, 8, 16,
+                                                           dtype=torch.int16),
+                            False, shifts, P1, P2)
+
+
+# ---------------------------------------------------------------------------
+# 2. more than 128 depths
+
+
+DEEP_ROUTES = {  # (entry, B, L, kwargs) -> launches at D = 129 and 512
+    "aggregate_batch": (
+        ("aggregate_batch", 2, 1696, {}),
+        [_l("path", 2, False, "write", (0,), B2, 0, 2),
+         _l("path", 2, True, "add", (0,), B2, 0, 2)]
+        + [_l("path", 1, r, "add", (s,), B1, 0, 2) for r in (False, True)
+           for s in (0, 1, -1)]),
+    "aggregate": (
+        ("aggregate", 1, 1440, {}),
+        [_l("path", 2, False, "write", (0,), B3),
+         _l("path", 2, True, "add", (0,), B3)]
+        + [_l("path", 1, r, "add", (s,), B3) for r in (False, True)
+           for s in (0, 1, -1)]),
+    "batch (0,)": (
+        ("fused_pass_batch", 2, 1440, dict(shifts=(0,))),
+        [_l("path", 1, False, "add", (0,), B2, 0, 2)]),
+    "pass (0, 1, -1)": (
+        ("fused_pass", 1, 1440, dict(shifts=(0, 1, -1), reverse=True)),
+        [_l("path", 1, True, "add", (s,), B1) for s in (0, 1, -1)]),
+    "bidir (0,)": (
+        ("fused_pass_bidir", 1, 1440, dict(shifts=(0,))),
+        [_l("path", 1, False, "add", (0,), B3),
+         _l("path", 1, True, "add", (0,), B3)]),
+}
+
+
+@pytest.mark.parametrize("D", [129, 512])
+@pytest.mark.parametrize("case", list(DEEP_ROUTES))
+def test_deep_routes_take_the_path_kernel(case, D):
+    (entry, B, L, kw), want = DEEP_ROUTES[case]
+    assert cuda_agg.plan_route(entry, B, L, R, D=D, **kw) == want
+
+
+@pytest.mark.parametrize("case", list(DEEP_ROUTES))
+def test_routes_at_128_depths_are_unchanged(case):
+    """At D = 128 no sweep takes the path kernel: the launch counts of
+    `aggregate_batch` (2 + 2), `aggregate` (4) and `fused_pass_bidir` (2)
+    stay as they were."""
+    (entry, B, L, kw), _ = DEEP_ROUTES[case]
+    plan = cuda_agg.plan_route(entry, B, L, R, D=128, **kw)
+    assert plan == cuda_agg.plan_route(entry, B, L, R, **kw)
+    assert "path" not in {ln.kernel for ln in plan}
+    n = {"aggregate_batch": 4, "aggregate": 4, "bidir (0,)": 2}.get(case, 1)
+    assert len(plan) == n
+
+
+@pytest.mark.parametrize("D", [129, 192])
+def test_deep_aggregate_matches_pallas(D):
+    cost, inten = _volume((9, 11, D), seed=D)
+    want = np.asarray(pallas_agg.aggregate(*_j(cost, inten), P1, P2,
+                                           interpret=True))
+    got = cuda_agg.aggregate(*_t(cost, inten), P1, P2)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("D", [129, 192])
+def test_deep_aggregate_batch_matches_pallas(D):
+    cost, inten = _volume((2, 8, 10, D), seed=D + 1)
+    want = np.asarray(pallas_agg.aggregate_batch(*_j(cost, inten), P1, P2,
+                                                 interpret=True))
+    got = cuda_agg.aggregate_batch(*_t(cost, inten), P1, P2)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("D", [129, 192])
+def test_deep_sweeps_match_pallas(D):
+    """`fused_pass` (rows 1 and 4), `fused_pass_batch` and
+    `fused_pass_bidir` at D > 128, against their Pallas kernels."""
+    cost, inten = _volume((9, 10, D), seed=D + 2)
+    acc, _ = _volume((9, 10, D), seed=D + 3, hi=500)
+    for loop in (False, True):
+        want = np.asarray(pallas_agg._fused_pass(
+            *_j(cost, inten, acc), True, (0, 1, -1), P1, P2, interpret=True,
+            loop=loop))
+        got = cuda_agg.fused_pass(*_t(cost, inten, acc), True, (0, 1, -1),
+                                  P1, P2, loop=loop)
+        np.testing.assert_array_equal(got.numpy(), want)
+    want = np.asarray(pallas_agg._fused_pass_batch(
+        *_j(cost[None], inten[None], acc[None]), False, (0,), P1, P2,
+        interpret=True))
+    got = cuda_agg.fused_pass_batch(*_t(cost[None], inten[None], acc[None]),
+                                    False, (0,), P1, P2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    want = np.asarray(pallas_agg._fused_pass_bidir(
+        *_j(cost, inten, acc), (0, 1, -1), P1, P2, interpret=True))
+    got = cuda_agg.fused_pass_bidir(*_t(cost, inten, acc), (0, 1, -1), P1,
+                                    P2)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("D", [129, 192])
+def test_deep_scan_direction_matches_pallas(D):
+    rng = np.random.default_rng(D + 4)
+    cost = rng.integers(30000, 90000, size=(7, 9, D)).astype(np.int32)
+    inten = rng.integers(0, 255, size=(7, 9)).astype(np.int32)
+    for shift in (0, 1, -1):
+        want = np.asarray(pallas_agg.scan_direction(
+            *_j(cost, inten), shift, P1, P2, interpret=True))
+        got = cuda_agg.scan_direction(*_t(cost, inten), shift, P1, P2)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_reconstruct_with_192_planes_matches_jax():
+    """`stereo.reconstruct` with `num_steps=192` at dim 96, on the scene
+    and in the terms of tests/test_torch_general.py: masks agree on >=
+    99.5% of pixels, and >= 99% of the pixels valid in both agree to rtol
+    1e-4."""
+    dim = 96
+    scene = jsyn.make_two_view_scene(dim=dim, rotate=False, baseline=0.25,
+                                     texture="noise")
+    cm, cn = scene.cameras[1], scene.cameras[0]
+    mats = [np.asarray(a, np.float32) for a in (
+        *cm.fill_reprojection(cn, dim, dim, dim, dim),
+        *cn.fill_reprojection(cm, dim, dim, dim, dim))]
+    main = scene.images[1] * np.float32(255.0)
+    nbr = scene.images[0] * np.float32(255.0)
+    want = np.asarray(jst.reconstruct(
+        jnp.asarray(main), jnp.asarray(nbr), *_j(*mats), (4.0, 8.5),
+        (4.0, 8.5), jst.SGMOptions(num_steps=192)))
+    got = tst.reconstruct(torch.from_numpy(main), torch.from_numpy(nbr),
+                          *_t(*mats), (4.0, 8.5), (4.0, 8.5),
+                          tst.SGMOptions(num_steps=192)).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert (want > 0).mean() > 0.8
+    assert ((got > 0) == (want > 0)).mean() >= 0.995
+    both = (got > 0) & (want > 0)
+    close = np.abs(got[both] - want[both]) <= 1e-4 * np.abs(want[both])
+    assert close.mean() >= 0.99
+    gt = scene.depths[1]
+    m = got > 0
+    assert np.median(np.abs(got[m] - gt[m]) / gt[m]) < 0.03

@@ -88,11 +88,23 @@ def test_fused_pass_repeats_bit_equal(cuda):
 
 
 def test_fused_pass_rejects_repeated_shifts(cuda):
+    """Rows 1 and 4 take a repeated shift as the JAX kernel does (acc plus
+    every listed path): one `sgm_path_kernel` launch per path, bit-equal
+    to plain. Only shifts outside {0, 1, -1} are rejected."""
     cost, inten = _volume((8, 20, 32), seed=23, device=cuda)
-    for shifts in ((1, 1), (0, 1, 0), (0, 2)):
-        with pytest.raises(ValueError, match="distinct shifts"):
-            cuda_agg.fused_pass(cost, inten, torch.zeros_like(cost), False,
-                                shifts, 6, 96)
+    acc, _ = _volume((8, 20, 32), seed=30, device=cuda, hi=500)
+    for loop, row in ((False, "fused_pass"), (True, "fused_pass_loop")):
+        for shifts in ((1, 1), (0, 1, 0)):
+            cuda_agg.reset_launches()
+            got = cuda_agg.fused_pass(cost, inten, acc, True, shifts, 6, 96,
+                                      loop=loop)
+            assert cuda_agg.launches[row] == len(shifts)
+            want = cuda_agg.plain_fused_pass_batch(
+                cost[None], inten[None], acc[None], True, shifts, 6, 96)[0]
+            assert torch.equal(got.to(torch.int32), want), shifts
+        with pytest.raises(ValueError, match="shifts"):
+            cuda_agg.fused_pass(cost, inten, acc, False, (0, 2), 6, 96,
+                                loop=loop)
 
 
 def test_vertical_sweep_splits_problems_beyond_the_resident_blocks(cuda):
@@ -213,9 +225,63 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         cuda_agg.fused_pass_batch(cost.transpose(1, 2), inten,
                                   torch.zeros_like(cost), False, (0,), 6, 96)
-    wide, _ = _volume((1, 8, 8, 129), seed=7, device=cuda)
-    with pytest.raises(ValueError):
-        cuda_agg.aggregate_batch(wide, inten, 6, 96)
+    deep, _ = _volume((1, 8, 8, cuda_agg.MAX_D + 1), seed=7, device=cuda)
+    cuda_agg.reset_launches()
+    with pytest.raises(ValueError, match="512"):
+        cuda_agg.aggregate_batch(deep, inten, 6, 96)
+    assert sum(cuda_agg.launches.values()) == 0
+
+
+DEEP = [129, 192, 256, 512]
+
+
+@pytest.mark.parametrize("D", DEEP)
+def test_deep_aggregate_batch_and_aggregate_equal_plain(cuda, D):
+    """More than 128 depths: every sweep takes `sgm_path_kernel` with 8 or
+    16 depths per lane (3 + 3 vertical, 1 + 1 horizontal launches)."""
+    cost, inten = _volume((2, 9, 13, D), seed=D, device=cuda)
+    cuda_agg.reset_launches()
+    got = cuda_agg.aggregate_batch(cost, inten, 6, 96)
+    assert (cuda_agg.launches["fused_pass_batch"],
+            cuda_agg.launches["fused_pass"]) == (2, 6)
+    assert torch.equal(got.to(torch.int32),
+                       cuda_agg.plain_aggregate_batch(cost, inten, 6, 96))
+    cuda_agg.reset_launches()
+    got = cuda_agg.aggregate(cost[0], inten[0], 6, 96)
+    assert cuda_agg.launches["fused_pass_bidir"] == 8
+    assert torch.equal(got.to(torch.int32),
+                       cuda_agg.plain_aggregate(cost[0], inten[0], 6, 96))
+
+
+@pytest.mark.parametrize("D", DEEP)
+def test_deep_sweeps_equal_plain(cuda, D):
+    """`fused_pass` (rows 1 and 4), `fused_pass_batch`, `fused_pass_bidir`
+    and `scan_direction` at D > 128, one path launch per path."""
+    cost, inten = _volume((11, 14, D), seed=D + 1, device=cuda)
+    acc, _ = _volume((11, 14, D), seed=D + 2, device=cuda, hi=500)
+    for reverse in (False, True):
+        for loop in (False, True):
+            got = cuda_agg.fused_pass(cost, inten, acc, reverse, (0, 1, -1),
+                                      6, 96, loop=loop)
+            want = cuda_agg.plain_fused_pass_batch(
+                cost[None], inten[None], acc[None], reverse, (0, 1, -1), 6,
+                96)[0]
+            assert torch.equal(got.to(torch.int32), want)
+        got = cuda_agg.fused_pass_batch(cost[None], inten[None], acc[None],
+                                        reverse, (0,), 6, 96)
+        want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None],
+                                               acc[None], reverse, (0,), 6,
+                                               96)
+        assert torch.equal(got.to(torch.int32), want)
+    got = cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1), 6, 96)
+    want = cuda_agg.plain_fused_pass_bidir(cost, inten, acc, (0, 1, -1), 6,
+                                           96)
+    assert torch.equal(got.to(torch.int32), want)
+    cost32 = cost.to(torch.int32) * 300
+    for shift in (0, 1, -1):
+        got = cuda_agg.scan_direction(cost32, inten, shift, 6, 96)
+        assert torch.equal(got, cuda_agg.plain_scan_direction(
+            cost32, inten, shift, 6, 96))
 
 
 @pytest.mark.parametrize("shape", [(11, 13, 16), (10, 12, 24),

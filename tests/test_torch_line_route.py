@@ -117,7 +117,7 @@ def test_plan_route(case):
 
 
 @pytest.mark.parametrize("entry, shifts", [
-    ("fused_pass", (0, 0)), ("fused_pass_loop", (0, 2)),
+    ("fused_pass", (0, 0, 2)), ("fused_pass_loop", (0, 2)),
     ("fused_pass_batch", (0, 2)), ("fused_pass_bidir", ()),
     ("fused_pass_batch", ())])
 def test_plan_route_rejects_shifts_the_kernels_cannot_take(entry, shifts):

@@ -187,12 +187,17 @@ def test_entry_points_need_a_gpu_or_a_device(monkeypatch):
 
 
 def test_unported_modes_raise():
+    """The sparse-prior mode, and under shading the sRGB decode of the
+    shading image (`gamma_correction`), are not ported; shading on gray
+    views is (tests/test_torch_shading.py)."""
     scene = jsyn.make_two_view_scene(dim=32, texture="noise")
     v = tviews.make_view(scene.cameras[0], scene.images[0], device="cpu")
+    g = tviews.make_view(scene.cameras[0], scene.images[0], device="cpu",
+                         gamma_correction=True)
     depth = np.full((32, 32), 5.0, np.float32)
-    for opts in (tO.OptimizerOptions(use_sgm=True, use_shading=True),
-                 tO.OptimizerOptions(use_sgm=False)):
+    for opts, main in ((tO.OptimizerOptions(use_sgm=True, use_shading=True),
+                        g), (tO.OptimizerOptions(use_sgm=False), v)):
         with pytest.raises(NotImplementedError, match="not ported"):
-            tO.optimize_view(v, [v], opts, sgm_depth=depth, device="cpu")
+            tO.optimize_view(main, [v], opts, sgm_depth=depth, device="cpu")
     with pytest.raises(ValueError, match="no fields"):
         convert.options(tO.OptimizerOptions, {"use_lighting": True})

@@ -1,13 +1,16 @@
 """Reference results of the JAX package, on the CPU, for the limits that
 `chip_smoke.py` holds the PyTorch/CUDA port to.
 
-Three configurations, each at a dimension the caller picks (the card runs
-them at 1440, 1280 and 1280; a CPU run at that size holds many GB, so the
-reference is taken at a smaller one and the script's output says which):
+Five configurations, each at a dimension the caller picks (the card runs
+them at 1440, 1280, 1280, 1280 and 1440; a CPU run at that size holds
+many GB, so the reference is mostly taken at a smaller one and the
+script's output says which):
 
     python tools/jax_cpu_reference.py general --dim 720
     python tools/jax_cpu_reference.py cli --dim 640
     python tools/jax_cpu_reference.py forward --dim 960
+    python tools/jax_cpu_reference.py shading --dim 640
+    python tools/jax_cpu_reference.py flagship --dim 1440
 
 `general`: `stereo.reconstruct` (the general-warp SGM, 128 planes, range
 (4.0, 8.5)) on the two-view scene of tests/test_sgm.py, with the plane's
@@ -24,6 +27,13 @@ analytic depth of view 1 (as tests/test_cli.py reckons it).
 it (`smvs_tpu_torch.core.synthetic.forward_cameras`): no pair rectifies,
 so every SGM pair takes the general warp. Both scenes are written by the
 port's numpy code, whose files and pixels equal the JAX package's.
+
+`shading`: the CLI with `-S` (the shading-aware optimizer, otherwise its
+defaults) on the scene of `cli`; reads `smvs-S0.ply`.
+
+`flagship`: `bench.py:run_shading_once(dim, 2)`, the shading-aware
+flagship (JAX float32 on the CPU); prints its coverage and median
+relative error.
 
 `--port` runs the PyTorch port's CLI (`--device cpu`) on the same scene
 instead, to tell a difference of the card from one of the size:
@@ -88,7 +98,8 @@ def fused_error(vertices: np.ndarray, scene, view: int = 1) -> float:
     return float(np.median(np.abs(p_cam[inb][ok, 2] - gt[ok]) / gt[ok]))
 
 
-def cli(dim: int, forward: bool = False, port: bool = False) -> dict:
+def cli(dim: int, forward: bool = False, port: bool = False,
+        shading: bool = False) -> dict:
     from smvs_tpu import cli as smvs_cli
     from smvs_tpu.mesh.ply import load_ply
     from smvs_tpu_torch import cli as port_cli
@@ -103,24 +114,44 @@ def cli(dim: int, forward: bool = False, port: bool = False) -> dict:
     with tempfile.TemporaryDirectory() as path:
         save_as_mve_scene(scene, path)
         t0 = time.perf_counter()
-        rc = port_cli.main([path, "--device", "cpu"]) if port else \
-            smvs_cli.main([path, "--platform", "cpu", "--batch-views", "1"])
+        flags = ["-S"] if shading else []
+        rc = port_cli.main([path, "--device", "cpu", *flags]) if port else \
+            smvs_cli.main([path, "--platform", "cpu", "--batch-views", "1",
+                           *flags])
         seconds = time.perf_counter() - t0
-        ps = load_ply(os.path.join(path, "smvs-B0.ply"))
+        ps = load_ply(os.path.join(path, "smvs-S0.ply" if shading
+                                   else "smvs-B0.ply"))
     return {"rc": rc, "points": int(len(ps.vertices)),
             "median_fused_rel_err": fused_error(ps.vertices, scene),
             "cpu_seconds": seconds}
 
 
+def flagship(dim: int, port: bool = False) -> dict:
+    if port:
+        from smvs_tpu_torch import bench_main
+        out = bench_main.run_shading_once(dim, 2, device="cpu")
+    else:
+        import bench
+        out = bench.run_shading_once(dim, 2, verbose=False)
+    return dict(zip(("t_sgm", "t_opt", "coverage", "median_rel_err"), out))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("config", choices=("general", "cli", "forward"))
+    ap.add_argument("config", choices=("general", "cli", "forward",
+                                       "shading", "flagship"))
     ap.add_argument("--dim", type=int, required=True)
     ap.add_argument("--port", action="store_true",
-                    help="run the PyTorch port's CLI instead (cli, forward)")
+                    help="run the PyTorch port instead (cli, forward, "
+                         "shading, flagship)")
     args = ap.parse_args(argv)
-    out = general(args.dim) if args.config == "general" else \
-        cli(args.dim, forward=args.config == "forward", port=args.port)
+    if args.config == "general":
+        out = general(args.dim)
+    elif args.config == "flagship":
+        out = flagship(args.dim, port=args.port)
+    else:
+        out = cli(args.dim, forward=args.config == "forward", port=args.port,
+                  shading=args.config == "shading")
     print(json.dumps({"config": args.config, "dim": args.dim,
                       "package": "smvs_tpu_torch" if args.port
                       else "smvs_tpu", "device": "cpu", **out}))
