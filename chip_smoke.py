@@ -46,9 +46,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    set the same way (`tools/jax_cpu_reference.py forward`);
 9. the SGM kernels beyond their first reach: a repeated shift through
    `fused_pass` and `fused_pass(loop=True)` (one `sgm_path_kernel` launch
-   per listed path), and every entry point at D = 129, 192, 256 and 512
-   (`sgm_path_kernel` with 8 or 16 depths per lane), each bit-equal to
-   plain on every timed run, with times, at [640, 640, D];
+   per listed path), every entry point at D = 129, 192, 256 and 512
+   (`sgm_path_kernel` with 8 or 16 depths per lane) and at D = 513, 1024
+   and 2048 (`sgm_deep_kernel`, a block of ceil(D / 512) warps per chain),
+   each bit-equal to plain on every timed run, with times, at
+   [640, 640, D], and each D's launches counted by row and by kernel;
+   every entry point at D = 16384 on a small volume (the deep kernel's
+   32-warp form), bit-equal; and D = 16385 raising before any launch;
 10. the shading-aware flagship: `bench_main.run_shading_once(1440, 2)`
    once to warm up, once timed with the kernel's launch counts (rows 1-2
    > 0), and once with its stages synchronized for their split and its
@@ -60,7 +64,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
 11. the CLI with `-S` on the 4-view 1280 x 1280 scene of phase 7: an
    `smvs-S0` embedding per view, `smvs-S0.ply`, row 1-2 launches > 0, and
    limits set from the JAX package's CLI with `-S`
-   (`tools/jax_cpu_reference.py shading`).
+   (`tools/jax_cpu_reference.py shading`);
+12. the CLI on a 4-view 1280 x 1280 color plane scene (channels that
+   differ): `--no-sgm` (the sparse-prior init from the bundle's
+   features), then `--no-sgm -S -g` in the same directory; no kernel
+   launch, color points, and limits from the JAX CLI on the same
+   configuration (`tools/jax_cpu_reference.py color`);
+13. the CLI on the gray scene of phase 7 with `--full-opt -m` (row 1-2
+   launches, a triangle mesh whose points, faces and error are held to
+   limits from `tools/jax_cpu_reference.py fullopt`), then `-m -y` in the
+   same directory (it skips every view and only fuses, no launch; the
+   greedy triangulation's mesh has fewer faces than the full one), and
+   the simplify tool (`smvs_tpu_torch.tools.simplify`) on the full mesh.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after; the `launches` of each kernel row come from the path named in
@@ -70,7 +85,8 @@ list their launches on the flagship and the CLI with `-S`. It prints one
 `{"kernels": [...]}` line with the five TPU kernel rows, each naming the
 CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
 `sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
-5), then as the last line
+5), and `sgm_deep_kernel`, which serves every row beyond 512 depths,
+timed on `aggregate` at D = 2048, then as the last line
 `{"ok": true, "device": {...}}`. It imports nothing of JAX.
 """
 
@@ -84,6 +100,7 @@ import os
 import re
 import statistics
 import subprocess
+import shutil
 import sys
 import tempfile
 import time
@@ -108,6 +125,7 @@ from smvs_tpu_torch.sgm import cuda_agg  # noqa: E402
 from smvs_tpu_torch.sgm import stereo  # noqa: E402
 from smvs_tpu_torch.sgm.stereo import INVALID_COST  # noqa: E402
 from smvs_tpu_torch.solver import gn  # noqa: E402
+from smvs_tpu_torch.tools import simplify as simplify_tool  # noqa: E402
 
 # H100 SXM memory bandwidth (NVIDIA data sheet; full 700 W power limit).
 # The data sheet gives no peak rate for integer min and add work, so the
@@ -153,8 +171,38 @@ SHADING_F32_RTOL = 0.1
 # its points per pixel, three times its error.
 SHADING_CLI_MIN_POINT_SHARE = 0.29
 SHADING_CLI_MAX_ERR = 1.2e-2
-DEEP = (129, 192, 256, 512)  # depth counts beyond the line and sweep kernels
+# Limits of the CLI on the 4 x 1280^2 color plane scene, from the JAX
+# package's CLI on the same configuration at dim 640 on the CPU
+# (`tools/jax_cpu_reference.py color --dim 640`; PERF.md): with --no-sgm
+# 1,415,938 points of 4 x 640^2 pixels (0.8642), median fused error
+# 8.232e-5; with --no-sgm -S -g 545,621 (0.3330), 5.005e-3. 80% of its
+# points per pixel, three times its error.
+COLOR_MIN_POINT_SHARE = 0.69
+COLOR_MAX_ERR = 2.5e-4
+COLOR_SHADING_MIN_POINT_SHARE = 0.26
+COLOR_SHADING_MAX_ERR = 1.5e-2
+# The color scene's bundle features: the density of the 200 features of a
+# 160 px scene (`tools/jax_cpu_reference.py`'s `features`); the splat init
+# needs a few in each node's window.
+CLI_DIM = 1280  # the CLI scenes' views: 4 x 1280^2
+COLOR_FEATURES = round(200 * (CLI_DIM / 160) ** 2)
+# Limits of the CLI with --full-opt -m on 4 x 1280^2, from the JAX CLI on
+# the same configuration at dim 640 on the CPU
+# (`tools/jax_cpu_reference.py fullopt --dim 640`; PERF.md): 1,424,205
+# vertices (0.8693 per pixel), 2,838,597 faces (1.7326 per pixel), median
+# fused error 1.086e-4. 80% of its vertices and faces per pixel, three
+# times its error. Its -m -y run gives 0 vertices and 0 faces (the greedy
+# triangulation of maps without depth at the image corners; ROADMAP.md).
+FULLOPT_MIN_POINT_SHARE = 0.69
+FULLOPT_MIN_FACE_SHARE = 1.38
+FULLOPT_MAX_ERR = 3.3e-4
+SIMPLIFY_RATIO = 0.25  # the simplify tool's default
+# Depth counts beyond the line and sweep kernels: sgm_path_kernel to 512,
+# sgm_deep_kernel beyond.
+DEEP = (129, 192, 256, 512, 513, 1024, 2048)
 DEEP_HW = 640  # [640, 640, D] problems for them
+DEEP_MAX_SHAPE = (16, 24, cuda_agg.MAX_D)  # the deep kernel's 32-warp form
+DEEP_TIMED_D = 2048  # the sgm_deep_kernel entry of the kernels line
 
 SOURCE = "smvs_tpu_torch/csrc/sgm_agg.cu"
 # Each row's `pl.pallas_call` and the TPU kernel it runs.
@@ -168,7 +216,7 @@ REPLACES = {
                         "_fused_kernel_loop"),
     "scan_direction": ("smvs_tpu/sgm/pallas_agg.py:99", "_scan_kernel"),
 }
-# The CUDA kernel that serves each row.
+# The CUDA kernel that serves each row (at D <= 128).
 KERNEL = {"fused_pass": "sgm_sweep3_kernel",
           "fused_pass_batch": "sgm_line_kernel",
           "fused_pass_bidir": "sgm_line_kernel + sgm_sweep3_kernel",
@@ -579,49 +627,144 @@ def fused_error(vertices: np.ndarray, scene, view: int = 1) -> float:
     return float(np.median(np.abs(p_cam[inb][ok, 2] - gt[ok]) / gt[ok]))
 
 
-def phase_cli(label: str, cameras, min_share: float, max_err: float,
-              rows: tuple, flags: tuple = ()) -> dict:
-    """The CLI with its defaults and ``flags`` on a 4-view 1280^2 plane
-    scene (``cameras`` None: the sideways views of `make_plane_scene`);
-    ``rows`` are the kernel rows its SGM must launch."""
-    name = "smvs-S0" if "-S" in flags else "smvs-B0"
-    dim, n_views = 1280, 4
-    scene = syn.make_plane_scene(n_views=n_views, dim=dim, cameras=cameras)
-    with tempfile.TemporaryDirectory() as path:
-        syn.save_as_mve_scene(scene, path)
-        out = io.StringIO()
-        cuda_agg.reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main([path, *flags])
-        seconds = time.perf_counter() - t0
-        launches = dict(cuda_agg.launches)
-        text = out.getvalue()
-        log("\n".join(f"  {label}: " + line for line in text.splitlines()))
-        if rc != 0:
-            raise RuntimeError(f"{label}: the CLI exited with {rc}")
+def run_cli(label: str, path: str, scene, flags: tuple, ply: str,
+            rows: tuple, min_share: float | None = None,
+            max_err: float | None = None, min_faces: float | None = None,
+            embedding: str | None = None) -> dict:
+    """One run of the CLI with ``flags`` on the scene directory ``path``
+    (``scene`` its synthetic source), the kernel launch counts set to 0
+    just before and read just after: exit 0, ``embedding`` in every view,
+    the launches of exactly the kernel rows ``rows``, and the PLY
+    ``ply``'s points (vertices) and faces per pixel and median fused error
+    within the limits given."""
+    n_views, dim = len(scene.cameras), scene.width
+    out = io.StringIO()
+    cuda_agg.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([path, *flags])
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_agg.launches)
+    kernels = dict(cuda_agg.kernel_launches)
+    text = out.getvalue()
+    log("\n".join(f"  {label}: " + line for line in text.splitlines()))
+    if rc != 0:
+        raise RuntimeError(f"{label}: the CLI exited with {rc}")
+    if embedding is not None:
         for v in sc.Scene.load(path).views:
-            if not v.has_embedding(name):
+            if not v.has_embedding(embedding):
                 raise RuntimeError(f"{label}: view {v.view_id} has no "
-                                   f"{name}")
-        ps = load_ply(os.path.join(path, f"{name}.ply"))
+                                   f"{embedding}")
+    ps = load_ply(os.path.join(path, ply))
     stages = re.search(r"Stage seconds: (.*)", text).group(1)
-    share = len(ps.vertices) / (n_views * dim * dim)
-    err = fused_error(ps.vertices, scene)
+    pixels = n_views * dim * dim
+    share = len(ps.vertices) / pixels
+    faces = 0 if ps.faces is None else len(ps.faces)
+    err = fused_error(ps.vertices, scene) if len(ps.vertices) else None
     log(f"{label} {n_views} x {dim}^2: {seconds:.3f} s ({stages}), "
-        f"{len(ps.vertices)} points ({share:.4f} per pixel), median fused "
-        f"error {err:.3e}, kernel launches {launches}")
+        f"{len(ps.vertices)} points ({share:.4f} per pixel), {faces} faces "
+        f"({faces / pixels:.4f} per pixel), median fused error {err}, "
+        f"kernel launches {launches} by kernel {kernels}")
     for row in cuda_agg.ROWS:
         if (launches[row] > 0) != (row in rows):
             raise RuntimeError(f"{label}: {launches[row]} launches of "
                                f"{row}; expected launches of {rows} only")
-    if not share >= min_share:
+    if min_share is not None and not share >= min_share:
         raise RuntimeError(f"{label}: {share:.4f} points per pixel < "
                            f"{min_share}")
-    if not err <= max_err:
-        raise RuntimeError(f"{label}: median fused error {err:.3e} > "
-                           f"{max_err}")
-    return launches
+    if max_err is not None and not (err is not None and err <= max_err):
+        raise RuntimeError(f"{label}: median fused error {err} > {max_err}")
+    if min_faces is not None and not faces / pixels >= min_faces:
+        raise RuntimeError(f"{label}: {faces / pixels:.4f} faces per pixel "
+                           f"< {min_faces}")
+    return {"seconds": seconds, "stages": stages,
+            "points": len(ps.vertices), "points_per_pixel": share,
+            "faces": faces, "median_fused_rel_err": err,
+            "launches": launches, "kernel_launches": kernels, "text": text,
+            "colors": ps.colors}
+
+
+def phase_cli(label: str, cameras, min_share: float, max_err: float,
+              rows: tuple, flags: tuple = ()) -> dict:
+    """The CLI with its defaults and ``flags`` on a 4-view 1280^2 plane
+    scene (``cameras`` None: the sideways views of `make_plane_scene`);
+    ``rows`` are the kernel rows its SGM must launch. Returns the
+    launches."""
+    name = "smvs-S0" if "-S" in flags else "smvs-B0"
+    scene = syn.make_plane_scene(n_views=4, dim=CLI_DIM, cameras=cameras)
+    with tempfile.TemporaryDirectory() as path:
+        syn.save_as_mve_scene(scene, path)
+        res = run_cli(label, path, scene, flags, f"{name}.ply", rows,
+                      min_share, max_err, embedding=name)
+    return res["launches"]
+
+
+def _summary(res: dict) -> dict:
+    return {k: v for k, v in res.items() if k not in ("text", "colors")}
+
+
+def phase_cli_color() -> dict:
+    """The CLI on a 4-view 1280^2 color plane scene: `--no-sgm`, then
+    `--no-sgm -S -g` in the same directory. No SGM runs, so no kernel
+    launches; the fused points carry the RGB image's colors."""
+    scene = syn.make_plane_scene(n_views=4, dim=CLI_DIM, color=True)
+    with tempfile.TemporaryDirectory() as path:
+        syn.save_as_mve_scene(scene, path, n_features=COLOR_FEATURES)
+        base = run_cli("cli color --no-sgm", path, scene, ("--no-sgm",),
+                       "smvs-B0.ply", (), COLOR_MIN_POINT_SHARE,
+                       COLOR_MAX_ERR, embedding="smvs-B0")
+        shading = run_cli("cli color --no-sgm -S -g", path, scene,
+                          ("--no-sgm", "-S", "-g"), "smvs-S0.ply", (),
+                          COLOR_SHADING_MIN_POINT_SHARE,
+                          COLOR_SHADING_MAX_ERR, embedding="smvs-S0")
+    for label, res in (("--no-sgm", base), ("--no-sgm -S -g", shading)):
+        c = res["colors"]
+        if c is None or c.shape[1] != 3 or \
+                not (c[:, 0] != c[:, 1]).any():
+            raise RuntimeError(f"cli color {label}: the points do not carry "
+                               "the views' RGB colors")
+    return {"no_sgm": _summary(base), "no_sgm_S_g": _summary(shading)}
+
+
+def phase_cli_mesh() -> dict:
+    """The CLI on the gray 4-view 1280^2 plane scene with `--full-opt -m`,
+    then `-m -y` in the same directory (every view skipped, only the
+    fusion into greedy simplified meshes), then the simplify tool on the
+    full mesh."""
+    scene = syn.make_plane_scene(n_views=4, dim=CLI_DIM)
+    with tempfile.TemporaryDirectory() as path:
+        syn.save_as_mve_scene(scene, path)
+        full = run_cli("cli --full-opt -m", path, scene, ("--full-opt", "-m"),
+                       "smvs-m-B0.ply", ("fused_pass", "fused_pass_batch"),
+                       FULLOPT_MIN_POINT_SHARE, FULLOPT_MAX_ERR,
+                       FULLOPT_MIN_FACE_SHARE, embedding="smvs-B0")
+        kept = os.path.join(path, "full-mesh.ply")
+        shutil.copy(os.path.join(path, "smvs-m-B0.ply"), kept)
+        simple = run_cli("cli -m -y", path, scene, ("-m", "-y"),
+                         "smvs-m-B0.ply", ())
+        if "Skipping 4 views that are already reconstructed." not in \
+                simple["text"]:
+            raise RuntimeError("cli -m -y: the views were reconstructed "
+                               "again")
+        if not (simple["faces"] < full["faces"]
+                and simple["points"] <= full["points"]):
+            raise RuntimeError(f"cli -m -y: {simple['faces']} faces and "
+                               f"{simple['points']} vertices, not fewer "
+                               "than the full mesh's")
+        out = os.path.join(path, "simplified.ply")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = simplify_tool.main([kept, out, str(SIMPLIFY_RATIO)])
+        seconds = time.perf_counter() - t0
+        ps = load_ply(out)
+    tool = {"rc": rc, "seconds": seconds, "vertices": len(ps.vertices),
+            "faces": len(ps.faces), "input_faces": full["faces"]}
+    log(f"simplify tool on the full mesh: {tool}")
+    if rc != 0 or not 0 < tool["faces"] <= \
+            SIMPLIFY_RATIO * full["faces"] + 2 or not tool["vertices"] > 0:
+        raise RuntimeError(f"the simplify tool: {tool}")
+    return {"full_opt_m": _summary(full), "m_y": _summary(simple),
+            "simplify_tool": tool}
 
 
 def phase_deep(rows: dict) -> None:
@@ -660,6 +803,7 @@ def phase_deep(rows: dict) -> None:
         acc = torch.randint(0, 500, cost.shape, generator=g, device="cuda",
                             dtype=torch.int16)
         b2 = (cost[None], inten[None], acc[None])
+        deep_launches = check_deep_launches(D, cost, inten)
         cases = {
             "fused_pass": (
                 "aggregate_batch (8 path launches)",
@@ -708,6 +852,8 @@ def phase_deep(rows: dict) -> None:
         for row, (name, fn, plain, acc_in, elem) in extra.items():
             rows[row]["deep"][D]["sweep"] = compare(
                 f"D = {D}: {name}", fn, plain, acc_in, elem)
+        for row in ("fused_pass", "fused_pass_bidir"):
+            rows[row]["deep"][D]["launches"] = deep_launches[row]
         cost32 = cost.to(torch.int32) * 300
         del cost, acc, b2
         rows["scan_direction"]["deep"][D] = {"sweep": compare(
@@ -717,6 +863,98 @@ def phase_deep(rows: dict) -> None:
             False, 4)}
         del cost32, inten
     torch.cuda.empty_cache()
+    rows["fused_pass"]["deepest"] = phase_deepest()
+
+
+def check_deep_launches(D: int, cost, inten) -> dict:
+    """`aggregate_batch` and `aggregate` on one [640, 640, D] volume and
+    `scan_direction` on its int32 costs, each with the launch counts set to
+    0 just before and read just after: 8 path launches (2 horizontal, 6
+    vertical) and 1, all of `sgm_path_kernel` up to 512 depths and of
+    `sgm_deep_kernel` beyond."""
+    kernel = cuda_agg.path_kernel(D)
+    want = {"fused_pass": ({"fused_pass_batch": 2, "fused_pass": 6}, 8),
+            "fused_pass_bidir": ({"fused_pass_bidir": 8}, 8),
+            "scan_direction": ({"scan_direction": 1}, 1)}
+    calls = {
+        "fused_pass": lambda: cuda_agg.aggregate_batch(cost[None],
+                                                       inten[None], P1, P2),
+        "fused_pass_bidir": lambda: cuda_agg.aggregate(cost, inten, P1, P2),
+        "scan_direction": lambda: cuda_agg.scan_direction(
+            cost.to(torch.int32), inten, 1, P1, P2),
+    }
+    out = {}
+    for row, fn in calls.items():
+        cuda_agg.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        by_row = {k: v for k, v in cuda_agg.launches.items() if v}
+        by_kernel = {k: v for k, v in cuda_agg.kernel_launches.items() if v}
+        rows_want, n = want[row]
+        if by_row != rows_want or by_kernel != {kernel: n}:
+            raise RuntimeError(f"D = {D}: {row}'s path launched {by_row} "
+                               f"by kernel {by_kernel}, not {rows_want} "
+                               f"of {cuda_agg.KERNELS[kernel]}")
+        out[row] = {"rows": by_row, "kernels": by_kernel}
+    log(f"D = {D}: launches {out}")
+    return out
+
+
+def phase_deepest() -> dict:
+    """Every entry point at the plane limit (`cuda_agg.MAX_D` = 16384,
+    `sgm_deep_kernel` with 32 warps a block, loading each position at its
+    step) on a small volume, bit-equal to plain; one plane more raises
+    before any launch."""
+    cost, inten = _seeded(DEEP_MAX_SHAPE, 901)
+    g = torch.Generator(device="cuda").manual_seed(902)
+    acc = torch.randint(0, 500, cost.shape, generator=g, device="cuda",
+                        dtype=torch.int16)
+    b2 = (cost[None], inten[None], acc[None])
+    D = cost.shape[-1]
+    launches = check_deep_launches(D, cost, inten)
+    res = {"shape": list(cost.shape), "launches": launches}
+    for name, fn, plain, acc_in, elem in (
+            ("aggregate_batch",
+             lambda: cuda_agg.aggregate_batch(*b2[:2], P1, P2),
+             lambda: cuda_agg.plain_aggregate_batch(*b2[:2], P1, P2),
+             False, 2),
+            ("aggregate", lambda: cuda_agg.aggregate(cost, inten, P1, P2),
+             lambda: cuda_agg.plain_aggregate(cost, inten, P1, P2), False, 2),
+            ("fused_pass_batch (0,)",
+             lambda: cuda_agg.fused_pass_batch(*b2, True, (0,), P1, P2),
+             lambda: cuda_agg.plain_fused_pass_batch(*b2, True, (0,), P1, P2),
+             True, 2),
+            ("fused_pass(loop=True)",
+             lambda: cuda_agg.fused_pass(cost, inten, acc, False, (0, 1, -1),
+                                         P1, P2, loop=True),
+             lambda: cuda_agg.plain_fused_pass_batch(
+                 *b2, False, (0, 1, -1), P1, P2)[0], True, 2),
+            ("fused_pass_bidir",
+             lambda: cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1),
+                                               P1, P2),
+             lambda: cuda_agg.plain_fused_pass_bidir(cost, inten, acc,
+                                                     (0, 1, -1), P1, P2),
+             True, 2)):
+        res[name] = compare(f"D = {D}: {name}", fn, plain, acc_in, elem)
+    cost32 = cost.to(torch.int32) * 300
+    res["scan_direction"] = compare(
+        f"D = {D}: scan_direction shift -1",
+        lambda: cuda_agg.scan_direction(cost32, inten, -1, P1, P2),
+        lambda: cuda_agg.plain_scan_direction(cost32, inten, -1, P1, P2),
+        False, 4)
+    over, _ = _seeded(DEEP_MAX_SHAPE[:2] + (D + 1,), 903)
+    cuda_agg.reset_launches()
+    try:
+        cuda_agg.aggregate(over, inten, P1, P2)
+    except ValueError as e:
+        if str(cuda_agg.MAX_D) not in str(e) or \
+                sum(cuda_agg.launches.values()):
+            raise RuntimeError(f"D = {D + 1}: {e}; launches "
+                               f"{cuda_agg.launches}") from e
+        log(f"D = {D + 1} raises before any launch: {e}")
+    else:
+        raise RuntimeError(f"D = {D + 1} did not raise")
+    return res
 
 
 def _norms(g, H) -> tuple:
@@ -850,6 +1088,8 @@ def main() -> int:
     shading_cli = phase_cli("cli -S", None, SHADING_CLI_MIN_POINT_SHARE,
                             SHADING_CLI_MAX_ERR,
                             ("fused_pass", "fused_pass_batch"), flags=("-S",))
+    color_cli = phase_cli_color()
+    mesh_cli = phase_cli_mesh()
     main_path = "bench_main.run_once(1440, 2): rectified SGM"
     path_launches = {  # (path, launches on it)
         "fused_pass": (main_path, main_launches["fused_pass"]),
@@ -883,7 +1123,31 @@ def main() -> int:
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
         })
+    # sgm_deep_kernel serves every row beyond 512 depths; no user path sets
+    # that many planes, so its launches are those of the D > 512 phase's
+    # `aggregate` run at the timed depth.
+    deep = rows["fused_pass_bidir"]["deep"][DEEP_TIMED_D]
+    kernels.append({
+        "name": f"sgm_deep_kernel via aggregate at D = {DEEP_TIMED_D}",
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": REPLACES["fused_pass_bidir"][0],
+        "tpu_kernel": "every row at D > 512 (here row 3, "
+                      + REPLACES["fused_pass_bidir"][1] + ")",
+        "launches": deep["launches"]["kernels"]["deep"],
+        "path": f"aggregate on [{DEEP_HW}, {DEEP_HW}, {DEEP_TIMED_D}] "
+                "(tests only: no user path sets more than 512 planes)",
+        "max_abs_err": deep["aggregate"]["max_abs_err"],
+        "ms": deep["aggregate"]["ms"],
+        "plain_ms": deep["aggregate"]["plain_ms"],
+        "bound_ms": deep["aggregate"]["bound_ms"],
+        "bound_by": deep["aggregate"]["bound_by"],
+        "library_ms": None,
+        "shape": deep["aggregate"]["shape"],
+    })
     print(json.dumps({"flagship": shading}), flush=True)
+    print(json.dumps({"cli_color": color_cli, "cli_mesh": mesh_cli}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -24,7 +24,7 @@ from smvs_tpu_torch.shading import sh as shmod
 @dataclasses.dataclass
 class SyntheticScene:
     cameras: list[Camera]
-    images: list[np.ndarray]  # float32 [H, W] in [0, 1]
+    images: list[np.ndarray]  # float32 [H, W] (or [H, W, 3]) in [0, 1]
     depths: list[np.ndarray | None]  # analytic z-depth maps (0 = unknown)
     width: int
     height: int
@@ -136,6 +136,7 @@ def make_plane_scene(
     plane=(0.0, 0.05, 0.1, 5.0),  # n . P = d with n = (nx, ny, 1) normalized
     baseline: float = 0.15,
     cameras: list[Camera] | None = None,
+    color: bool = False,
 ) -> SyntheticScene:
     """N views of an analytically textured world plane.
 
@@ -143,6 +144,9 @@ def make_plane_scene(
     plane ``n . P = d`` is intersected per pixel ray and shaded with a
     smooth analytic texture. ``cameras`` renders the given views instead
     of ``n_views`` on a sideways line (the JAX version's only layout).
+    ``color`` renders [H, W, 3] images whose channels carry the texture
+    shifted and scaled differently (the gray scene's image is the red
+    channel), so a view's luminance differs from every channel.
     """
     nrm = np.array([plane[0], plane[1], 1.0])
     nrm /= np.linalg.norm(nrm)
@@ -172,7 +176,13 @@ def make_plane_scene(
         s = (d_off - nrm @ C) / (dir_world @ nrm)
         P = C + s[..., None] * dir_world
         depths.append(s.copy())  # z-depth: dir_cam's z-component is 1
-        images.append(texture(P[..., 0], P[..., 1]).astype(np.float32))
+        px, py = P[..., 0], P[..., 1]
+        img = texture(px, py)
+        if color:
+            img = np.stack([img, 0.9 * texture(px + 0.37, py - 0.21) + 0.04,
+                            1.1 - texture(0.8 * px, 1.2 * py + 0.5)],
+                           axis=-1)
+        images.append(img.astype(np.float32))
     return SyntheticScene(cameras=cameras, images=images, depths=depths,
                           width=dim, height=dim)
 

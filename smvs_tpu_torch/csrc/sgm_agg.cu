@@ -27,7 +27,9 @@
 // - sgm_path_kernel: row 5, and one launch per path of a sweep that the
 //   other two cannot take (a repeated shift, in any row; a problem wider
 //   than the resident blocks of sgm_sweep3_kernel; or more than 128
-//   depths, up to 512).
+//   depths, up to 512);
+// - sgm_deep_kernel: every sweep of every row at more than 512 depths (up
+//   to 16384), one launch per path, as sgm_path_kernel takes them below.
 //
 // Recurrence, per line and depth d (int32 arithmetic):
 //   new[d] = cost[d] + min(prev[d], prev[d-1] + P1, prev[d+1] + P1,
@@ -112,6 +114,27 @@
 // the wide-problem route), or int32 writing the path cost (row 5, whose
 // costs exceed int16). The next position is loaded one step ahead.
 //
+// sgm_deep_kernel: sgm_path_kernel's walk for D > 512, where one warp
+// would need more than 16 depths a lane (127 registers a thread at 16; 32
+// would spill). One block walks one chain with W = ceil(D / 512) warps,
+// each holding 512 consecutive depths, 16 a lane, so W <= 32 at the
+// 16384-depth limit. Each step, each warp takes its minimum with one
+// redux.sync and writes it, with its first and last depth, to shared
+// memory; one __syncthreads() later every warp reads the block's
+// min(prev) (lane i reads warp i's, one redux.sync) and the depths next
+// to its own ends, from the neighbouring warps. The slots alternate by
+// step parity, so one barrier per step is enough: a warp writes a slot
+// again two steps later, after the barrier that every reader of the
+// slot's last values has passed. Every warp of a block walks the same
+// chain, so all reach every barrier, a ragged last warp (D % 512 != 0)
+// too: its lanes past D hold BIG, as in the other kernels. Up to 8 warps
+// (D <= 4096) the block loads the next position one step ahead, as
+// sgm_path_kernel does; beyond that, 9 to 32 warps, a thread may hold 64
+// registers (1024 threads), so it loads each position at its step and the
+// accumulator only after the recurrence (ptxas: no spills in any form). The
+// recurrence and its integer arithmetic are those of the other kernels,
+// bit for bit.
+//
 // Bounds on the H100 (3.35 TB/s). A sweep must read the cost once, read
 // the accumulator once if there is one and write the result once, and
 // read the int32 intensities once. sgm_line_kernel at the main path's
@@ -143,6 +166,13 @@ constexpr int kEdge = 128;          // words per edge line (32 lanes x K <= 4)
 // Depths sgm_path_kernel takes (32 lanes x K <= 16); the line and sweep
 // kernels take D <= 128 (K <= 4).
 constexpr int kPathMaxD = 512;
+// sgm_deep_kernel: kPathMaxD depths per warp (16 a lane), at most
+// kDeepMaxWarps warps a block, and at most kDeepPrefetchWarps warps where
+// it loads one step ahead.
+constexpr int kDeepK = kPathMaxD / 32;
+constexpr int kDeepMaxWarps = 32;
+constexpr int kDeepMaxD = kPathMaxD * kDeepMaxWarps;
+constexpr int kDeepPrefetchWarps = 8;
 constexpr int kStages = 4;          // scan positions in a sweep block's ring
 // sgm_line_kernel: warps per block and scan positions in a warp's ring.
 // Small blocks of one line per warp balance the SMs: the main path's
@@ -491,6 +521,174 @@ cudaError_t launch_k(const void* cost, const void* inten, void* out, int B,
     default:
       return launch<T, 16, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
   }
+}
+
+// One chain of one path per block, W = blockDim.x / 32 warps of 512
+// depths. kAdd as for sgm_path_kernel. kPrefetch: load the next position
+// one step ahead (W <= kDeepPrefetchWarps).
+template <typename T, bool kAdd, bool kPrefetch>
+__global__ void __launch_bounds__(
+    (kPrefetch ? kDeepPrefetchWarps : kDeepMaxWarps) * 32)
+    sgm_deep_kernel(const T* __restrict__ cost,
+                    const int32_t* __restrict__ inten, T* __restrict__ out,
+                    int X, int L, int D, long long vb, long long vx,
+                    long long vl, long long ib, long long ix, long long il,
+                    int reverse, int shift, int p1, int p2, bool vec) {
+  constexpr int K = kDeepK;
+  // [parity][warp]: each warp's min(prev), and prev at its first and its
+  // last depth.
+  __shared__ int s_min[2][kDeepMaxWarps];
+  __shared__ int s_lo[2][kDeepMaxWarps];
+  __shared__ int s_hi[2][kDeepMaxWarps];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const long long n_chains = shift ? static_cast<long long>(L) + X - 1
+                                   : static_cast<long long>(L);
+  const long long b = blockIdx.x / n_chains;
+  const long long c = blockIdx.x - b * n_chains;
+  const bool rev = reverse != 0;
+
+  // Chain start: scan step 0 on line c, or the border line at step c-L+1.
+  int t = 0;
+  int l;
+  if (c < L) {
+    l = static_cast<int>(c);
+  } else {
+    t = static_cast<int>(c - L + 1);
+    l = shift > 0 ? 0 : L - 1;
+  }
+  const T* cb = cost + b * vb;
+  T* ob = out + b * vb;
+  const int32_t* ibase = inten + b * ib;
+  const int p2min = p1 * 3 / 2;
+  const int d0 = (w * 32 + lane) * K;
+
+  int x = rev ? X - 1 - t : t;
+  long long off = x * vx + l * vl + d0;
+  int cur[K], av[K];
+  load_k<T, K>(cb + off, cur, d0, D, vec);
+  if constexpr (kAdd && kPrefetch) load_k<T, K>(ob + off, av, d0, D, vec);
+  int it = ibase[x * ix + l * il];
+
+  int prev[K];
+  int prev_i = 0;
+  int par = 0;
+  bool first = true;
+  while (true) {
+    const int tn = t + 1;
+    const int ln = l + shift;
+    const bool more = tn < X && ln >= 0 && ln < L;
+    int ncur[K], nav[K];
+    int nit = 0;
+    long long noff = 0;
+    if constexpr (kPrefetch) {
+      if (more) {
+        const int xn = rev ? X - 1 - tn : tn;
+        noff = xn * vx + ln * vl + d0;
+        load_k<T, K>(cb + noff, ncur, d0, D, vec);
+        if constexpr (kAdd) load_k<T, K>(ob + noff, nav, d0, D, vec);
+        nit = ibase[xn * ix + ln * il];
+      }
+    }
+
+    int nv[K];
+    if (first) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) nv[k] = cur[k];
+      first = false;
+    } else {
+      int m = prev[0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) m = min(m, prev[k]);
+      m = __reduce_min_sync(kFull, m);
+      if (lane == 0) {
+        s_min[par][w] = m;
+        s_lo[par][w] = prev[0];
+      }
+      if (lane == 31) s_hi[par][w] = prev[K - 1];
+      __syncthreads();
+      m = __reduce_min_sync(kFull, lane < n_warps ? s_min[par][lane] : kBig);
+      int left = __shfl_up_sync(kFull, prev[K - 1], 1);    // prev[d0 - 1]
+      int right = __shfl_down_sync(kFull, prev[0], 1);     // prev[d0 + K]
+      if (lane == 0) left = w > 0 ? s_hi[par][w - 1] : kBig;
+      if (lane == 31) right = w < n_warps - 1 ? s_lo[par][w + 1] : kBig;
+      par ^= 1;
+      const int mp = m + max(p2min, p2 / (abs(it - prev_i) + 1));
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int dn = k == 0 ? left : prev[k - 1];
+        const int up = k == K - 1 ? right : prev[k + 1];
+        nv[k] = cur[k] + min(min(prev[k], min(up, dn) + p1), mp) - m;
+      }
+    }
+    // Without the prefetch, the accumulator is read only now, so that it
+    // and cur are never live together (64 registers at 1024 threads).
+    if constexpr (kAdd && !kPrefetch) load_k<T, K>(ob + off, av, d0, D, vec);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (d0 + k >= D) nv[k] = kBig;
+      prev[k] = nv[k];
+      if constexpr (kAdd) av[k] += nv[k];
+    }
+    if constexpr (kAdd) {
+      store_k<T, K>(ob + off, av, d0, D, vec);
+    } else {
+      store_k<T, K>(ob + off, nv, d0, D, vec);
+    }
+    prev_i = it;
+    if (!more) break;
+    t = tn;
+    l = ln;
+    if constexpr (kPrefetch) {
+      off = noff;
+      it = nit;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        cur[k] = ncur[k];
+        if constexpr (kAdd) av[k] = nav[k];
+      }
+    } else {
+      x = rev ? X - 1 - t : t;
+      off = x * vx + l * vl + d0;
+      load_k<T, K>(cb + off, cur, d0, D, vec);
+      it = ibase[x * ix + l * il];
+    }
+  }
+}
+
+template <typename T, bool kAdd>
+cudaError_t launch_deep(const void* cost, const void* inten, void* out,
+                        int B, int X, int L, int D, long long vb,
+                        long long vx, long long vl, long long ib,
+                        long long ix, long long il, int reverse, int shift,
+                        int p1, int p2, cudaStream_t stream) {
+  constexpr int K = kDeepK;
+  // Vector loads need every warp's depth run aligned: lanes start at
+  // multiples of K depths, so D, the strides and the pointers must be too.
+  const uintptr_t align = sizeof(T) * K;
+  const bool vec = D % K == 0 && vb % K == 0 && vx % K == 0 &&
+                   vl % K == 0 &&
+                   reinterpret_cast<uintptr_t>(cost) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % align == 0;
+  const int warps = (D + kPathMaxD - 1) / kPathMaxD;
+  const long long n_chains =
+      shift ? static_cast<long long>(L) + X - 1 : static_cast<long long>(L);
+  const long long blocks = static_cast<long long>(B) * n_chains;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (warps <= kDeepPrefetchWarps) {
+    sgm_deep_kernel<T, kAdd, true><<<grid, warps * 32, 0, stream>>>(
+        static_cast<const T*>(cost), static_cast<const int32_t*>(inten),
+        static_cast<T*>(out), X, L, D, vb, vx, vl, ib, ix, il, reverse,
+        shift, p1, p2, vec);
+  } else {
+    sgm_deep_kernel<T, kAdd, false><<<grid, warps * 32, 0, stream>>>(
+        static_cast<const T*>(cost), static_cast<const int32_t*>(inten),
+        static_cast<T*>(out), X, L, D, vb, vx, vl, ib, ix, il, reverse,
+        shift, p1, p2, vec);
+  }
+  return cudaGetLastError();
 }
 
 // Shared memory of a sweep block: the new diagonal lines by step parity,
@@ -912,6 +1110,35 @@ extern "C" int sgm_agg_path(const void* cost, const void* inten, void* out,
         p1, p2, s));
   if (elem_bytes == 4 && !add)
     return static_cast<int>(launch_k<int32_t, false>(
+        cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
+        p1, p2, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// sgm_agg_path's work for kPathMaxD < D <= kDeepMaxD (any 1 <= D <=
+// kDeepMaxD is taken): one path of B problems in one direction, one
+// block of ceil(D / 512) warps per chain. Arguments, storage and result
+// as for sgm_agg_path.
+extern "C" int sgm_agg_deep(const void* cost, const void* inten, void* out,
+                            int elem_bytes, int add, int B, int X, int L,
+                            int D, long long vb, long long vx, long long vl,
+                            long long ib, long long ix, long long il,
+                            int reverse, int shift, int p1, int p2,
+                            void* stream) {
+  if (B < 1 || X < 1 || L < 1 || D < 1 || D > kDeepMaxD || shift < -1 ||
+      shift > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (elem_bytes == 2 && add)
+    return static_cast<int>(launch_deep<int16_t, true>(
+        cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
+        p1, p2, s));
+  if (elem_bytes == 2 && !add)
+    return static_cast<int>(launch_deep<int16_t, false>(
+        cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
+        p1, p2, s));
+  if (elem_bytes == 4 && !add)
+    return static_cast<int>(launch_deep<int32_t, false>(
         cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
         p1, p2, s));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -6,27 +6,32 @@ Back-projects each view's depth map along pixel rays, rotates normals to
 world space (with the internal (n, -n, -n) convention flip, reference
 :195-203), cuts surfaces by projected-area ("surface power") consistency
 across views (:24-158), and attaches a per-vertex footprint scale and
-boundary confidence (:249-262). The JAX package computes these in numpy
-on the host too; moving fusion onto the card is queued in ROADMAP.md.
-The triangle-mesh output (the CLI's ``-m``/``-y``) is not ported yet.
+boundary confidence (:249-262), or triangulates each cut depth map and
+merges the meshes (the CLI's ``-m``, greedy simplified with ``-y``;
+`mesh/triangulate.py`). The JAX package computes these in numpy on the
+host too; moving fusion onto the card is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 
 import numpy as np
 
 from smvs_tpu_torch.core.camera import Camera
+from smvs_tpu_torch.mesh import triangulate as tri
 from smvs_tpu_torch.mesh.ply import PointSet
 
 
 @dataclasses.dataclass
 class FusionOptions:
-    """The point-set fields of `MeshGenerator::Options` (reference
+    """Mirror of `MeshGenerator::Options` (reference
     `lib/mesh_generator.h:23-34`)."""
 
     cut_surfaces: bool = True
+    create_triangle_mesh: bool = False
+    simplify: bool = False  # read with create_triangle_mesh only
 
 
 def backproject(depth_z: np.ndarray, camera: Camera) -> np.ndarray:
@@ -191,15 +196,28 @@ def fuse_views(
     colors: list[np.ndarray] | None = None,
     opts: FusionOptions = FusionOptions(),
 ) -> PointSet:
-    """Fuse per-view (z-depth, smvs normal map) into one world point set
-
-    (reference `generate_mesh`, :160-299, point-set branch :284-292).
+    """Fuse per-view (z-depth, smvs normal map) into one world point set,
+    or with ``opts.create_triangle_mesh`` into one merged triangle mesh
+    (reference `generate_mesh`, :160-299; point-set branch :284-292).
     """
     positions = [backproject(d, c) for d, c in zip(depths, cameras)]
     normals_w = [normals_to_world(nc, c)
                  for nc, c in zip(normals_cam, cameras)]
     if opts.cut_surfaces and len(depths) > 1:
         depths = cut_depth_maps(depths, normals_w, positions, cameras)
+
+    if opts.create_triangle_mesh:
+        if opts.simplify:
+            # The greedy triangulation runs in C++ outside the GIL: one
+            # thread per view, the meshes merged in view order.
+            with concurrent.futures.ThreadPoolExecutor(len(depths)) as ex:
+                meshes = list(ex.map(tri.approximate_triangulation, depths,
+                                     cameras))
+        else:
+            meshes = [tri.full_triangulation(
+                d, cameras[i], color=None if colors is None else colors[i])
+                for i, d in enumerate(depths)]
+        return tri.merge_meshes(meshes)
 
     verts, norms, vals, confs, cols = [], [], [], [], []
     for i, d in enumerate(depths):

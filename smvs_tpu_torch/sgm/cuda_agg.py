@@ -24,8 +24,10 @@ rows 2-3 with shifts (0,)), one launch writing or adding the path costs;
 `sgm_sweep3_kernel` for a sweep of distinct shifts with a diagonal, all
 its paths in one cooperative launch, where one problem fits the blocks
 the card keeps resident; `sgm_path_kernel`, one launch per path, for the
-rest (a repeated shift, a problem wider than the resident blocks, more
-than 128 depths) and for row 5. `aggregate_batch` makes 2 line launches
+rest (a repeated shift, a problem wider than the resident blocks, 129 to
+512 depths) and for row 5; `sgm_deep_kernel`, one launch per path, for
+every sweep of every row at more than 512 depths, where one chain's depths
+are split across the warps of a block. `aggregate_batch` makes 2 line launches
 (row 2) and 2 sweep launches (row 1); `aggregate` the same 4, counted as
 row 3; `fused_pass_bidir` 2. The sweeps of one call add into one int16
 accumulator in place: int16 sums wrap modulo 2^16, so their order does
@@ -39,11 +41,12 @@ dispatch models and the ``xb`` blocking of row 4 are not needed: the
 kernels take any H and W. The line and sweep kernels hold up to 128 depths
 (4 per lane), the plane count of both SGM paths by default;
 `sgm_path_kernel` is built for 4, 8 and 16 depths per lane, so a call with
-128 < D <= 512 planes (`SGMOptions.num_steps`) takes it for every sweep.
-More than 512 depths raise on the card (``MAX_D``); the plain sweep takes
-any D.
+128 < D <= 512 planes (`SGMOptions.num_steps`) takes it for every sweep,
+and `sgm_deep_kernel` takes 512 < D <= 16384 (``MAX_D``), 512 depths a
+warp. More depths raise on the card; the plain sweep takes any D.
 
-``launches`` counts kernel launches by TPU kernel row (and nothing else),
+``launches`` counts kernel launches by TPU kernel row, and
+``kernel_launches`` the same launches by CUDA kernel (and nothing else),
 so a run can show which kernels it went through.
 """
 
@@ -70,14 +73,20 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 ROWS = ("fused_pass", "fused_pass_batch", "fused_pass_bidir",
         "fused_pass_loop", "scan_direction")
 launches = dict.fromkeys(ROWS, 0)  # kernel launches per row
+# The CUDA kernels of `csrc/sgm_agg.cu` by their name in a plan (`Launch`).
+KERNELS = {"line": "sgm_line_kernel", "sweep3": "sgm_sweep3_kernel",
+           "path": "sgm_path_kernel", "deep": "sgm_deep_kernel"}
+kernel_launches = dict.fromkeys(KERNELS, 0)  # launches per CUDA kernel
 _lib = None
 _sweep_geometry_cache = {}  # (device, D) -> (tile, edge_words, resident)
 
 TILE = 16  # lines per block of sgm_sweep3_kernel (kTile in the source)
-# Depths the line and sweep kernels hold (32 lanes x 4), and the most that
-# sgm_path_kernel holds (32 lanes x 16; kPathMaxD in the source).
+# Depths the line and sweep kernels hold (32 lanes x 4), the most that
+# sgm_path_kernel holds (32 lanes x 16; kPathMaxD in the source), and the
+# most that sgm_deep_kernel holds (32 warps of 512; kDeepMaxD).
 SWEEP_MAX_D = 128
-MAX_D = 512
+PATH_MAX_D = 512
+MAX_D = 16384
 # Blocks of sgm_sweep3_kernel the H100 keeps resident at once (two per SM,
 # `sweep_geometry` at D = 128). CPU tensors are planned as for that card.
 CPU_RESIDENT = 264
@@ -85,8 +94,8 @@ CPU_RESIDENT = 264
 # first write, so that a plan which adds into it first gives other sums.
 UNSET = 0x2AAA
 
-# One kernel launch of a plan (`plan_route`). kernel: "line", "sweep3" or
-# "path"; scan: the axis of the [B, A, C, D] volume it scans (1 or 2; its
+# One kernel launch of a plan (`plan_route`). kernel: "line", "sweep3",
+# "path" or "deep"; scan: the axis of the [B, A, C, D] volume it scans (1 or 2; its
 # lines run along the other); reverse: the direction; mode: "write" (out =
 # path costs), "into" (out = acc + path costs) or "add" (out += path costs
 # in place); shifts: its paths; row: the TPU kernel row it counts under;
@@ -96,9 +105,11 @@ Launch = collections.namedtuple(
 
 
 def reset_launches() -> None:
-    """Set every row's launch count to 0."""
+    """Set every row's and every kernel's launch count to 0."""
     for row in ROWS:
         launches[row] = 0
+    for k in KERNELS:
+        kernel_launches[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -158,13 +169,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sgm_agg_path.argtypes = ([ptr] * 3 + [i32] * 6 + [i64] * 6
                                  + [i32] * 4 + [ptr])
+    lib.sgm_agg_deep.argtypes = lib.sgm_agg_path.argtypes
     lib.sgm_agg_line.argtypes = ([ptr] * 4 + [i32] * 4 + [i64] * 6
                                  + [i32] * 3 + [ptr])
     lib.sgm_agg_sweep3.argtypes = ([ptr] * 4 + [i32] * 4 + [i64] * 6
                                    + [i32] * 4 + [ptr])
     lib.sgm_sweep3_geometry.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
-    for fn in (lib.sgm_agg_path, lib.sgm_agg_line, lib.sgm_agg_sweep3,
-               lib.sgm_sweep3_geometry):
+    for fn in (lib.sgm_agg_path, lib.sgm_agg_deep, lib.sgm_agg_line,
+               lib.sgm_agg_sweep3, lib.sgm_sweep3_geometry):
         fn.restype = i32
     return lib
 
@@ -207,6 +219,13 @@ def _geometry(cost: torch.Tensor) -> dict:
 # routes
 
 
+def path_kernel(D: int) -> str:
+    """The kernel that runs one path per launch at D depths: "path"
+    (`sgm_path_kernel`, one warp per chain) up to ``PATH_MAX_D``, "deep"
+    (`sgm_deep_kernel`, a block of ceil(D / 512) warps per chain) above."""
+    return "path" if D <= PATH_MAX_D else "deep"
+
+
 def plan_chunks(B: int, tiles: int, resident: int) -> list:
     """``(first problem, problem count)`` of each launch of the vertical
     sweep kernel over B problems of ``tiles`` blocks each. Its blocks wait
@@ -236,12 +255,14 @@ def plan_route(entry: str, B: int, L: int, resident: int,
     kernel); distinct shifts take `sgm_sweep3_kernel` where one problem
     fits the resident blocks (in chunks of problems, `plan_chunks`);
     anything else one `sgm_path_kernel` launch per path, and so does every
-    sweep at D > ``SWEEP_MAX_D``. Only the first launch may write ("write"
-    or "into"); a first "add" adds into a copy of acc, and every later
-    launch adds in place.
+    sweep at D > ``SWEEP_MAX_D``; at D > ``PATH_MAX_D`` every sweep takes
+    one `sgm_deep_kernel` launch per path instead. Only the first launch
+    may write ("write" or "into"); a first "add" adds into a copy of acc,
+    and every later launch adds in place.
     """
     tiles = -(-L // tile)
     small = D <= SWEEP_MAX_D
+    per_path = path_kernel(D)
 
     def sweep(row, scan, rev, paths, first, line=True):
         if paths == (0,) and line and small:
@@ -251,7 +272,7 @@ def plan_route(entry: str, B: int, L: int, resident: int,
                     for b0, nb in plan_chunks(B, tiles, resident)]
         # The path kernel writes (the first launch of an 8-path sum) or
         # adds; "into" adds into a copy of acc.
-        return [Launch("path", scan, rev,
+        return [Launch(per_path, scan, rev,
                        "write" if first == "write" and i == 0 else "add",
                        (s,), row, 0, B) for i, s in enumerate(paths)]
 
@@ -328,7 +349,9 @@ def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
                 (shift,) = ln.shifts
                 if ln.mode == "into":
                     raise ValueError("the path kernel writes or adds")
-                err = lib.sgm_agg_path(
+                fn = lib.sgm_agg_deep if ln.kernel == "deep" else \
+                    lib.sgm_agg_path
+                err = fn(
                     *ptrs, out.data_ptr() + voff, esize,
                     int(ln.mode == "add"), *dims, shift, int(p1), int(p2),
                     stream)
@@ -336,6 +359,7 @@ def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
                 raise RuntimeError(f"the {ln.kernel} kernel's launch failed: "
                                    f"CUDA error {err}")
             launches[ln.row] += 1
+            kernel_launches[ln.kernel] += 1
         if on_launch is not None:
             on_launch(len(plan))
     return out
@@ -521,7 +545,8 @@ def fused_pass(cost: torch.Tensor, inten: torch.Tensor, acc: torch.Tensor,
     sweep kernel for distinct shifts, counted as row 4 when ``loop`` is set
     (one `sgm_path_kernel` launch per path, as the JAX kernel keeps one
     scratch line per listed shift, for a repeated shift, a problem wider
-    than the resident blocks, or D > 128). ``xb``, that
+    than the resident blocks, or D > 128; one `sgm_deep_kernel` launch per
+    path at D > 512). ``xb``, that
     kernel's scan-block size on the TPU, is taken for the JAX signature and
     not read: the card has no counterpart.
     """
@@ -588,11 +613,12 @@ def scan_direction(cost: torch.Tensor, intensity: torch.Tensor, shift: int,
                    p1: int, p2: int) -> torch.Tensor:
     """One path, one direction, along axis 1 of an int32 cost [L, X, D];
     intensity [L, X] is cast to int32. Returns the path cost [L, X, D] (not
-    accumulated): one `sgm_path_kernel` launch on the card."""
+    accumulated): one `sgm_path_kernel` launch on the card
+    (`sgm_deep_kernel` at D > 512)."""
     intensity = intensity.to(torch.int32).contiguous()
     if shift not in (-1, 0, 1):
         raise ValueError(f"shift must be -1, 0 or 1, got {shift}")
     _check(cost, intensity, None, 3, dtype=torch.int32)
-    plan = [Launch("path", 2, False, "write", (shift,), "scan_direction", 0,
-                   1)]
+    plan = [Launch(path_kernel(cost.shape[-1]), 2, False, "write", (shift,),
+                   "scan_direction", 0, 1)]
     return run_plan(plan, cost[None], intensity[None], None, p1, p2)[0]

@@ -191,6 +191,13 @@ def remove_nodes_without_patch(surf: Surface) -> Surface:
     return dataclasses.replace(surf, nodes=nodes, node_valid=node_valid)
 
 
+def remove_patches_without_nodes(surf: Surface) -> Surface:
+    """Drop patches whose 4 corner nodes are not all valid."""
+    nv = surf.node_valid
+    all4 = nv[:-1, :-1] & nv[:-1, 1:] & nv[1:, :-1] & nv[1:, 1:]
+    return dataclasses.replace(surf, patch_valid=surf.patch_valid & all4)
+
+
 def remove_isolated_patches(surf: Surface) -> Surface:
     """Delete patches with < 3 of 8 valid neighbors (reference :888-927)."""
     pv = _pad2(surf.patch_valid.to(torch.int32), 1, 1, 1, 1)
@@ -214,6 +221,85 @@ def update_nodes(surf: Surface, delta: torch.Tensor) -> Surface:
     nodes = torch.where(surf.node_valid[..., None], surf.nodes + delta,
                         surf.nodes)
     return dataclasses.replace(surf, nodes=nodes)
+
+
+# ---------------------------------------------------------------------------
+# expansion
+
+
+_NEIGHBOR_OFFSETS = [(-1, -1), (0, -1), (1, -1), (-1, 0), (1, 0),
+                     (-1, 1), (0, 1), (1, 1)]  # (dx, dy), reference order 0-7
+
+
+def _shift_node_field(arr: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
+    """Value of the node at offset (dx, dy) from each node of ``arr``
+    [ny1, nx1, C]; out-of-bounds neighbors are zero."""
+    pad = _pad2(arr, 1, 1, 1, 1)
+    ny1, nx1 = arr.shape[:2]
+    return pad[1 + dy : 1 + dy + ny1, 1 + dx : 1 + dx + nx1]
+
+
+def expand(surf: Surface) -> Surface:
+    """Grow the surface border (reference `Surface::expand`, :483-628).
+
+    Two sweeps; in each, every node that was invalid before the expand
+    receives candidate depths extrapolated from 8 directional neighbor
+    triples, resolved by the reference's ``check_swap_nodes`` rule (take
+    the new candidate when it is > 10% deeper, :472-480). New nodes carry
+    zero derivatives. Afterwards: fill holes, then prune danglers. The
+    same arithmetic, in the same order, as the JAX package.
+    """
+    orig_valid = surf.node_valid
+    node_valid = surf.node_valid
+    nodes = surf.nodes
+    cand_f = torch.zeros(node_valid.shape, dtype=nodes.dtype,
+                         device=nodes.device)
+    cand_has = torch.zeros_like(node_valid)
+    process = ~orig_valid  # null or created-this-expand nodes
+
+    for _ in range(2):
+        field = torch.cat([nodes * node_valid[..., None],
+                           node_valid[..., None].to(nodes.dtype)], dim=-1)
+        f, gx, gy, ok = {}, {}, {}, {}
+        for k, (dx, dy) in enumerate(_NEIGHBOR_OFFSETS):
+            sh = _shift_node_field(field, dx, dy)
+            f[k], gx[k], gy[k] = sh[..., 0], sh[..., 1], sh[..., 2]
+            ok[k] = sh[..., 4] > 0.5
+
+        rules = [
+            # (required neighbor ids, candidate value)
+            ((0, 1, 3), ((f[3] + gx[3] / 2) + (f[1] + gy[1] / 2)) / 2),
+            ((1, 2, 4), ((f[4] - gx[4] / 2) + (f[1] + gy[1] / 2)) / 2),
+            ((3, 5, 6), ((f[3] + gx[3] / 2) + (f[6] - gy[6] / 2)) / 2),
+            ((4, 6, 7), ((f[4] - gx[4] / 2) + (f[6] - gy[6] / 2)) / 2),
+            ((0, 1, 2), (f[0] + gy[0] / 2 + f[1] + gy[1] / 2
+                         + f[2] + gy[2] / 2) / 3),
+            ((0, 3, 5), (f[0] + gx[0] / 2 + f[3] + gx[3] / 2
+                         + f[5] + gx[5] / 2) / 3),
+            ((5, 6, 7), (f[5] - gy[5] / 2 + f[6] - gy[6] / 2
+                         + f[7] - gy[7] / 2) / 3),
+            ((2, 4, 7), (f[2] - gx[2] / 2 + f[4] - gx[4] / 2
+                         + f[7] - gx[7] / 2) / 3),
+        ]
+        for req, value in rules:
+            cond = process
+            for r in req:
+                cond = cond & ok[r]
+            take = cond & (~cand_has | (value * 0.9 > cand_f))
+            cand_f = torch.where(take, value, cand_f)
+            cand_has = cand_has | take
+
+        # merge the candidates into the working node set (reference
+        # :616-618)
+        newly = cand_has & ~orig_valid
+        new_vals = torch.stack([cand_f, torch.zeros_like(cand_f),
+                                torch.zeros_like(cand_f),
+                                torch.zeros_like(cand_f)], dim=-1)
+        nodes = torch.where(newly[..., None], new_vals, nodes)
+        node_valid = node_valid | newly
+
+    surf = dataclasses.replace(surf, nodes=nodes, node_valid=node_valid)
+    return remove_nodes_without_patch(fill_holes(surf))
 
 
 # ---------------------------------------------------------------------------

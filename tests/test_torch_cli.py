@@ -150,11 +150,12 @@ def test_cli_migrates_legacy_embeddings(runs):
     np.testing.assert_array_equal(v2.get_image("smvs-sgm"), fake)
 
 
-@pytest.mark.parametrize("flags", [["-S", "-g"], ["--full-opt"], ["-m"],
-                                   ["-y"], ["--no-sgm"], ["-d", "2"]])
+@pytest.mark.parametrize("flags", [["-d", "2"]])
 def test_cli_unported_flags_raise(runs, flags):
-    """`-S` and `-R` are ported (the tests below); `-g` with `-S` (the
-    sRGB decode of the shading image) is not."""
+    """`-d` above 1 (the debug image sinks) is not ported. Every other
+    flag is: `-S` and `-R` below, `-g`, `--full-opt`, `-m`, `-y` and
+    `--no-sgm` in tests/test_torch_cli_modes.py and
+    tests/test_torch_cli_color.py."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tcli.main([runs["tpath"], "--device", "cpu", *flags])
 
@@ -230,6 +231,9 @@ def test_cli_lighting_regularization_without_shading_equals_base(runs):
 
 
 def test_cli_color_input_raises(tmp_path):
+    """With SGM on, color views raise: the SGM init takes gray views only,
+    as the JAX CLI's does (it fails in `reconstruct_sgm`); with
+    `--no-sgm` they run (tests/test_torch_cli_color.py)."""
     scene = tsyn.make_plane_scene(n_views=2, dim=32)
     path = str(tmp_path / "color")
     tsyn.save_as_mve_scene(scene, path)

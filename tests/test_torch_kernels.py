@@ -227,18 +227,22 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
                                   torch.zeros_like(cost), False, (0,), 6, 96)
     deep, _ = _volume((1, 8, 8, cuda_agg.MAX_D + 1), seed=7, device=cuda)
     cuda_agg.reset_launches()
-    with pytest.raises(ValueError, match="512"):
+    with pytest.raises(ValueError, match="16384"):
         cuda_agg.aggregate_batch(deep, inten, 6, 96)
     assert sum(cuda_agg.launches.values()) == 0
 
 
-DEEP = [129, 192, 256, 512]
+# 129-512: sgm_path_kernel with 8 or 16 depths a lane; 513-16384:
+# sgm_deep_kernel, one block of ceil(D / 512) warps a chain, loading one
+# step ahead up to 8 warps (4096 depths) and at each step beyond.
+DEEP = [129, 192, 256, 512, 513, 1024, 2048, 4608, 16384]
 
 
 @pytest.mark.parametrize("D", DEEP)
 def test_deep_aggregate_batch_and_aggregate_equal_plain(cuda, D):
     """More than 128 depths: every sweep takes `sgm_path_kernel` with 8 or
-    16 depths per lane (3 + 3 vertical, 1 + 1 horizontal launches)."""
+    16 depths per lane, or `sgm_deep_kernel` beyond 512 (3 + 3 vertical,
+    1 + 1 horizontal launches)."""
     cost, inten = _volume((2, 9, 13, D), seed=D, device=cuda)
     cuda_agg.reset_launches()
     got = cuda_agg.aggregate_batch(cost, inten, 6, 96)
@@ -256,7 +260,7 @@ def test_deep_aggregate_batch_and_aggregate_equal_plain(cuda, D):
 @pytest.mark.parametrize("D", DEEP)
 def test_deep_sweeps_equal_plain(cuda, D):
     """`fused_pass` (rows 1 and 4), `fused_pass_batch`, `fused_pass_bidir`
-    and `scan_direction` at D > 128, one path launch per path."""
+    and `scan_direction` at D > 128, one path (or deep) launch per path."""
     cost, inten = _volume((11, 14, D), seed=D + 1, device=cuda)
     acc, _ = _volume((11, 14, D), seed=D + 2, device=cuda, hi=500)
     for reverse in (False, True):

@@ -150,7 +150,8 @@ def test_render_normal_map_matches_jax():
 
 def test_shading_images_match_jax():
     """A gray view's shading image is the image itself, with the
-    quadratic-fit gradients; cached. The sRGB decode is not ported."""
+    quadratic-fit gradients; cached. Under `gamma_correction` it is the
+    sRGB-decoded image (color views: tests/test_torch_color.py)."""
     scene = jsyn.make_plane_scene(n_views=3, dim=64)
     jv = jviews.make_view(scene.cameras[1], scene.images[1], view_id=1,
                           dtype=jnp.float64)
@@ -160,10 +161,15 @@ def test_shading_images_match_jax():
     _close(timg, jimg)
     _close(tgrad, jgrad)
     assert tv.shading_images()[1] is tgrad
-    gv = tviews.make_view(scene.cameras[1], scene.images[1], device="cpu",
+    jg = jviews.make_view(scene.cameras[1], scene.images[1], view_id=1,
+                          dtype=jnp.float64, gamma_correction=True)
+    tg = tviews.make_view(scene.cameras[1], scene.images[1], view_id=1,
+                          device="cpu", dtype=torch.float64,
                           gamma_correction=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        gv.shading_images()
+    (jimg, jgrad), (timg, tgrad) = jg.shading_images(), tg.shading_images()
+    _close(timg, jimg)
+    _close(tgrad, jgrad)
+    assert float((timg - tg.image).abs().max()) > 0.05
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,18 @@
 """Reference results of the JAX package, on the CPU, for the limits that
 `chip_smoke.py` holds the PyTorch/CUDA port to.
 
-Five configurations, each at a dimension the caller picks (the card runs
-them at 1440, 1280, 1280, 1280 and 1440; a CPU run at that size holds
-many GB, so the reference is mostly taken at a smaller one and the
+Eight configurations, each at a dimension the caller picks (the card
+runs them at 1440, 1280 (the CLI ones) and 1440; a CPU run at that size
+holds many GB, so the reference is mostly taken at a smaller one and the
 script's output says which):
 
     python tools/jax_cpu_reference.py general --dim 720
     python tools/jax_cpu_reference.py cli --dim 640
     python tools/jax_cpu_reference.py forward --dim 960
     python tools/jax_cpu_reference.py shading --dim 640
+    python tools/jax_cpu_reference.py color --dim 640
+    python tools/jax_cpu_reference.py fullopt --dim 640
+    python tools/jax_cpu_reference.py mesh --dim 640
     python tools/jax_cpu_reference.py flagship --dim 1440
 
 `general`: `stereo.reconstruct` (the general-warp SGM, 128 planes, range
@@ -30,6 +33,21 @@ port's numpy code, whose files and pixels equal the JAX package's.
 
 `shading`: the CLI with `-S` (the shading-aware optimizer, otherwise its
 defaults) on the scene of `cli`; reads `smvs-S0.ply`.
+
+`color`: the plane scene with RGB views whose channels differ
+(`make_plane_scene(color=True)`), run twice in one directory: with
+`--no-sgm` (the sparse-prior init from the bundle's features; the JAX
+CLI's SGM takes gray views only), then with `--no-sgm -S -g`. Its bundle
+holds `features(dim)` points, the density of the 200 of a 160 px scene:
+the splat init needs a few features in each node's window, and at 640 px
+200 features leave most windows empty and the CLI fuses no point.
+
+`fullopt`: the scene of `cli` with `--full-opt -m` (every node active in
+every Newton step, a triangle mesh per view), then `-m -y` in the same
+directory, which skips the reconstructed views and only fuses them into
+the greedy simplified meshes. `mesh`: the same with `-m`, then `-m -y`.
+Each run of a configuration prints its points per pixel (vertices for a
+mesh), its faces and its median fused error.
 
 `flagship`: `bench.py:run_shading_once(dim, 2)`, the shading-aware
 flagship (JAX float32 on the CPU); prints its coverage and median
@@ -98,32 +116,59 @@ def fused_error(vertices: np.ndarray, scene, view: int = 1) -> float:
     return float(np.median(np.abs(p_cam[inb][ok, 2] - gt[ok]) / gt[ok]))
 
 
-def cli(dim: int, forward: bool = False, port: bool = False,
-        shading: bool = False) -> dict:
+# The CLI configurations: (RGB views, forward motion, the runs made in
+# turn on one scene directory as (flags, the PLY it writes)).
+RUNS = {
+    "cli": (False, False, [([], "smvs-B0.ply")]),
+    "forward": (False, True, [([], "smvs-B0.ply")]),
+    "shading": (False, False, [(["-S"], "smvs-S0.ply")]),
+    "color": (True, False, [(["--no-sgm"], "smvs-B0.ply"),
+                            (["--no-sgm", "-S", "-g"], "smvs-S0.ply")]),
+    "fullopt": (False, False, [(["--full-opt", "-m"], "smvs-m-B0.ply"),
+                               (["-m", "-y"], "smvs-m-B0.ply")]),
+    "mesh": (False, False, [(["-m"], "smvs-m-B0.ply"),
+                            (["-m", "-y"], "smvs-m-B0.ply")]),
+}
+
+
+def features(dim: int) -> int:
+    """Bundle features of a `color` scene of dim x dim views: 200 at 160
+    px, the same density at any size."""
+    return round(200 * (dim / 160) ** 2)
+
+
+def cli(config: str, dim: int, port: bool = False) -> dict:
     from smvs_tpu import cli as smvs_cli
     from smvs_tpu.mesh.ply import load_ply
     from smvs_tpu_torch import cli as port_cli
     # The port's numpy scene code: bit-equal to the JAX package's scenes,
-    # and it also places the forward-motion cameras.
+    # and it also places the forward-motion cameras and colors the views.
     from smvs_tpu_torch.core.synthetic import (forward_cameras,
                                                make_plane_scene,
                                                save_as_mve_scene)
 
-    scene = make_plane_scene(n_views=4, dim=dim, cameras=forward_cameras()
-                             if forward else None)
+    color, forward, runs = RUNS[config]
+    n_views = 4
+    scene = make_plane_scene(n_views=n_views, dim=dim, color=color,
+                             cameras=forward_cameras() if forward else None)
+    out = []
     with tempfile.TemporaryDirectory() as path:
-        save_as_mve_scene(scene, path)
-        t0 = time.perf_counter()
-        flags = ["-S"] if shading else []
-        rc = port_cli.main([path, "--device", "cpu", *flags]) if port else \
-            smvs_cli.main([path, "--platform", "cpu", "--batch-views", "1",
-                           *flags])
-        seconds = time.perf_counter() - t0
-        ps = load_ply(os.path.join(path, "smvs-S0.ply" if shading
-                                   else "smvs-B0.ply"))
-    return {"rc": rc, "points": int(len(ps.vertices)),
-            "median_fused_rel_err": fused_error(ps.vertices, scene),
-            "cpu_seconds": seconds}
+        save_as_mve_scene(scene, path,
+                          n_features=features(dim) if color else 200)
+        for flags, ply in runs:
+            t0 = time.perf_counter()
+            rc = port_cli.main([path, "--device", "cpu", *flags]) if port \
+                else smvs_cli.main([path, "--platform", "cpu",
+                                    "--batch-views", "1", *flags])
+            seconds = time.perf_counter() - t0
+            ps = load_ply(os.path.join(path, ply))
+            out.append({
+                "flags": flags, "rc": rc, "points": int(len(ps.vertices)),
+                "points_per_pixel": len(ps.vertices) / (n_views * dim * dim),
+                "faces": 0 if ps.faces is None else int(len(ps.faces)),
+                "median_fused_rel_err": fused_error(ps.vertices, scene),
+                "cpu_seconds": seconds})
+    return {**out[0], "runs": out}
 
 
 def flagship(dim: int, port: bool = False) -> dict:
@@ -138,20 +183,18 @@ def flagship(dim: int, port: bool = False) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("config", choices=("general", "cli", "forward",
-                                       "shading", "flagship"))
+    ap.add_argument("config", choices=("general", "flagship", *RUNS))
     ap.add_argument("--dim", type=int, required=True)
     ap.add_argument("--port", action="store_true",
-                    help="run the PyTorch port instead (cli, forward, "
-                         "shading, flagship)")
+                    help="run the PyTorch port instead (every "
+                         "configuration but general)")
     args = ap.parse_args(argv)
     if args.config == "general":
         out = general(args.dim)
     elif args.config == "flagship":
         out = flagship(args.dim, port=args.port)
     else:
-        out = cli(args.dim, forward=args.config == "forward", port=args.port,
-                  shading=args.config == "shading")
+        out = cli(args.config, args.dim, port=args.port)
     print(json.dumps({"config": args.config, "dim": args.dim,
                       "package": "smvs_tpu_torch" if args.port
                       else "smvs_tpu", "device": "cpu", **out}))
