@@ -75,7 +75,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    limits from `tools/jax_cpu_reference.py fullopt`), then `-m -y` in the
    same directory (it skips every view and only fuses, no launch; the
    greedy triangulation's mesh has fewer faces than the full one), and
-   the simplify tool (`smvs_tpu_torch.tools.simplify`) on the full mesh.
+   the simplify tool (`smvs_tpu_torch.tools.simplify`) on the full mesh;
+14. view batching: the CLI with its defaults (`--batch-views 4`) on 8 views
+   of the JAX repository's DTU-scale camera grid (`make_dtu_scene`), their
+   sizes alternating 1440 and 1280 as `bench_dtu.py` mixes them: input
+   scale 1, two buckets of 720^2 and 640^2 (padded to 736 and 640), each
+   one batched group of 4; row 1-2 launches > 0, both groups batched, and
+   points per working pixel and fused error within limits from the JAX
+   CLI on the same grid (`tools/jax_cpu_reference.py batch`); then
+   `--batch-views 1 -r --force --force-sgm` on a copy of the scene, every
+   view sequential from the same SGM depths (recomputed: a checkpoint
+   read back from its embedding rounds differently from the first run's
+   in-memory depth), and per view the batched and the sequential depth
+   maps compared: coverage apart by < 0.5% of the pixels, fewer than 10%
+   of the commonly covered pixels drifting by more than 2e-4, and, since
+   the batched path reduces view by view as the sequential one does,
+   equal bit for bit. Stage seconds, solver read-backs and the peak
+   device memory of both runs.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after; the `launches` of each kernel row come from the path named in
@@ -126,6 +142,7 @@ from smvs_tpu_torch.sgm import stereo  # noqa: E402
 from smvs_tpu_torch.sgm.stereo import INVALID_COST  # noqa: E402
 from smvs_tpu_torch.solver import gn  # noqa: E402
 from smvs_tpu_torch.tools import simplify as simplify_tool  # noqa: E402
+from smvs_tpu_torch.utils.timing import host_reads  # noqa: E402
 
 # H100 SXM memory bandwidth (NVIDIA data sheet; full 700 W power limit).
 # The data sheet gives no peak rate for integer min and add work, so the
@@ -197,6 +214,21 @@ FULLOPT_MIN_POINT_SHARE = 0.69
 FULLOPT_MIN_FACE_SHARE = 1.38
 FULLOPT_MAX_ERR = 3.3e-4
 SIMPLIFY_RATIO = 0.25  # the simplify tool's default
+# Limits of the CLI's view batching on 8 grid views of 1440^2 and 1280^2,
+# from the JAX CLI with its defaults on the same grid at 720^2 and 640^2,
+# the same working sizes (`tools/jax_cpu_reference.py batch --dim 720`;
+# PERF.md): 80% of its fused points per working pixel, three times its
+# median fused error.
+BATCH_DIMS = (1440, 1280)
+BATCH_VIEWS = 8
+# JAX: 3,322,794 points of 3,712,000 working pixels (0.8951), median
+# fused error 1.148e-4.
+BATCH_MIN_POINT_SHARE = 0.71
+BATCH_MAX_ERR = 3.4e-4
+# Batched against sequential depth maps, per view:
+BATCH_MAX_COVERAGE_GAP = 0.005
+BATCH_DRIFT = 2e-4
+BATCH_MAX_DRIFT_SHARE = 0.10
 # Depth counts beyond the line and sweep kernels: sgm_path_kernel to 512,
 # sgm_deep_kernel beyond.
 DEEP = (129, 192, 256, 512, 513, 1024, 2048)
@@ -767,6 +799,128 @@ def phase_cli_mesh() -> dict:
             "simplify_tool": tool}
 
 
+def _cli_quiet(argv: list) -> tuple:
+    """The CLI on ``argv`` with its output captured: (rc, text, seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def _groups(text: str) -> list:
+    """The CLI's `Views [...] done` lines: (views, batched or sequential)."""
+    return [([int(i) for i in g.split(",")], kind) for g, kind in re.findall(
+        r"Views \[([\d, ]+)\] done in [\d.]+s \(\d+ neighbors, "
+        r"(batched|sequential)\)", text)]
+
+
+def _depths(path: str, name: str) -> dict:
+    return {v.view_id: np.asarray(v.get_image(name))
+            for v in sc.Scene.load(path).views}
+
+
+def phase_cli_batch() -> dict:
+    """The CLI's view batching on 8 views of the DTU-scale camera grid
+    (sizes alternating 1440 and 1280), with its defaults, then
+    `--batch-views 1 -r --force --force-sgm` on a copy (the same SGM
+    depths, in memory as in the first run); batched against sequential
+    per view."""
+    dims = [BATCH_DIMS[i % 2] for i in range(BATCH_VIEWS)]
+    scene = syn.make_dtu_scene(BATCH_VIEWS, dims)
+    work = [(d + 1) // 2 for d in dims]  # input scale 1
+    pixels = sum(d * d for d in work)
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        path, copy = os.path.join(root, "batched"), os.path.join(root, "seq")
+        syn.save_as_mve_scene(scene, path)
+        for label, where, flags in (("batch 4", path, []),
+                                    ("batch 1", copy,
+                                     ["--batch-views", "1", "-r", "--force",
+                                      "--force-sgm"])):
+            if where == copy:  # the SGM checkpoints of the first run
+                shutil.copytree(path, copy)
+            cuda_agg.reset_launches()
+            host_reads.clear()
+            torch.cuda.reset_peak_memory_stats()
+            rc, text, seconds = _cli_quiet([where, *flags])
+            launches = dict(cuda_agg.launches)
+            reads = dict(host_reads)
+            log("\n".join(f"  cli {label}: " + line
+                          for line in text.splitlines()))
+            if rc != 0:
+                raise RuntimeError(f"cli {label}: the CLI exited with {rc}")
+            runs[label] = {
+                "seconds": seconds,
+                "stages": re.search(r"Stage seconds: (.*)", text).group(1),
+                "groups": _groups(text), "launches": launches,
+                "host_reads": reads,
+                "kernel_launches": dict(cuda_agg.kernel_launches),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "input_scale": re.search(r"Automatic input scale: (\d+)",
+                                         text).group(1)}
+        ps = load_ply(os.path.join(path, "smvs-B1.ply"))
+        bat, seq = _depths(path, "smvs-B1"), _depths(copy, "smvs-B1")
+    b4, b1 = runs["batch 4"], runs["batch 1"]
+    share = len(ps.vertices) / pixels
+    err = fused_error(ps.vertices, scene)
+    per_view = {}
+    for i in sorted(bat):
+        a, b = bat[i], seq[i]
+        both = (a > 0) & (b > 0)
+        drift = np.abs(a[both] - b[both]) / np.abs(b[both])
+        per_view[i] = {"coverage_batched": float((a > 0).mean()),
+                       "coverage_sequential": float((b > 0).mean()),
+                       "coverage_gap": float(((a > 0) != (b > 0)).mean()),
+                       "drift_share": float((drift > BATCH_DRIFT).mean()),
+                       "max_rel_drift": float(drift.max())}
+    out = {"dims": dims, "working_pixels": pixels,
+           "points": len(ps.vertices), "points_per_pixel": share,
+           "median_fused_rel_err": err, "per_view": per_view,
+           "batch_4": b4, "batch_1": b1}
+    log(f"cli view batching {BATCH_VIEWS} views {dims}: batch 4 "
+        f"{b4['seconds']:.3f} s ({b4['stages']}), groups {b4['groups']}, "
+        f"peak {b4['max_memory_allocated'] / 1e9:.3f} GB, host reads "
+        f"{b4['host_reads']}; batch 1 -r {b1['seconds']:.3f} s "
+        f"({b1['stages']}), groups {b1['groups']}, peak "
+        f"{b1['max_memory_allocated'] / 1e9:.3f} GB, host reads "
+        f"{b1['host_reads']}; "
+        f"{len(ps.vertices)} points ({share:.4f} per working pixel), "
+        f"median fused error {err:.4e}; launches {b4['launches']}; per "
+        f"view {per_view}")
+    if b4["input_scale"] != "1" or [k for _, k in b4["groups"]] != \
+            ["batched", "batched"]:
+        raise RuntimeError(f"cli batch 4: input scale {b4['input_scale']}, "
+                           f"groups {b4['groups']}; expected scale 1 and "
+                           "two batched groups")
+    if sorted(i for g, _ in b4["groups"] for i in g) != list(range(8)) or \
+            any(k != "sequential" for _, k in b1["groups"]) or \
+            len(b1["groups"]) != BATCH_VIEWS:
+        raise RuntimeError(f"cli batch groups: {b4['groups']} and "
+                           f"{b1['groups']}")
+    for row in ("fused_pass", "fused_pass_batch"):
+        if b4["launches"][row] <= 0:
+            raise RuntimeError(f"cli batch 4: no launch of {row}")
+    if not share >= BATCH_MIN_POINT_SHARE:
+        raise RuntimeError(f"cli batch 4: {share:.4f} points per working "
+                           f"pixel < {BATCH_MIN_POINT_SHARE}")
+    if not err <= BATCH_MAX_ERR:
+        raise RuntimeError(f"cli batch 4: median fused error {err} > "
+                           f"{BATCH_MAX_ERR}")
+    for i, v in per_view.items():
+        if not (v["coverage_gap"] < BATCH_MAX_COVERAGE_GAP
+                and v["drift_share"] < BATCH_MAX_DRIFT_SHARE):
+            raise RuntimeError(f"view {i}: batched and sequential depth "
+                               f"maps apart: {v}")
+        # Each batched reduction runs view by view as the sequential path
+        # runs it, so the two depth maps are equal bit for bit; any
+        # departure is a fault of the batched path.
+        if v["coverage_gap"] != 0 or v["max_rel_drift"] != 0:
+            raise RuntimeError(f"view {i}: batched and sequential depth "
+                               f"maps not bit-equal: {v}")
+    return out
+
+
 def phase_deep(rows: dict) -> None:
     """Repeated shifts in rows 1 and 4, and every entry point at D > 128,
     bit-equal to plain with times; each kernel row gets a ``deep`` entry
@@ -1090,6 +1244,7 @@ def main() -> int:
                             ("fused_pass", "fused_pass_batch"), flags=("-S",))
     color_cli = phase_cli_color()
     mesh_cli = phase_cli_mesh()
+    batch_cli = phase_cli_batch()
     main_path = "bench_main.run_once(1440, 2): rectified SGM"
     path_launches = {  # (path, launches on it)
         "fused_pass": (main_path, main_launches["fused_pass"]),
@@ -1146,8 +1301,8 @@ def main() -> int:
         "shape": deep["aggregate"]["shape"],
     })
     print(json.dumps({"flagship": shading}), flush=True)
-    print(json.dumps({"cli_color": color_cli, "cli_mesh": mesh_cli}),
-          flush=True)
+    print(json.dumps({"cli_color": color_cli, "cli_mesh": mesh_cli,
+                      "cli_batch": batch_cli}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

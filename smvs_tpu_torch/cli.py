@@ -19,6 +19,13 @@ init takes gray views only, so a color scene needs ``--no-sgm`` (it
 raises NotImplementedError otherwise, where the JAX CLI fails in its
 SGM). ``-d`` above 1 (debug image sinks) raises NotImplementedError.
 
+Views are optimized in groups, as the JAX CLI groups them: buckets keyed
+by the padded working dims and the neighbor count, split into groups of
+at most ``--batch-views`` views and ``BATCH_MP`` working megapixels in
+all; a group of two or more views runs through
+`pipeline.batch.optimize_view_batch` (one batched Newton loop and PCG),
+a group of one through `optimize_view`.
+
 Usage: python -m smvs_tpu_torch.cli [OPTS] SCENE_DIR
 """
 
@@ -38,11 +45,16 @@ from smvs_tpu_torch.device import resolve_device
 from smvs_tpu_torch.image import ops as iops
 from smvs_tpu_torch.mesh import pointcloud as pc
 from smvs_tpu_torch.mesh.ply import save_ply
+from smvs_tpu_torch.pipeline import batch as VB
 from smvs_tpu_torch.pipeline import optimizer as O
 from smvs_tpu_torch.pipeline import view_selection as vs
 from smvs_tpu_torch.pipeline.views import make_view
 from smvs_tpu_torch.sgm import stereo as sgm
 from smvs_tpu_torch.utils.timing import StageTimer
+
+# Working megapixels of one batched group at most: the default of the JAX
+# CLI's SMVS_BATCH_MP, so that both CLIs form the same groups.
+BATCH_MP = 3.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,8 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: the GPU; \"cpu\" to run on "
                         "the CPU)")
     p.add_argument("--batch-views", type=int, default=4,
-                   help="accepted for compatibility; views run one after "
-                        "another (batching: ROADMAP.md queue 1, item 6)")
+                   help="optimize up to N views of one shape together "
+                        "in one batched Newton loop (1 = one after "
+                        "another)")
     p.add_argument("--pad-bucket", type=int, default=32,
                    help="pad working images (edge mode, exact camera "
                         "adjustment) up to multiples of N pixels so all "
@@ -336,29 +349,53 @@ def main(argv=None) -> int:
     # Host-clock stage times; each stage ends in a copy to the host, which
     # waits for the device.
     timer = StageTimer()
-    t_all = time.time()
-    for i in recon_list:
-        t0 = time.time()
-        oh, ow = working_dims(i)
-        with timer.stage("views"):
-            main_v = stereo_view(i)
-            subs = [stereo_view(n) for n in neighbors[i]]
-        sgm_depth = init_depth = None
+
+    def prepare_init(i, oh, ow, main_v):
+        """(sgm_depth, init_depth) of view i on its canvas; one is None."""
         if use_sgm:
             with timer.stage("sgm"):
-                sgm_depth = prepare_sgm(i, oh, ow, main_v.height,
-                                        main_v.width)
-        else:
-            with timer.stage("splat"):
-                init_depth = prepare_splat(i, oh, ow, main_v.height,
-                                           main_v.width)
-        with timer.stage("optimize"):
-            result = O.optimize_view(main_v, subs, opts, sgm_depth,
-                                     device=dev, log=log,
-                                     init_depth=init_depth)
-            write_result(i, result, oh, ow)
-        print(f"View {i} done in {time.time()-t0:.1f}s "
-              f"({len(neighbors[i])} neighbors)")
+                return prepare_sgm(i, oh, ow, main_v.height,
+                                   main_v.width), None
+        with timer.stage("splat"):
+            return None, prepare_splat(i, oh, ow, main_v.height, main_v.width)
+
+    # Group views into buckets of one shape (the padded working dims and
+    # the neighbor count, as the JAX CLI keys them); a group of two or
+    # more runs as one batch (the reference's per-view thread fan-out,
+    # `app/smvsrecon.cc:558`).
+    buckets: dict = {}
+    for i in recon_list:
+        buckets.setdefault((*padded_dims(*working_dims(i)),
+                            len(neighbors[i])), []).append(i)
+    t_all = time.time()
+    for key, ids in buckets.items():
+        for group in VB.group_views(ids, key, conf.batch_views, BATCH_MP):
+            t0 = time.time()
+            dims = [working_dims(i) for i in group]
+            with timer.stage("views"):
+                mains = [stereo_view(i) for i in group]
+                subs_list = [[stereo_view(n) for n in neighbors[i]]
+                             for i in group]
+            inits = [prepare_init(i, oh, ow, m)
+                     for i, (oh, ow), m in zip(group, dims, mains)]
+            batched = len(group) >= 2
+            with timer.stage("optimize"):
+                if batched:
+                    results = VB.optimize_view_batch(
+                        mains, subs_list, opts,
+                        sgm_depths=[s for s, _ in inits] if use_sgm else None,
+                        init_depths=None if use_sgm else [d for _, d in inits],
+                        log=log, device=dev)
+                else:
+                    results = [O.optimize_view(
+                        m, subs, opts, sgm_d, device=dev, log=log,
+                        init_depth=init_d) for m, subs, (sgm_d, init_d)
+                        in zip(mains, subs_list, inits)]
+                for i, result, (oh, ow) in zip(group, results, dims):
+                    write_result(i, result, oh, ow)
+            print(f"Views {group} done in {time.time()-t0:.1f}s "
+                  f"({key[2]} neighbors, "
+                  f"{'batched' if batched else 'sequential'})")
     print(f"Reconstruction took {time.time()-t_all:.1f}s")
 
     if not conf.recon_only:

@@ -2,10 +2,10 @@
 
 The port's own copy of `make_two_view_scene`, `make_plane_scene`,
 `make_lambertian_sphere_scene` and `save_as_mve_scene` of
-`smvs_tpu/core/synthetic.py`. The arithmetic is the same numpy code (the
-sphere's SH shading in float64 through `shading.sh`), so the images and
-depths equal the JAX package's scenes, and a saved scene loads in either
-package.
+`smvs_tpu/core/synthetic.py`, and of `bench_dtu.py`'s `make_dtu_scene`.
+The arithmetic is the same numpy code (the sphere's SH shading in float64
+through `shading.sh`), so the images and depths equal the JAX package's
+scenes, and a saved scene loads in either package.
 """
 
 from __future__ import annotations
@@ -185,6 +185,58 @@ def make_plane_scene(
         images.append(img.astype(np.float32))
     return SyntheticScene(cameras=cameras, images=images, depths=depths,
                           width=dim, height=dim)
+
+
+def make_dtu_scene(n_views: int, dims: list[int]) -> SyntheticScene:
+    """``n_views`` views of the plane of `make_plane_scene` from a camera
+    grid of 7 columns, view i rendered at ``dims[i]`` x ``dims[i]`` (the
+    JAX repository's DTU-scale benchmark scene, `bench_dtu.py`); the
+    scene's width and height are those of the last view."""
+    plane = (0.0, 0.05, 0.1, 5.0)
+    nrm = np.array([plane[0], plane[1], 1.0])
+    nrm /= np.linalg.norm(nrm)
+    d_off = plane[3]
+
+    def texture(x, y):
+        return (
+            0.55
+            + 0.18 * np.sin(2.1 * x) * np.sin(1.7 * y)
+            + 0.12 * np.sin(5.3 * x + 1.0) * np.cos(4.1 * y)
+            + 0.08 * np.cos(9.7 * x - 2.0) * np.sin(8.3 * y + 0.7)
+        )
+
+    cols = 7
+    rows = (n_views + cols - 1) // cols
+    cameras = []
+    for i in range(n_views):
+        gx = i % cols - (cols - 1) / 2
+        gy = i // cols - (rows - 1) / 2
+        yaw = 0.03 * gx
+        pitch = 0.02 * gy
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        cp, sp = np.cos(pitch), np.sin(pitch)
+        rot = (np.array([[cy, 0, -sy], [0, 1, 0], [sy, 0, cy]])
+               @ np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]))
+        cam_pos = np.array([0.12 * gx, 0.10 * gy, 0.0])
+        cameras.append(Camera(flen=1.0, rot=rot, trans=-rot @ cam_pos))
+
+    images, depths = [], []
+    for i, cam in enumerate(cameras):
+        dim = dims[i]
+        xs, ys = np.meshgrid(np.arange(dim), np.arange(dim), indexing="xy")
+        inv = cam.inverse_calibration(dim, dim)
+        dir_cam = np.stack(
+            [inv[0, 0] * (xs + 0.5) + inv[0, 2],
+             inv[1, 1] * (ys + 0.5) + inv[1, 2],
+             np.ones_like(xs, dtype=np.float64)], axis=-1)
+        dir_world = dir_cam @ cam.rot
+        C = cam.cam_position()
+        s = (d_off - nrm @ C) / (dir_world @ nrm)
+        P = C + s[..., None] * dir_world
+        depths.append(s.copy())
+        images.append(texture(P[..., 0], P[..., 1]).astype(np.float32))
+    return SyntheticScene(cameras=cameras, images=images, depths=depths,
+                          width=dims[-1], height=dims[-1])
 
 
 def _sideways_cameras(n_views: int, baseline: float) -> list[Camera]:

@@ -199,17 +199,28 @@ def pack_gradhess(grad: torch.Tensor, hess: torch.Tensor) -> torch.Tensor:
     return torch.movedim(torch.cat([grad, hess], dim=0), 0, -1).contiguous()
 
 
-def sample_window(img_c: torch.Tensor, x: torch.Tensor, y: torch.Tensor
-                  ) -> torch.Tensor:
+def _flat_index(x0, y0, w: int, h: int, base, shape):
+    """Flat pixel index of (x0, y0): in one image, or with ``base`` (image
+    indices broadcastable to ``shape``) in a stack [V, H, W, C]."""
+    i = y0 * w + x0
+    if base is None:
+        return i
+    return i + torch.broadcast_to(base, shape).reshape(-1) * (h * w)
+
+
+def sample_window(img_c: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  base: torch.Tensor | None = None) -> torch.Tensor:
     """Bilinear sample of a channels-last image [H, W, C] at (x, y), with
-    the clamp semantics of :func:`bilinear`. Returns [..., C]."""
-    h, w, c = img_c.shape
+    the clamp semantics of :func:`bilinear`. Returns [..., C]. With
+    ``base``, img_c is a stack [V, H, W, C] and each sample reads image
+    ``base`` (int, broadcastable to x)."""
+    h, w, c = img_c.shape[-3:]
     shape = x.shape
     x0, y0, fx, fy = _corners(x.reshape(-1), y.reshape(-1), w, h)
     fx = fx[:, None]
     fy = fy[:, None]
-    flat = img_c.reshape(h * w, c)
-    i00 = y0 * w + x0
+    flat = img_c.reshape(-1, c)
+    i00 = _flat_index(x0, y0, w, h, base, shape)
     v00 = flat[i00]
     v10 = flat[i00 + 1]
     v01 = flat[i00 + w]
@@ -234,17 +245,19 @@ def pack_gradhess_pair10(grad: torch.Tensor, hess: torch.Tensor
 
 
 def sample_window_pair10(img10: torch.Tensor, x: torch.Tensor,
-                         y: torch.Tensor) -> torch.Tensor:
+                         y: torch.Tensor, base: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """Bilinear 5-channel sample from a `pack_gradhess_pair10` image;
-    returns [..., 5] in the coordinate dtype via two row gathers."""
-    h, w, c2 = img10.shape
+    returns [..., 5] in the coordinate dtype via two row gathers
+    (``base``: as :func:`sample_window`)."""
+    h, w, c2 = img10.shape[-3:]
     c = c2 // 2
     shape = x.shape
     x0, y0, fx, fy = _corners(x.reshape(-1), y.reshape(-1), w, h)
     fx = fx[:, None]
     fy = fy[:, None]
-    flat = img10.reshape(h * w, c2)
-    i00 = y0 * w + x0
+    flat = img10.reshape(-1, c2)
+    i00 = _flat_index(x0, y0, w, h, base, shape)
     r0 = flat[i00].to(x.dtype)  # [M, 2c]
     r1 = flat[i00 + w].to(x.dtype)
     out = ((r0[:, :c] * (1 - fx) + r0[:, c:] * fx) * (1 - fy)
@@ -252,13 +265,14 @@ def sample_window_pair10(img10: torch.Tensor, x: torch.Tensor,
     return out.reshape(*shape, c)
 
 
-def sample_gh(gh: torch.Tensor, x: torch.Tensor, y: torch.Tensor
-              ) -> torch.Tensor:
+def sample_gh(gh: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+              base: torch.Tensor | None = None) -> torch.Tensor:
     """Sample a packed (Ix, Iy, Ixx, Ixy, Iyy) image in either format:
-    [H, W, 5] (`pack_gradhess`) or [H, W, 10] bf16 (`pack_gradhess_pair10`)."""
+    [H, W, 5] (`pack_gradhess`) or [H, W, 10] bf16 (`pack_gradhess_pair10`)
+    (``base``: as :func:`sample_window`)."""
     if gh.shape[-1] == 10:
-        return sample_window_pair10(gh, x, y)
-    return sample_window(gh, x, y)
+        return sample_window_pair10(gh, x, y, base)
+    return sample_window(gh, x, y, base)
 
 
 def sample_gradient_packed(gh: torch.Tensor, x: torch.Tensor,

@@ -34,7 +34,8 @@ from smvs_tpu_torch.shading.lighting import fit_lighting
 from smvs_tpu_torch.solver import cg, gn, mg, stencil
 from smvs_tpu_torch.surface import bicubic
 from smvs_tpu_torch.surface import state as S
-from smvs_tpu_torch.utils.timing import StageTimer
+from smvs_tpu_torch.utils.perview import per_view, rows_matmul
+from smvs_tpu_torch.utils.timing import StageTimer, host_reads
 
 _F32 = np.float32  # host-side scalar tests round like the device's float32
 
@@ -121,15 +122,26 @@ def _patch_pixel_grids_sub(surf: S.Surface, sampling: int = 1):
 
 
 def _patch_depths_and_derivs_sub(surf: S.Surface, sampling: int = 1):
-    """(w, wdx, wdy) per (subsampled) patch pixel, each [ny, nx, P]."""
-    ny, nx = surf.num_patches_y, surf.num_patches_x
+    """(w, wdx, wdy) per (subsampled) patch pixel, each [(V,) ny, nx, P]."""
     basis = bicubic.pixel_basis(surf.patchsize, sampling,
                                 dtype=surf.nodes.dtype,
                                 device=surf.nodes.device)
     b2 = basis[:, :3, :].reshape(-1, 16)  # [P*3, 16]
-    params = S.patch_params(surf).reshape(ny * nx, 16)
-    vals = (params @ b2.T).reshape(ny, nx, -1, 3)
+    params = S.patch_params(surf).reshape(-1, 16)
+    vals = _patch_matmul(surf, params, b2.T).reshape(
+        *surf.patch_valid.shape, -1, 3)
     return vals[..., 0], vals[..., 1], vals[..., 2]
+
+
+def _patch_matmul(surf: S.Surface, a: torch.Tensor, b: torch.Tensor
+                  ) -> torch.Tensor:
+    """``a @ b`` for per-patch rows ``a``; for a batched surface one
+    product per view, each as the view's own rows alone give it."""
+    counts = None
+    if surf.batched:
+        counts = [surf.num_patches_y * surf.num_patches_x] * \
+            surf.nodes.shape[0]
+    return rows_matmul(a, b, counts)
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +400,58 @@ class _StepResult:
     cg_iters: int
 
 
+def _step_motion(s: S.Surface, s2: S.Surface, view: gn.ViewSet,
+                 vis: torch.Tensor, act: torch.Tensor):
+    """The step s -> s2's average reprojection delta, first order
+    |dproj/dw| * |dw| on a 2x2 pixel subsample per patch, over the
+    visible pixels of patches with an active corner, and the next working
+    set: the valid nodes of the patches it moved by more than 0.15 px.
+    For a batch of views, one average per view [V], each summed as the
+    view alone sums it, and the sets [V, ny1, nx1]."""
+    samp = max(1, s.patchsize // 2)
+    u, v = _patch_pixel_grids_sub(s, samp)
+    w, _, _ = _patch_depths_and_derivs_sub(s, samp)
+    w = torch.where(s.patch_valid[..., None], w, 1.0)
+    basis_f = bicubic.pixel_basis(s.patchsize, samp, dtype=s.nodes.dtype,
+                                  device=s.nodes.device)[:, 0, :]
+    dparams = (S.patch_params(s2) - S.patch_params(s)).reshape(-1, 16)
+    dw = torch.abs(_patch_matmul(s, dparams, basis_f.T)).reshape(
+        *s.patch_valid.shape, -1)
+
+    dproj_dw = []
+    for n in range(view.M.shape[-3]):
+        if s.batched:  # [V, 1, 1, 1, 3, (3)] against [V, ny, nx, P]
+            M = view.M[:, n, None, None, None]
+            t = view.t[:, n, None, None, None]
+        else:
+            M, t = view.M[n], view.t[n]
+        gd = corr.warp_depth_gradient(M, t, u, v, w)
+        dproj_dw.append(torch.sqrt(gd[..., 0] ** 2 + gd[..., 1] ** 2))
+    diff = torch.stack(dproj_dw, dim=-1) * dw[..., None]  # [.., P, N]
+
+    corner_active = (act[..., :-1, :-1] | act[..., :-1, 1:]
+                     | act[..., 1:, :-1] | act[..., 1:, 1:])
+    mask = torch.broadcast_to(
+        vis[..., None, :] & corner_active[..., None, None]
+        & s.patch_valid[..., None, None], diff.shape)
+    diff = torch.where(mask, diff, 0.0)
+    maskf = mask.to(diff.dtype)
+
+    def average(dm, m):
+        return torch.sum(dm) / torch.clamp(torch.sum(m), min=1.0)
+
+    dm = diff * maskf
+    avg = per_view(average, dm, maskf) if s.batched else average(dm, maskf)
+
+    moved = (diff > 0.15).any(dim=-1).any(dim=-1)  # [(V,) ny, nx]
+    new_active = torch.zeros_like(s.node_valid)
+    new_active[..., :-1, :-1] |= moved
+    new_active[..., :-1, 1:] |= moved
+    new_active[..., 1:, :-1] |= moved
+    new_active[..., 1:, 1:] |= moved
+    return avg, new_active & s.node_valid
+
+
 def _newton_step(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
                  active: torch.Tensor, opts: OptimizerOptions,
                  lighting: torch.Tensor | None = None) -> _StepResult:
@@ -417,41 +481,8 @@ def _newton_step(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
     bad = ~torch.isfinite(delta).all()
     delta = torch.where(bad, 0.0, delta)
 
-    # Reprojection delta of the step, first order |dproj/dw| * |dw|, on a
-    # 2x2 pixel subsample per patch.
     s2 = S.update_nodes(s, delta)
-    ny, nx = s.num_patches_y, s.num_patches_x
-    samp = max(1, s.patchsize // 2)
-    u, v = _patch_pixel_grids_sub(s, samp)
-    w, _, _ = _patch_depths_and_derivs_sub(s, samp)
-    w = torch.where(s.patch_valid[..., None], w, 1.0)
-    basis_f = bicubic.pixel_basis(s.patchsize, samp, dtype=s.nodes.dtype,
-                                  device=s.nodes.device)[:, 0, :]
-    dparams = (S.patch_params(s2) - S.patch_params(s)).reshape(ny * nx, 16)
-    dw = torch.abs(dparams @ basis_f.T).reshape(ny, nx, -1)  # [ny, nx, P]
-
-    dproj_dw = []
-    for n in range(view.M.shape[0]):
-        gd = corr.warp_depth_gradient(view.M[n], view.t[n], u, v, w)
-        dproj_dw.append(torch.sqrt(gd[..., 0] ** 2 + gd[..., 1] ** 2))
-    diff = torch.stack(dproj_dw, dim=-1) * dw[..., None]  # [ny, nx, P, N]
-
-    corner_active = (act[:-1, :-1] | act[:-1, 1:]
-                     | act[1:, :-1] | act[1:, 1:])
-    mask = torch.broadcast_to(
-        vis[:, :, None, :] & corner_active[:, :, None, None]
-        & s.patch_valid[:, :, None, None], diff.shape)
-    diff = torch.where(mask, diff, 0.0)
-    maskf = mask.to(diff.dtype)
-    avg = torch.sum(diff * maskf) / torch.clamp(torch.sum(maskf), min=1.0)
-
-    moved = (diff > 0.15).any(dim=-1).any(dim=-1)  # [ny, nx]
-    new_active = torch.zeros_like(s.node_valid)
-    new_active[:-1, :-1] |= moved
-    new_active[:-1, 1:] |= moved
-    new_active[1:, :-1] |= moved
-    new_active[1:, 1:] |= moved
-    new_active = new_active & s.node_valid
+    avg, new_active = _step_motion(s, s2, view, vis, act)
 
     f_safe = torch.clamp(torch.abs(s.nodes[..., 0]), min=1e-6)
     rel_step = torch.amax(torch.where(s.node_valid,
@@ -461,6 +492,7 @@ def _newton_step(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
         bad.to(torch.float64), avg.to(torch.float64),
         rel_step.to(torch.float64), new_active.sum().to(torch.float64),
     ]).tolist()
+    host_reads["newton"] += 1
     real = np.float64 if s.nodes.dtype == torch.float64 else _F32
     return _StepResult(s2.nodes, new_active, bool(bad_h), real(avg_h),
                        real(rel_h), int(n_act), res.iterations)
@@ -508,6 +540,20 @@ def _newton_loop(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
     return nodes, active_, steps, cg_total
 
 
+def _cleanup_view(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
+                  inv_cal: torch.Tensor, opts: OptimizerOptions,
+                  ncc_images: tuple | None):
+    """A view's boundary cuts and cleanup after its Newton loop; without
+    SGM also the expansion, its visibility and a second cut."""
+    surf, vis = cut_boundaries_loop(surf, view, vis, inv_cal)
+    if not opts.use_sgm:
+        surf = S.expand(surf)
+        surf, vis = compute_visibility(surf, view, None, ncc_images)
+        surf, vis = cut_boundaries_loop(surf, view, vis, inv_cal)
+    surf = S.remove_isolated_patches(surf)
+    return surf, vis & surf.patch_valid[..., None]
+
+
 def scale_program(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
                   inv_cal: torch.Tensor, opts: OptimizerOptions, lighting,
                   ncc_images: tuple | None = None):
@@ -523,14 +569,8 @@ def scale_program(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
         nodes, _, steps, cg_total = _newton_loop(surf, view, vis,
                                                  surf.node_valid, opts,
                                                  lighting)
-        surf = dataclasses.replace(surf, nodes=nodes)
-        surf, vis = cut_boundaries_loop(surf, view, vis, inv_cal)
-        if not opts.use_sgm:
-            surf = S.expand(surf)
-            surf, vis = compute_visibility(surf, view, None, ncc_images)
-            surf, vis = cut_boundaries_loop(surf, view, vis, inv_cal)
-        surf = S.remove_isolated_patches(surf)
-        vis = vis & surf.patch_valid[..., None]
+        surf, vis = _cleanup_view(dataclasses.replace(surf, nodes=nodes),
+                                  view, vis, inv_cal, opts, ncc_images)
         new_count = int(surf.patch_valid.sum())
         lo = min(new_count, prev_count)
         hi = max(new_count, prev_count, 1)
@@ -569,6 +609,204 @@ def run_newton_iterations(surf: S.Surface, main: StereoViewState,
         for it, (steps, count, cg_total) in enumerate(stats):
             log(f"  iter {it}: {steps} newton steps, {count} patches, "
                 f"{cg_total / max(steps, 1):.0f} cg iters/step")
+    return surf
+
+
+# ---------------------------------------------------------------------------
+# the same iterations over a batch of views (a leading view axis)
+#
+# JAX runs these loops under `vmap`: a loop with a per-view predicate runs
+# until every view's predicate is false, and each view's state is frozen
+# from the step at which its own predicate failed, so each view follows
+# the trajectory it takes alone. The port keeps that with per-view masks:
+# the Newton step and the PCG carry the view axis (one launch and one
+# read-back serve every view), the exit state lives on the host as numpy
+# arrays, and a view that is done keeps its nodes whatever the batch
+# computes afterwards. Boundary cuts, expansion, visibility and cleanup
+# run view by view (`S.over_views`), each as it runs alone.
+
+
+@dataclasses.dataclass
+class _BatchStepResult:
+    nodes: torch.Tensor  # [V, ny1, nx1, 4]
+    active: torch.Tensor  # [V, ny1, nx1]
+    bad: np.ndarray  # [V] bool
+    avg: np.ndarray  # [V] average reprojection delta, surface dtype
+    rel_step: np.ndarray  # [V] largest relative depth step
+    n_active: np.ndarray  # [V] int
+    cg_iters: np.ndarray  # [V] int
+
+
+def _newton_step_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
+                       active: torch.Tensor, opts: OptimizerOptions,
+                       lighting: torch.Tensor | None,
+                       running: np.ndarray) -> _BatchStepResult:
+    """`_newton_step` for a batch of views (surface, view, vis [V, ny, nx,
+    N], active [V, ny1, nx1], lighting [V, 16]); only the ``running``
+    views take part in the PCG. One [V, 4] read-back."""
+    s = surf
+    act = active & s.node_valid
+    gn_opts = gn.GNOptions(
+        regularization=opts.regularization,
+        light_surf_regularization=opts.light_surf_regularization)
+    g, Hb = gn.assemble(s, view, vis, act, gn_opts, lighting)
+    if opts.precond == "mg":
+        levels = mg.build(Hb, act, damp_rows=lighting is None)
+        precond = lambda x: mg.apply(levels, x)  # noqa: E731
+    elif opts.precond == "jacobi":
+        P = stencil.block_jacobi_inverse(Hb, act)
+        precond = lambda x: stencil.apply_block_diag(P, x)  # noqa: E731
+    else:
+        raise ValueError(f"precond is 'mg' or 'jacobi', not {opts.precond!r}")
+    gnorm = per_view(lambda x: torch.linalg.vector_norm(x.reshape(-1)), g,
+                     dim=1)  # [V]
+    res = cg.solve_batch(lambda x: stencil.spmv(Hb, x), -g, precond=precond,
+                         max_iterations=200, error_tolerance=gnorm * 0.01,
+                         q_tolerance=1e-3, running=running)
+    delta = torch.movedim(res.x, 0, -1)  # [V, ny1, nx1, 4]
+    bad = ~torch.isfinite(delta).flatten(1).all(1)
+    delta = torch.where(bad[:, None, None, None], 0.0, delta)
+
+    s2 = S.update_nodes(s, delta)
+    avg, new_active = _step_motion(s, s2, view, vis, act)
+
+    f_safe = torch.clamp(torch.abs(s.nodes[..., 0]), min=1e-6)
+    rel_step = torch.amax(torch.where(s.node_valid,
+                                      torch.abs(delta[..., 0]) / f_safe, 0.0),
+                          dim=(1, 2))
+    host = torch.stack([
+        bad.to(torch.float64), avg.to(torch.float64),
+        rel_step.to(torch.float64), new_active.sum((1, 2)).to(torch.float64),
+    ], dim=1).cpu().numpy()  # [V, 4]
+    host_reads["newton"] += 1
+    real = np.float64 if s.nodes.dtype == torch.float64 else _F32
+    return _BatchStepResult(s2.nodes, new_active, host[:, 0] > 0,
+                            host[:, 1].astype(real), host[:, 2].astype(real),
+                            host[:, 3].astype(np.int64), res.iterations)
+
+
+def _newton_loop_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
+                       active: torch.Tensor, opts: OptimizerOptions,
+                       lighting, alive: np.ndarray):
+    """`_newton_loop` for a batch of views: each ``alive`` view runs its
+    own loop, with its own exits, in one batched step per iteration;
+    the others keep their nodes and take no step. Returns (nodes, active,
+    steps [V], cg_iters_total [V])."""
+    V = surf.nodes.shape[0]
+    max_steps = opts.max_newton_steps
+    full = opts.full_optimization
+    counts = torch.stack([(active & surf.node_valid).sum((1, 2)),
+                          active.sum((1, 2))]).cpu().numpy()
+    num_initial, n_active = counts[0].astype(np.int64), counts[1]
+    nodes, active_ = surf.nodes, active
+    steps = np.zeros(V, np.int64)
+    cg_total = np.zeros(V, np.int64)
+    done = ~np.asarray(alive, bool)
+    best_act = num_initial + 1
+    best_avg = np.full(V, np.inf, _F32)
+    stall = np.zeros(V, np.int64)
+    floor = _F32(0.01) if full else _F32(0.002)
+    dev = surf.nodes.device
+    while True:
+        done |= steps >= max_steps
+        if not (opts.fixed_newton_steps or full):
+            done |= n_active <= num_initial // 20
+        if done.all():
+            break
+        run = ~done
+        st = _newton_step_batch(dataclasses.replace(surf, nodes=nodes), view,
+                                vis, active_, opts, lighting, run)
+        converged = st.rel_step < _F32(1e-4)
+        improved = (st.n_active < best_act) | (st.avg < _F32(0.9) * best_avg)
+        stall = np.where(run, np.where(improved, 0, stall + 1), stall)
+        best_act = np.where(run, np.minimum(best_act, st.n_active), best_act)
+        best_avg = np.where(run, np.minimum(best_avg, st.avg), best_avg)
+        if opts.fixed_newton_steps:
+            finished = st.bad
+        else:
+            finished = (st.bad | (st.avg < floor) | converged
+                        | (stall >= opts.stall_limit))
+        run_t = torch.as_tensor(run, device=dev)
+        nodes = torch.where(run_t[:, None, None, None], st.nodes, nodes)
+        if not full:  # full mode keeps every node active
+            active_ = torch.where(run_t[:, None, None], st.active, active_)
+        n_active = np.where(run, st.n_active, n_active)
+        steps += run
+        cg_total += np.where(run, st.cg_iters, 0)
+        done |= run & finished
+    return nodes, active_, steps, cg_total
+
+
+def scale_program_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
+                        inv_cals: list, opts: OptimizerOptions, lighting,
+                        ncc_images: list | None = None):
+    """`scale_program` for a batch of views (``inv_cals`` and
+    ``ncc_images`` one per view): each view leaves the outer loop at its
+    own patch-count test, after which it keeps its surface. Returns
+    (surface, stats per view)."""
+    V = surf.nodes.shape[0]
+    stats = [[] for _ in range(V)]
+    prev = surf.patch_valid.sum((1, 2)).cpu().numpy().astype(np.int64)
+    alive = np.ones(V, bool)
+    for _ in range(opts.num_iterations):
+        nodes, _, steps, cg_total = _newton_loop_batch(
+            surf, view, vis, surf.node_valid, opts, lighting, alive)
+        surf = dataclasses.replace(surf, nodes=nodes)
+        surfs = [S.unstack_surface(surf, i) for i in range(V)]
+        viss = list(vis)
+        for i in np.flatnonzero(alive):
+            surfs[i], viss[i] = _cleanup_view(
+                surfs[i], gn.viewset_at(view, i), viss[i], inv_cals[i], opts,
+                None if ncc_images is None else ncc_images[i])
+            new_count = int(surfs[i].patch_valid.sum())
+            lo = min(new_count, prev[i])
+            hi = max(new_count, prev[i], 1)
+            change = _F32(1.0) - _F32(lo) / _F32(hi)
+            stats[i].append((int(steps[i]), new_count, int(cg_total[i])))
+            if new_count <= prev[i] or change < _F32(0.05 * surf.scale):
+                alive[i] = False
+            else:
+                prev[i] = new_count
+        surf = S.stack_surfaces(surfs)
+        vis = torch.stack(viss)
+        if not alive.any():
+            break
+    return surf, stats
+
+
+def run_newton_iterations_batch(surf: S.Surface, mains: list,
+                                view: gn.ViewSet, opts: OptimizerOptions,
+                                sgm_zbuffers: list | None, log=None,
+                                timer: StageTimer | None = None,
+                                lighting: torch.Tensor | None = None,
+                                ncc_images: list | None = None) -> S.Surface:
+    """`run_newton_iterations` for a batch of views: visibility and the
+    first boundary cuts view by view, then `scale_program_batch`."""
+    V = surf.nodes.shape[0]
+    inv_cals = [torch.as_tensor(
+        m.camera.inverse_calibration(m.width, m.height),
+        dtype=torch.float64, device=m.device) for m in mains]
+    timer = timer or StageTimer()
+    with timer.stage(f"visibility@s{surf.scale}"):
+        surfs, viss = [], []
+        for i in range(V):
+            vi = gn.viewset_at(view, i)
+            si, visi = compute_visibility(
+                S.unstack_surface(surf, i), vi,
+                None if sgm_zbuffers is None else sgm_zbuffers[i],
+                None if ncc_images is None else ncc_images[i])
+            si, visi = cut_boundaries_loop(si, vi, visi, inv_cals[i])
+            surfs.append(si)
+            viss.append(visi)
+        surf, vis = S.stack_surfaces(surfs), torch.stack(viss)
+    with timer.stage(f"iterations@s{surf.scale}"):
+        surf, stats = scale_program_batch(surf, view, vis, inv_cals, opts,
+                                          lighting, ncc_images)
+    if log:
+        for i, rows in enumerate(stats):
+            log(f"  view {mains[i].view_id} s{surf.scale}: " + " ".join(
+                f"{st}st/{cg}cg" for st, _, cg in rows)
+                + f" -> {rows[-1][1] if rows else 0} patches")
     return surf
 
 

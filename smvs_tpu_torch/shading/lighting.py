@@ -37,7 +37,13 @@ def fit_lighting(normal_map: torch.Tensor, image: torch.Tensor
     image. Pixels with non-unit normals or intensity < 0.05 are excluded.
     The normal equations are summed in the inputs' dtype (float32 on the
     card, where the caller keeps TF32 off: `device.set_cuda_precision`).
+    With a leading view axis (normal_map [V, H, W, 3], image [V, H, W]),
+    one fit per view [V, 16], each view fitted alone: a batched SVD may
+    take another algorithm than a single one, and round otherwise.
     """
+    if normal_map.ndim == 4:
+        return torch.stack([fit_lighting(n, i)
+                            for n, i in zip(normal_map, image)])
     finite = torch.isfinite(normal_map).all(dim=-1)
     nm = torch.where(finite[..., None], normal_map, 0.0)
     norm = torch.sqrt((nm * nm).sum(-1))

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from smvs_tpu_torch.solver import stencil
+from smvs_tpu_torch.utils.perview import per_view
 
 OMEGA = 0.8  # smoother damping ceiling
 COARSE_SWEEPS = 8  # damped-Jacobi sweeps on the coarsest grid
@@ -101,7 +102,7 @@ def restrict(xf: torch.Tensor) -> torch.Tensor:
 def restrict_mask(active: torch.Tensor) -> torch.Tensor:
     """Coarse activity: any fine node in the transfer support is active."""
     a = active.to(torch.float32)
-    ny1, nx1 = a.shape
+    ny1, nx1 = a.shape[-2:]
     ncy, ncx = coarse_size(ny1), coarse_size(nx1)
     ap = torch.nn.functional.pad(a, (1, 2 * ncx - nx1, 1, 2 * ncy - ny1))
 
@@ -143,27 +144,33 @@ def _galerkin_weight_np() -> np.ndarray:
 def galerkin_coarse(Hb: torch.Tensor) -> torch.Tensor:
     """Coarse stencil A_c = P^T A P in closed form, as one matmul of the
     constant weight tensor against the 9 strided windows of the fine
-    stencil planes. Hb: [3, 3, 4, 4, ny1, nx1] -> [3, 3, 4, 4, ncy, ncx]."""
+    stencil planes. Hb: [3, 3, 4, 4, (V,) ny1, nx1] ->
+    [3, 3, 4, 4, (V,) ncy, ncx]."""
     ny1, nx1 = Hb.shape[-2:]
+    lead = tuple(Hb.shape[4:-2])
     ncy, ncx = coarse_size(ny1), coarse_size(nx1)
     Hp = torch.nn.functional.pad(Hb, (1, 2 * ncx - nx1, 1, 2 * ncy - ny1))
-    Hp = Hp.reshape(9, 16, *Hp.shape[-2:])
+    Hp = Hp.reshape(9, 16, *Hp.shape[4:])
     win = torch.stack(
-        [Hp[:, :, 1 + u::2, 1 + v::2][:, :, :ncy, :ncx]
+        [Hp[..., 1 + u::2, 1 + v::2][..., :ncy, :ncx]
          for u in (-1, 0, 1) for v in (-1, 0, 1)], dim=0)
     G = torch.as_tensor(_galerkin_weight_np(), dtype=Hb.dtype,
                         device=Hb.device)
-    out = G @ win.reshape(9 * 9 * 16, ncy * ncx)
-    return out.reshape(3, 3, 4, 4, ncy, ncx)
+    if not lead:
+        out = G @ win.reshape(9 * 9 * 16, ncy * ncx)
+    else:  # one product per view, as the view alone takes it
+        out = per_view(lambda w: G @ w.reshape(9 * 9 * 16, ncy * ncx),
+                       win, dim=3).movedim(0, 1)
+    return out.reshape(3, 3, 4, 4, *lead, ncy, ncx)
 
 
 class Levels(NamedTuple):
     """Galerkin operators + inverted block diagonals, finest first."""
 
-    ops: tuple  # stencil tensors [3, 3, 4, 4, ny1_l, nx1_l]
-    pinvs: tuple  # block-Jacobi inverses [4, 4, ny1_l, nx1_l]
+    ops: tuple  # stencil tensors [3, 3, 4, 4, (V,) ny1_l, nx1_l]
+    pinvs: tuple  # block-Jacobi inverses [4, 4, (V,) ny1_l, nx1_l]
     shapes: tuple  # (ny1, nx1) per level
-    omegas: tuple  # per-node damping maps [ny1_l, nx1_l]
+    omegas: tuple  # per-node damping maps [(V,) ny1_l, nx1_l]
     active: torch.Tensor | None = None  # fine-level active mask
 
 
@@ -177,7 +184,9 @@ def num_levels(ny1: int, nx1: int, min_size: int = 8) -> int:
 
 def build(Hb: torch.Tensor, active: torch.Tensor, min_size: int = 8,
           damp_rows: bool = True) -> Levels:
-    """The V-cycle hierarchy for one assembled system.
+    """The V-cycle hierarchy for one assembled system, or for a batch of
+    views' systems (Hb [3, 3, 4, 4, V, ny1, nx1], active [V, ny1, nx1]),
+    each level and damping map computed per view.
 
     ``damp_rows`` selects the smoother damping per problem, as the JAX
     package measured it: True (base photometric systems) damps each row
@@ -191,7 +200,7 @@ def build(Hb: torch.Tensor, active: torch.Tensor, min_size: int = 8,
     def omega(H, pinv):
         if damp_rows:
             return _node_omega(H, pinv)
-        return torch.full(H.shape[-2:], OMEGA, dtype=H.dtype,
+        return torch.full(H.shape[4:], OMEGA, dtype=H.dtype,
                           device=H.device)
 
     ny1, nx1 = Hb.shape[-2:]
@@ -213,28 +222,41 @@ def build(Hb: torch.Tensor, active: torch.Tensor, min_size: int = 8,
                   omegas=tuple(omegas), active=active)
 
 
-def _median_of_positive(lam: torch.Tensor) -> torch.Tensor:
+def _median_of_positive(lam: torch.Tensor, batch_dims: int = 0
+                        ) -> torch.Tensor:
     """Median over the positive entries (numpy's midpoint rule for an even
-    count), 1.0 when there are none; no host sync."""
-    flat = lam.reshape(-1)
-    n = (flat > 0).sum()
-    s = torch.sort(torch.where(flat > 0, flat, torch.inf)).values
+    count), 1.0 when there are none; no host sync. With ``batch_dims``
+    leading axes, one median per batch entry (``lam.shape[:batch_dims]``),
+    each the one the entry alone gives: a sort and a gather per row."""
+    lead = lam.shape[:batch_dims]
+    rows = lam.reshape(int(np.prod(lead)), -1)
+    n = (rows > 0).sum(-1, keepdim=True)
+    s = torch.sort(torch.where(rows > 0, rows, torch.inf), dim=-1).values
     lo = torch.clamp((n - 1) // 2, min=0)
-    hi = torch.clamp(n // 2, max=flat.numel() - 1)
-    med = 0.5 * (s[lo] + s[hi])
-    return torch.where(n > 0, med, torch.ones_like(med))
+    hi = torch.clamp(n // 2, max=rows.shape[-1] - 1)
+    med = 0.5 * (torch.gather(s, -1, lo) + torch.gather(s, -1, hi))
+    return torch.where(n > 0, med, torch.ones_like(med)).reshape(lead)
 
 
-def _node_omega(Hb: torch.Tensor, pinv: torch.Tensor) -> torch.Tensor:
-    """Per-node smoother damping map [ny1, nx1]: rows are damped by their
-    excess over the typical row,
-    w_i = OMEGA * min(1, F * median(lam) / lam_i) with the Gershgorin
-    block-row sum lam_i = sum_j ||pinv_i A_ij||_F."""
+def _row_sums(Hb: torch.Tensor, pinv: torch.Tensor) -> torch.Tensor:
+    """Gershgorin block-row sums lam_i = sum_j ||pinv_i A_ij||_F of one
+    system [ny1, nx1]."""
     prod = sum(
         pinv[None, None, :, b, None, :, :] * Hb[:, :, None, b, :, :, :]
         for b in range(4))
-    lam = torch.sqrt(torch.sum(prod * prod, dim=(2, 3))).sum((0, 1))
-    med = _median_of_positive(lam)
+    return torch.sqrt(torch.sum(prod * prod, dim=(2, 3))).sum((0, 1))
+
+
+def _node_omega(Hb: torch.Tensor, pinv: torch.Tensor) -> torch.Tensor:
+    """Per-node smoother damping map [(V,) ny1, nx1]: rows are damped by
+    their excess over the typical row (of their own view),
+    w_i = OMEGA * min(1, F * median(lam) / lam_i) with the Gershgorin
+    block-row sum lam_i = sum_j ||pinv_i A_ij||_F."""
+    if Hb.ndim == 6:
+        lam = _row_sums(Hb, pinv)
+    else:  # view by view (`utils.perview`), each summed as it is alone
+        lam = per_view(_row_sums, Hb, pinv, dim=(4, 2))
+    med = _median_of_positive(lam, lam.ndim - 2)[..., None, None]
     scale = torch.clamp(_ROW_STIFF_FACTOR * med / torch.clamp(lam, min=1e-6),
                         max=1.0)
     return OMEGA * scale.to(Hb.dtype)
@@ -248,11 +270,16 @@ def _smooth(levels: Levels, l: int, r: torch.Tensor) -> torch.Tensor:
 def apply(levels: Levels, r: torch.Tensor) -> torch.Tensor:
     """z = M^-1 r: one symmetric V(1,1) cycle, projected on the active
     set, with the indefiniteness guard: if <r, z> <= 0 the damped
-    block-Jacobi result is returned for this apply."""
+    block-Jacobi result is returned for this apply (for a batch of views,
+    r [4, V, ny1, nx1], the guard is taken per view)."""
     z = apply_vcycle(levels, r)
     if levels.active is not None:
         r = torch.where(levels.active[None], r, 0.0)
-    rz = torch.sum(r * z)
+    rz = r * z
+    if r.ndim > 3:  # per view, as each view alone sums it
+        rz = per_view(torch.sum, rz, dim=1).reshape(1, -1, 1, 1)
+    else:
+        rz = torch.sum(rz)
     return torch.where(rz > 0, z, jacobi(levels, r))
 
 

@@ -5,7 +5,10 @@ Hessian blocks only couple nodes that share a patch (reference
 `lib/gauss_newton_step.cc:98-122`), so the system is a stencil tensor:
 SpMV is 9 shifted batched 4x4 contractions and block-Jacobi a batched 4x4
 inverse. Layout is channel-major: vectors [4, ny1, nx1], the stencil
-[3, 3, 4, 4, ny1, nx1], the preconditioner [4, 4, ny1, nx1].
+[3, 3, 4, 4, ny1, nx1], the preconditioner [4, 4, ny1, nx1]. A batch of
+views sits between the channel axes and the grid (vectors [4, V, ny1,
+nx1], the stencil [3, 3, 4, 4, V, ny1, nx1], masks [V, ny1, nx1]); every
+function here takes either form.
 """
 
 from __future__ import annotations
@@ -22,10 +25,10 @@ def _pad_yx(x: torch.Tensor, top: int, bottom: int, left: int, right: int
 
 
 def scatter_patch_systems(
-    g_patch: torch.Tensor,  # [16, ny, nx] corner-major gradient planes
-    H_patch: torch.Tensor,  # [16, 16, ny, nx] per-patch Hessian planes
-    active: torch.Tensor,  # [ny+1, nx+1] bool
-    patch_valid: torch.Tensor,  # [ny, nx] bool
+    g_patch: torch.Tensor,  # [16, (V,) ny, nx] corner-major gradient planes
+    H_patch: torch.Tensor,  # [16, 16, (V,) ny, nx] per-patch Hessian planes
+    active: torch.Tensor,  # [(V,) ny+1, nx+1] bool
+    patch_valid: torch.Tensor,  # [(V,) ny, nx] bool
 ):
     """Accumulate per-patch systems into the node grid.
 
@@ -37,13 +40,15 @@ def scatter_patch_systems(
     """
     ny, nx = g_patch.shape[-2:]
     ny1, nx1 = ny + 1, nx + 1
+    lead = tuple(g_patch.shape[1:-2])  # (V,) for a batch of views
     dtype = g_patch.dtype
 
     act = active.to(dtype)
     ap = _pad_yx(act, 1, 1, 1, 1)
     pv = patch_valid.to(dtype)
 
-    g = torch.zeros((4, ny1, nx1), dtype=dtype, device=g_patch.device)
+    g = torch.zeros((4, *lead, ny1, nx1), dtype=dtype,
+                    device=g_patch.device)
     for a, (ax, ay) in enumerate(_CORNERS):
         contrib = g_patch[4 * a : 4 * a + 4] * pv
         g = g + _pad_yx(contrib, ay, 1 - ay, ax, 1 - ax)
@@ -52,7 +57,7 @@ def scatter_patch_systems(
     planes = []
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
-            acc = torch.zeros((4, 4, ny1, nx1), dtype=dtype,
+            acc = torch.zeros((4, 4, *lead, ny1, nx1), dtype=dtype,
                               device=g_patch.device)
             for a, (ax, ay) in enumerate(_CORNERS):
                 bx, by = ax + dx, ay + dy
@@ -61,9 +66,9 @@ def scatter_patch_systems(
                 b = _CORNERS.index((bx, by))
                 blk = H_patch[4 * a : 4 * a + 4, 4 * b : 4 * b + 4] * pv
                 acc = acc + _pad_yx(blk, ay, 1 - ay, ax, 1 - ax)
-            nb_act = ap[1 + dy : 1 + dy + ny1, 1 + dx : 1 + dx + nx1]
+            nb_act = ap[..., 1 + dy : 1 + dy + ny1, 1 + dx : 1 + dx + nx1]
             planes.append(acc * (act * nb_act))
-    Hb = torch.stack(planes, dim=0).reshape(3, 3, 4, 4, ny1, nx1)
+    Hb = torch.stack(planes, dim=0).reshape(3, 3, 4, 4, *lead, ny1, nx1)
     return g, Hb
 
 
@@ -75,7 +80,7 @@ def spmv(Hb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros_like(x)
     for oy in range(3):
         for ox in range(3):
-            xs = xp[:, oy : oy + ny1, ox : ox + nx1]
+            xs = xp[..., oy : oy + ny1, ox : ox + nx1]
             y = y + (Hb[oy, ox] * xs[None]).sum(1)
     return y
 

@@ -4,15 +4,21 @@ With ``sync_device`` set, `sync()` waits for the GPU with
 `torch.cuda.synchronize` so stage boundaries are accurate; otherwise
 stages overlap with queued device work and only end-to-end times mean
 anything.
+
+`host_reads` counts the solver loops' read-backs of exit flags, one per
+PCG iteration ("cg") and one per Newton step ("newton"), whether a loop
+serves one view or a batch; `host_reads.clear()` resets it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import torch
+
+host_reads: Counter = Counter()
 
 
 class StageTimer:

@@ -1,7 +1,7 @@
 """Reference results of the JAX package, on the CPU, for the limits that
 `chip_smoke.py` holds the PyTorch/CUDA port to.
 
-Eight configurations, each at a dimension the caller picks (the card
+Nine configurations, each at a dimension the caller picks (the card
 runs them at 1440, 1280 (the CLI ones) and 1440; a CPU run at that size
 holds many GB, so the reference is mostly taken at a smaller one and the
 script's output says which):
@@ -14,6 +14,7 @@ script's output says which):
     python tools/jax_cpu_reference.py fullopt --dim 640
     python tools/jax_cpu_reference.py mesh --dim 640
     python tools/jax_cpu_reference.py flagship --dim 1440
+    python tools/jax_cpu_reference.py batch --dim 720
 
 `general`: `stereo.reconstruct` (the general-warp SGM, 128 planes, range
 (4.0, 8.5)) on the two-view scene of tests/test_sgm.py, with the plane's
@@ -52,6 +53,14 @@ mesh), its faces and its median fused error.
 `flagship`: `bench.py:run_shading_once(dim, 2)`, the shading-aware
 flagship (JAX float32 on the CPU); prints its coverage and median
 relative error.
+
+`batch`: the CLI with all its defaults, `--batch-views 4` among them, on
+8 views of `bench_dtu.py`'s camera grid (`make_dtu_scene`) whose sizes
+alternate dim and dim * 1280 / 1440, as `bench_dtu.py` mixes them; the
+card runs dim 1440, whose auto input scale of 1 gives working views of
+720 and 640 px, the sizes `--dim 720` gives at scale 0. Prints the
+fused points per working pixel, the median fused error, and the CLI's
+`Views [...] done` lines (its groups, batched or sequential).
 
 `--port` runs the PyTorch port's CLI (`--device cpu`) on the same scene
 instead, to tell a difference of the card from one of the size:
@@ -171,6 +180,61 @@ def cli(config: str, dim: int, port: bool = False) -> dict:
     return {**out[0], "runs": out}
 
 
+def batch_dims(dim: int, n_views: int = 8) -> list[int]:
+    """The `batch` scene's view sizes: dim and dim * 1280 / 1440 in turn."""
+    return [dim if i % 2 == 0 else dim * 1280 // 1440
+            for i in range(n_views)]
+
+
+def input_scale(dims: list[int], max_pixels: float = 1.7e6) -> int:
+    """The CLI's automatic input scale for views of these sizes."""
+    avg = np.mean([d * d for d in dims])
+    return int(np.ceil(np.log2(avg / max_pixels) / 2)) \
+        if avg > max_pixels else 0
+
+
+def working_pixels(dims: list[int]) -> int:
+    """Pixels of the views at the CLI's automatic input scale."""
+    total = 0
+    for d in dims:
+        for _ in range(input_scale(dims)):
+            d = (d + 1) // 2
+        total += d * d
+    return total
+
+
+def batch(dim: int, port: bool = False) -> dict:
+    import contextlib
+    import io
+    import re
+
+    from smvs_tpu import cli as smvs_cli
+    from smvs_tpu.mesh.ply import load_ply
+    from smvs_tpu_torch import cli as port_cli
+    from smvs_tpu_torch.core.synthetic import make_dtu_scene, \
+        save_as_mve_scene
+
+    dims = batch_dims(dim)
+    scene = make_dtu_scene(len(dims), dims)
+    with tempfile.TemporaryDirectory() as path:
+        save_as_mve_scene(scene, path)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = port_cli.main([path, "--device", "cpu"]) if port \
+                else smvs_cli.main([path, "--platform", "cpu"])
+        seconds = time.perf_counter() - t0
+        ps = load_ply(os.path.join(path, f"smvs-B{input_scale(dims)}.ply"))
+    text = out.getvalue()
+    pixels = working_pixels(dims)
+    return {"dims": dims, "rc": rc, "points": int(len(ps.vertices)),
+            "working_pixels": pixels,
+            "points_per_pixel": len(ps.vertices) / pixels,
+            "median_fused_rel_err": fused_error(ps.vertices, scene),
+            "groups": re.findall(r"Views \[.*", text),
+            "input_scale": input_scale(dims), "cpu_seconds": seconds}
+
+
 def flagship(dim: int, port: bool = False) -> dict:
     if port:
         from smvs_tpu_torch import bench_main
@@ -183,7 +247,8 @@ def flagship(dim: int, port: bool = False) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("config", choices=("general", "flagship", *RUNS))
+    ap.add_argument("config",
+                    choices=("general", "flagship", "batch", *RUNS))
     ap.add_argument("--dim", type=int, required=True)
     ap.add_argument("--port", action="store_true",
                     help="run the PyTorch port instead (every "
@@ -193,6 +258,8 @@ def main(argv=None) -> int:
         out = general(args.dim)
     elif args.config == "flagship":
         out = flagship(args.dim, port=args.port)
+    elif args.config == "batch":
+        out = batch(args.dim, port=args.port)
     else:
         out = cli(args.config, args.dim, port=args.port)
     print(json.dumps({"config": args.config, "dim": args.dim,
