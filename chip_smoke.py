@@ -91,14 +91,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
    of the commonly covered pixels drifting by more than 2e-4, and, since
    the batched path reduces view by view as the sequential one does,
    equal bit for bit. Stage seconds, solver read-backs and the peak
-   device memory of both runs.
+   device memory of both runs;
+15. the multi-device half (`smvs_tpu_torch.dist`), its ranks spawned on
+   this one card over gloo (NCCL takes one card per rank): (a) the
+   sharded Newton step (`viewbatch.training_step_fn`) on
+   `make_view_batch(4)` at dim 116, scale 4 (the JAX multihost worker's
+   problem) and then dim 1440, scale 2 (360 node rows), float32, over
+   meshes (2, 1) and (1, 2) on 2 ranks and (2, 2) on 4, against the
+   single-process `batched_newton_step` here: a 'patch' axis of 1
+   bit-equal; above 1 a nonzero update, within the JAX worker's bar
+   (rtol 2e-3, atol 5e-5) at its dim 116, and at 1440, where the float32
+   step itself departs from float64 by more than that bar (in the JAX
+   package too: `tools/jax_cpu_reference.py step`), within twice the
+   single-process float32 step's own distance from the float64 step, on
+   the same entries; each mesh's step seconds and peak memory per rank;
+   (b) the full pipeline over views: phase 14's batched group of the
+   four 720^2 views (their SGM depths from that run, rows 1-2 launched
+   there), through `optimize_view_batch(mesh=(2, 1))` on 2 ranks, every
+   view on every rank bit-equal to the unsharded batch of phase 14;
+   optimize seconds, host read-backs and peak memory per rank; (c) the
+   scaling harness (`dist.scaling.measure`) at 1 and 2 ranks on
+   `make_view_batch(dim=116)`, ranks sharing the card. A rank that fails
+   or outlasts its timeout stops the others and fails the phase.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after; the `launches` of each kernel row come from the path named in
 its `path` key (rows 4 and 5 have no user path), and rows 1 and 2 also
 list their launches on the flagship and the CLI with `-S`. It prints one
-`{"flagship": {...}}` line with the flagship's numbers, one
-`{"kernels": [...]}` line with the five TPU kernel rows, each naming the
+`{"flagship": {...}}` line with the flagship's numbers, one `{"dist":
+{...}}` line with phase 15's, one `{"kernels": [...]}` line with the five TPU kernel rows, each naming the
 CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
 `sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
 5), and `sgm_deep_kernel`, which serves every row beyond 512 depths,
@@ -134,7 +155,12 @@ from smvs_tpu_torch import cli  # noqa: E402
 from smvs_tpu_torch.core import scene as sc  # noqa: E402
 from smvs_tpu_torch.core import synthetic as syn  # noqa: E402
 from smvs_tpu_torch.device import set_cuda_precision  # noqa: E402
+from smvs_tpu_torch.dist import launch, scaling, viewbatch  # noqa: E402
+from smvs_tpu_torch.dist.mesh import make_mesh, row_band  # noqa: E402
+from smvs_tpu_torch.dist.mesh import view_share  # noqa: E402
+from smvs_tpu_torch.dist.testing import make_view_batch  # noqa: E402
 from smvs_tpu_torch.mesh.ply import load_ply  # noqa: E402
+from smvs_tpu_torch.pipeline import batch as VB  # noqa: E402
 from smvs_tpu_torch.pipeline import optimizer as O  # noqa: E402
 from smvs_tpu_torch.pipeline.views import make_view  # noqa: E402
 from smvs_tpu_torch.sgm import cuda_agg  # noqa: E402
@@ -231,6 +257,15 @@ BATCH_DRIFT = 2e-4
 BATCH_MAX_DRIFT_SHARE = 0.10
 # Depth counts beyond the line and sweep kernels: sgm_path_kernel to 512,
 # sgm_deep_kernel beyond.
+# Phase 15: the sharded step's problems (dim, scale), the meshes (views,
+# patch) and the bars; every spawn's time limit.
+DIST_STEPS = ((116, 4), (1440, 2))
+DIST_MESHES = ((2, 1), (1, 2), (2, 2))
+DIST_RTOL, DIST_ATOL = 2e-3, 5e-5  # the JAX multihost worker's, at dim 116
+DIST_F64_RATIO = 2.0  # sharded vs single float32, each against float64
+DIST_TIMEOUT = 300.0
+STEP_ARGS = ("nodes", "node_valid", "patch_valid", "vis", "active", "view")
+
 DEEP = (129, 192, 256, 512, 513, 1024, 2048)
 DEEP_HW = 640  # [640, 640, D] problems for them
 DEEP_MAX_SHAPE = (16, 24, cuda_agg.MAX_D)  # the deep kernel's 32-warp form
@@ -820,12 +855,65 @@ def _depths(path: str, name: str) -> dict:
             for v in sc.Scene.load(path).views}
 
 
-def phase_cli_batch() -> dict:
+RESULT_FIELDS = ("depth", "normals", "nodes", "node_valid", "patch_valid")
+
+
+def _fields(r) -> tuple:
+    """A DepthResult's tensors, in the order of RESULT_FIELDS."""
+    s = r.surface
+    return (r.depth, r.normals, s.nodes, s.node_valid, s.patch_valid)
+
+
+def _snapshot(r) -> dict:
+    """A copy on the host of a DepthResult's tensors and grid."""
+    return {"tensors": [t.cpu() for t in _fields(r)],
+            "grid": (r.surface.scale, r.surface.start_x, r.surface.start_y),
+            "lighting": r.lighting}
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (NaN where NaN, -0.0 where -0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+        a, b = a.view(bits[a.dtype]), b.view(bits[b.dtype])
+    return torch.equal(a, b)
+
+
+def _fresh(v):
+    """A view without its cached blurs and shading images."""
+    return dataclasses.replace(v, _scales={}, _shading=None)
+
+
+@contextlib.contextmanager
+def _captured_batches(store: list):
+    """Record every `optimize_view_batch` call the CLI makes (its
+    arguments and results) in ``store``."""
+    real = VB.optimize_view_batch
+
+    def spy(mains, subs_list, opts, **kw):
+        results = real(mains, subs_list, opts, **kw)
+        store.append({
+            "mains": [_fresh(m) for m in mains],
+            "subs_list": [[_fresh(v) for v in subs] for subs in subs_list],
+            "opts": opts, "sgm_depths": kw.get("sgm_depths"),
+            "results": [_snapshot(r) for r in results]})
+        return results
+
+    cli.VB.optimize_view_batch = spy
+    try:
+        yield
+    finally:
+        cli.VB.optimize_view_batch = real
+
+
+def phase_cli_batch(captured: list) -> dict:
     """The CLI's view batching on 8 views of the DTU-scale camera grid
     (sizes alternating 1440 and 1280), with its defaults, then
     `--batch-views 1 -r --force --force-sgm` on a copy (the same SGM
     depths, in memory as in the first run); batched against sequential
-    per view."""
+    per view. The batched run's groups go to ``captured``."""
     dims = [BATCH_DIMS[i % 2] for i in range(BATCH_VIEWS)]
     scene = syn.make_dtu_scene(BATCH_VIEWS, dims)
     work = [(d + 1) // 2 for d in dims]  # input scale 1
@@ -843,7 +931,8 @@ def phase_cli_batch() -> dict:
             cuda_agg.reset_launches()
             host_reads.clear()
             torch.cuda.reset_peak_memory_stats()
-            rc, text, seconds = _cli_quiet([where, *flags])
+            with _captured_batches(captured if where == path else []):
+                rc, text, seconds = _cli_quiet([where, *flags])
             launches = dict(cuda_agg.launches)
             reads = dict(host_reads)
             log("\n".join(f"  cli {label}: " + line
@@ -1223,6 +1312,193 @@ def phase_shading() -> dict:
             "lighting": light.tolist(), "assembly": assembly}
 
 
+def _dist_step_rank(rank: int, world: int, dev: torch.device, paths: list,
+                    patch_axes: tuple) -> list:
+    """Phase 15(a) on one rank: the sharded step of each saved problem on
+    a (world // p, p) mesh per ``p``: shard, share, band, seconds, peak
+    memory. The first problem's first step takes the process's one-time
+    CUDA library set-up."""
+    out = []
+    for path in paths:
+        data = torch.load(path, map_location=dev, weights_only=False)
+        args = [data["batch"][k] for k in STEP_ARGS]
+        for p in patch_axes:
+            mesh = make_mesh(world, patch_axis=p, device=dev)
+            step = viewbatch.training_step_fn(data["template"], gn.GNOptions(),
+                                              mesh)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            shard = step(*args)
+            torch.cuda.synchronize(dev)
+            out.append({"path": path, "patch": p,
+                        "seconds": time.perf_counter() - t0,
+                        "max_memory_allocated":
+                            torch.cuda.max_memory_allocated(dev),
+                        "share": view_share(args[0].shape[0], mesh),
+                        "band": row_band(args[0].shape[1], mesh),
+                        "shard": shard.cpu()})
+    return out
+
+
+def _dist_pipeline_rank(rank: int, world: int, dev: torch.device,
+                        path: str) -> dict:
+    """Phase 15(b) on one rank: `optimize_view_batch` over a (world, 1)
+    mesh on the saved group; every view's result against the saved
+    unsharded one."""
+    data = torch.load(path, map_location=dev, weights_only=False)
+    mesh = VB.make_view_mesh(world, patch_axis=1, device=dev)
+    host_reads.clear()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = VB.optimize_view_batch(data["mains"], data["subs_list"],
+                                 data["opts"], sgm_depths=data["sgm_depths"],
+                                 mesh=mesh, device=dev)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    unequal = []  # (view, field) of every difference
+    for i, (got, want) in enumerate(zip(out, data["results"])):
+        s = got.surface
+        unequal += [(i, f) for f, a, b in zip(RESULT_FIELDS, _fields(got),
+                                              want["tensors"])
+                    if not _same_bits(a, b)]
+        if (s.scale, s.start_x, s.start_y) != want["grid"]:
+            unequal.append((i, "grid"))
+        if got.lighting is not None or want["lighting"] is not None:
+            unequal.append((i, "lighting"))
+    return {"share": view_share(len(out), mesh), "seconds": seconds,
+            "host_reads": dict(host_reads), "unequal": unequal,
+            "views": len(out),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+
+
+def phase_dist_step(root: str) -> dict:
+    """Phase 15(a): the sharded step against the single-process one."""
+    refs, paths, single = {}, [], {}
+    for dim, scale in DIST_STEPS:
+        template, batch = make_view_batch(4, dim=dim, scale=scale,
+                                          device="cuda")
+        args = [batch[k] for k in STEP_ARGS]
+        step = viewbatch.batched_newton_step(template, gn.GNOptions())
+        step(*args)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref = step(*args)
+        torch.cuda.synchronize()
+        single[dim] = {"seconds": time.perf_counter() - t0,
+                       "max_memory_allocated":
+                           torch.cuda.max_memory_allocated()}
+        t64, b64 = make_view_batch(4, dim=dim, scale=scale,
+                                   dtype=torch.float64, device="cuda")
+        ref64 = viewbatch.batched_newton_step(t64, gn.GNOptions())(
+            *(b64[k] for k in STEP_ARGS))
+        path = os.path.join(root, f"step_{dim}.pt")
+        torch.save({"template": template, "batch": batch}, path)
+        paths.append(path)
+        refs[path] = (dim, ref.cpu(), ref64.cpu(), batch["nodes"].cpu())
+        del template, batch, args, ref, t64, b64, ref64
+        torch.cuda.empty_cache()
+    rows, spawn_seconds = [], {}
+    for world, patch_axes in ((2, (1, 2)), (4, (2,))):
+        t0 = time.perf_counter()
+        outs = launch.spawn(
+            _dist_step_rank, world, backend="gloo", device="cuda",
+            store_path=os.path.join(root, f"store_step{world}"),
+            args=(paths, patch_axes), timeout=DIST_TIMEOUT)
+        spawn_seconds[world] = time.perf_counter() - t0
+        for rank, entries in enumerate(outs):
+            for e in entries:
+                dim, ref, ref64, nodes0 = refs[e["path"]]
+                p = e["patch"]
+                s, b = e["share"], e["band"]
+                idx = (slice(s.start, s.stop), slice(b.start, b.stop))
+                got, want, w64 = e["shard"], ref[idx], ref64[idx]
+                diff = (got - want).abs()
+                row = {"dim": dim, "mesh": (world // p, p), "rank": rank,
+                       "views": list(s), "rows": [b.start, b.stop],
+                       "seconds": e["seconds"],
+                       "max_memory_allocated": e["max_memory_allocated"],
+                       "max_abs_err": float(diff.max()),
+                       "outside_jax_bar": float((diff > DIST_ATOL + DIST_RTOL
+                                                 * want.abs()).float().mean()),
+                       "err_vs_f64": float((got.double() - w64).abs().max()),
+                       "single_err_vs_f64":
+                           float((want.double() - w64).abs().max()),
+                       "update": float((got - nodes0[idx]).abs().max())}
+                rows.append(row)
+                log(f"  dist step {row}")
+                if p == 1:
+                    if not torch.equal(got, want):
+                        raise RuntimeError(f"dist step {row['mesh']}: not "
+                                           "bit-equal to the single process")
+                    continue
+                if not row["update"] > 0:
+                    raise RuntimeError(f"dist step: no update: {row}")
+                if dim == DIST_STEPS[0][0]:
+                    ok = torch.allclose(got, want, rtol=DIST_RTOL,
+                                        atol=DIST_ATOL)
+                else:
+                    ok = row["err_vs_f64"] <= \
+                        DIST_F64_RATIO * row["single_err_vs_f64"]
+                if not ok:
+                    raise RuntimeError(f"dist step out of its bar: {row}")
+    return {"single": single, "meshes": rows, "spawn_seconds": spawn_seconds}
+
+
+def phase_dist_pipeline(root: str, captured: list) -> dict:
+    """Phase 15(b): phase 14's batched 720^2 group over a (2, 1) mesh."""
+    group = next(g for g in captured
+                 if [m.view_id for m in g["mains"]] == [0, 2, 4, 6])
+    path = os.path.join(root, "group.pt")
+    torch.save(group, path)
+    t0 = time.perf_counter()
+    outs = launch.spawn(_dist_pipeline_rank, 2, backend="gloo",
+                        device="cuda",
+                        store_path=os.path.join(root, "store_pipeline"),
+                        args=(path,), timeout=DIST_TIMEOUT)
+    out = {"views": [m.view_id for m in group["mains"]],
+           "dims": list(group["mains"][0].image.shape),
+           "spawn_seconds": time.perf_counter() - t0,
+           "ranks": [{**o, "share": list(o["share"])} for o in outs]}
+    log(f"  dist pipeline: {out}")
+    if [i for o in outs for i in o["share"]] != [0, 1, 2, 3]:
+        raise RuntimeError(f"dist pipeline shares: {out}")
+    for r, o in enumerate(outs):
+        if o["views"] != 4 or o["unequal"]:
+            raise RuntimeError(f"dist pipeline: rank {r} results not "
+                               f"bit-equal to the unsharded batch: {out}")
+    return out
+
+
+def phase_dist_scaling() -> dict:
+    """Phase 15(c): the scaling harness at 1 and 2 ranks on this card."""
+    thr = {n: scaling.measure(n, 2, dim=116, steps=5, backend="gloo",
+                              device="cuda") for n in (1, 2)}
+    eff = thr[2] / (2 * thr[1])
+    log(f"  dist scaling, make_view_batch(dim=116), 2 views a rank, 5 "
+        f"steps: 1 rank {thr[1]:.2f} view-steps/s; 2 ranks sharing one card "
+        f"{thr[2]:.2f} view-steps/s (efficiency {eff:.0%}: the two ranks "
+        "share one card, so this measures sharing, not scaling)")
+    return {"view_steps_per_s": thr, "efficiency": eff,
+            "ranks_per_card": {n: n for n in thr}}
+
+
+def phase_dist(captured: list) -> dict:
+    """Phase 15, the multi-device half, on ranks sharing this card."""
+    t0 = time.perf_counter()
+    cuda_agg.reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        out = {"step": phase_dist_step(root),
+               "pipeline": phase_dist_pipeline(root, captured),
+               "scaling": phase_dist_scaling()}
+    out["launches_in_this_process"] = dict(cuda_agg.launches)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"dist phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     set_cuda_precision()
     device = phase_card()
@@ -1244,7 +1520,10 @@ def main() -> int:
                             ("fused_pass", "fused_pass_batch"), flags=("-S",))
     color_cli = phase_cli_color()
     mesh_cli = phase_cli_mesh()
-    batch_cli = phase_cli_batch()
+    captured = []
+    batch_cli = phase_cli_batch(captured)
+    dist = phase_dist(captured)
+    del captured
     main_path = "bench_main.run_once(1440, 2): rectified SGM"
     path_launches = {  # (path, launches on it)
         "fused_pass": (main_path, main_launches["fused_pass"]),
@@ -1303,6 +1582,7 @@ def main() -> int:
     print(json.dumps({"flagship": shading}), flush=True)
     print(json.dumps({"cli_color": color_cli, "cli_mesh": mesh_cli,
                       "cli_batch": batch_cli}), flush=True)
+    print(json.dumps({"dist": dist}, default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -1,12 +1,14 @@
 """Synthetic stacked view-batch problems (port of
-`smvs_tpu/dist/testing.py`), from the same numpy seed."""
+`smvs_tpu/dist/testing.py`), from the same numpy seed, and the plane-scene
+views of the JAX dry run and scaling harness."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from smvs_tpu_torch.core.synthetic import make_two_view_scene
+from smvs_tpu_torch.core.synthetic import make_plane_scene, \
+    make_two_view_scene
 from smvs_tpu_torch.pipeline import optimizer as O
 from smvs_tpu_torch.pipeline.views import make_view
 from smvs_tpu_torch.solver import gn
@@ -55,3 +57,17 @@ def make_view_batch(n_views: int, dim: int = 120, scale: int = 4,
         view=gn.stack_viewsets([view] * n_views),
     )
     return surf, batch
+
+
+def plane_view_problem(n_views: int, dim: int = 96, device=None):
+    """The JAX dry run's and scaling harness's views
+    (`__graft_entry__.py:86-97`): the ``n_views`` mains of an
+    (n_views + 1)-view plane scene, each seeing the center view, and
+    their dense inits 2% too deep. Returns (mains, subs_list, inits)."""
+    scene = make_plane_scene(n_views=n_views + 1, dim=dim)
+    views = [make_view(scene.cameras[i], scene.images[i], view_id=i,
+                       device=device) for i in range(n_views + 1)]
+    center = n_views // 2
+    others = [i for i in range(n_views + 1) if i != center][:n_views]
+    return ([views[i] for i in others], [[views[center]] for _ in others],
+            [(scene.depths[i] * 1.02).astype(np.float32) for i in others])

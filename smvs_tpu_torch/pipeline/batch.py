@@ -13,17 +13,28 @@ Views are grouped into buckets keyed by (height, width, n_neighbors), so
 that every view of a batch shares every shape. The JAX module's
 `prewarm_async` has no counterpart (it loads XLA's compiled programs in
 the background; eager PyTorch compiles nothing, and the CUDA kernels are
-built at their first use), nor, yet, its device mesh (`mesh=`: ROADMAP.md
-queue 1, item 6).
+built at their first use).
+
+Over a ('views', 'patch') mesh of ranks (`make_view_mesh`) each rank
+optimizes its share of the views (`dist.mesh.view_share`) and then
+receives every other view's result from the rank that computed it. A
+view's result does not depend on the views batched with it, so the
+results are the unsharded batch's bit for bit. Splitting each view's
+node rows over a ``patch`` axis needs the multigrid preconditioner split
+by rows, which is not ported (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 from smvs_tpu_torch.device import resolve_device
+from smvs_tpu_torch.dist.mesh import make_mesh as make_view_mesh  # noqa: F401
+from smvs_tpu_torch.dist.mesh import check_mesh, split, view_share
 from smvs_tpu_torch.image import bilateral
 from smvs_tpu_torch.pipeline import optimizer as O
 from smvs_tpu_torch.pipeline.views import StereoViewState
@@ -56,14 +67,31 @@ def optimize_view_batch(
     (bilateral-filtered), else from its ``init_depths`` entry, a scale
     coarser, as `optimize_view` does. Runs on ``device`` (the GPU unless
     ``"cpu"`` is passed), where the views must live.
+
+    With ``mesh`` (`make_view_mesh`, a 'patch' axis of 1) every rank
+    passes every view and gets every view's result: it optimizes its
+    share of them and receives the others from their ranks.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: view batches over a device mesh (mesh=): "
-            "ROADMAP.md queue 1, item 6")
     V = len(mains)
     if len(subs_list) != V or V == 0:
         raise ValueError("one list of neighbors per main view")
+    if mesh is not None:
+        check_mesh(mesh)
+        if mesh.size(1) > 1:
+            raise NotImplementedError(
+                "not ported yet: a view batch with its node rows split over "
+                f"a 'patch' axis of {mesh.size(1)} needs the row-sharded "
+                "multigrid: ROADMAP.md queue 1, item 6")
+        share = view_share(V, mesh)
+        sl = slice(share.start, share.stop)
+        mine = [] if not share else optimize_view_batch(
+            mains[sl], subs_list[sl], opts,
+            None if sgm_depths is None else sgm_depths[sl],
+            None if init_depths is None else init_depths[sl],
+            log=log, device=device)
+        return _share_results(mine, V, (mains[0].height,
+                                        mains[0].width), mesh,
+                              resolve_device(device))
     keys = {bucket_key(m, s) for m, s in zip(mains, subs_list)}
     if len(keys) != 1:
         raise ValueError(f"views of several buckets in one batch: {keys}")
@@ -143,6 +171,68 @@ def optimize_view_batch(
                           surface=S.unstack_surface(bsurf, i),
                           lighting=None if lighting is None else lighting[i])
             for i in range(V)]
+
+
+def _share_results(mine: list, V: int, hw: tuple, mesh,
+                   dev: torch.device) -> list[O.DepthResult]:
+    """Every view's DepthResult on every rank of a ('views', 1) mesh, each
+    broadcast from the rank whose share (``mine``) holds it; ``hw`` is
+    the views' (height, width)."""
+    owners = [row[0] for row in mesh.mesh.tolist()]
+    # The grid of the last scale as the first rank has it (its share is
+    # never empty); every view of a batch ends on it.
+    meta = torch.zeros(8, dtype=torch.int64, device=dev)
+    if dist.get_rank() == owners[0]:
+        s = mine[0].surface
+        meta.copy_(torch.tensor([s.scale, s.width, s.height, s.start_x,
+                                 s.start_y, s.num_patches_y, s.num_patches_x,
+                                 mine[0].lighting is not None]))
+    dist.broadcast(meta, src=owners[0])
+    scale, width, height, sx, sy, ny, nx, lit = meta.tolist()
+    h, w = hw
+    fshapes = [(h, w), (h, w, 3), (ny + 1, nx + 1, 4)] + [(16,)] * lit
+    mshapes = [(ny + 1, nx + 1), (ny, nx)]
+    out = []
+    for i, owner in enumerate(owners):
+        n = len(split(V, len(owners), i))
+        if not n:
+            continue
+        if dist.get_rank() == owner:
+            rs = [(r.depth, r.normals, r.surface.nodes) + (
+                (r.lighting,) if lit else ()) for r in mine]
+            floats = torch.cat([t.reshape(-1) for r in rs for t in r])
+            masks = torch.cat([t.reshape(-1).to(torch.uint8) for r in mine
+                               for t in (r.surface.node_valid,
+                                         r.surface.patch_valid)])
+        else:
+            floats = torch.empty(n * sum(map(math.prod, fshapes)),
+                                 dtype=torch.float32, device=dev)
+            masks = torch.empty(n * sum(map(math.prod, mshapes)),
+                                dtype=torch.uint8, device=dev)
+        dist.broadcast(floats, src=owner)
+        dist.broadcast(masks, src=owner)
+        if dist.get_rank() == owner:
+            out.extend(mine)
+            continue
+        fs = _split_as(floats, fshapes * n)
+        ms = _split_as(masks.to(torch.bool), mshapes * n)
+        k = len(fshapes)
+        for j in range(n):
+            depth, normals, nodes, *light = fs[j * k:(j + 1) * k]
+            surf = S.Surface(nodes=nodes, node_valid=ms[2 * j],
+                             patch_valid=ms[2 * j + 1], scale=scale,
+                             width=width, height=height, start_x=sx,
+                             start_y=sy)
+            out.append(O.DepthResult(depth=depth, normals=normals,
+                                     surface=surf,
+                                     lighting=light[0] if light else None))
+    return out
+
+
+def _split_as(flat: torch.Tensor, shapes: list) -> list:
+    """``flat`` cut into consecutive tensors of ``shapes``."""
+    parts = torch.split(flat, [math.prod(sh) for sh in shapes])
+    return [p.reshape(sh) for p, sh in zip(parts, shapes)]
 
 
 def group_views(ids: Sequence[int], key: tuple, batch_views: int,

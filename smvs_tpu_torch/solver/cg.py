@@ -75,6 +75,7 @@ def solve_batch(
     q_tolerance: float = 1e-3,
     running: np.ndarray | None = None,
     view_dim: int = 1,
+    reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> CGBatchResult:
     """Solve a batch of views' systems A x = b from x0 = 0 (Fletcher-Reeves
     beta), the views on axis ``view_dim`` of ``b`` ([4, V, ny1, nx1] in
@@ -87,6 +88,12 @@ def solve_batch(
     quadratic value then stay where they were (``torch.where``, so that a
     stopped view's non-finite values cannot leak into the others). One
     [V] flag vector is read back per iteration.
+
+    ``reduce`` is applied to every [V] vector of dot products before it
+    is used: with a system split over ranks by rows (`dist.viewbatch`),
+    a SUM all-reduce over the ranks that share the views, so that each
+    of them holds every view's whole dot products, reads the same exit
+    flags and leaves the loop in the same iteration.
     """
     P = precond if precond is not None else (lambda v: v)
     V = b.shape[view_dim]
@@ -96,10 +103,12 @@ def solve_batch(
 
     def vdot(a, c):  # per view, as the view alone sums it
         if V == 1:
-            return _dot(a, c).reshape(1)
-        if a is c:  # one copy of each view's slice, not two
-            return per_view(lambda v: _dot(v, v), a, dim=view_dim)
-        return per_view(_dot, a, c, dim=view_dim)
+            out = _dot(a, c).reshape(1)
+        elif a is c:  # one copy of each view's slice, not two
+            out = per_view(lambda v: _dot(v, v), a, dim=view_dim)
+        else:
+            out = per_view(_dot, a, c, dim=view_dim)
+        return out if reduce is None else reduce(out)
 
     def keep(m, new, old):  # new where a view runs (m None: all), else old
         if m is None:

@@ -61,8 +61,8 @@ def stack_viewsets(views: list[ViewSet]) -> ViewSet:
                       for f in dataclasses.fields(ViewSet)})
 
 
-def viewset_at(view: ViewSet, i: int) -> ViewSet:
-    """View ``i`` of a batched ViewSet."""
+def viewset_at(view: ViewSet, i: int | slice) -> ViewSet:
+    """View ``i`` of a batched ViewSet (a batch of the views of a slice)."""
     return ViewSet(**{f.name: (None if getattr(view, f.name) is None
                                else getattr(view, f.name)[i])
                       for f in dataclasses.fields(ViewSet)})

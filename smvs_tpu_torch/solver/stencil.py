@@ -75,9 +75,16 @@ def scatter_patch_systems(
 def spmv(Hb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y = H @ x with H in stencil form; x, y: [4, ny1, nx1]
     (reference `BlockSparseMatrix::multiply`, :276-298)."""
-    ny1, nx1 = x.shape[-2:]
-    xp = _pad_yx(x, 1, 1, 1, 1)
-    y = torch.zeros_like(x)
+    return spmv_padded(Hb, _pad_yx(x, 1, 1, 1, 1))
+
+
+def spmv_padded(Hb: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
+    """`spmv` on x given with one row and one column more on each side
+    [4, ny1 + 2, nx1 + 2]: zeros at the grid's edges, or, for a band of
+    the grid's rows, the neighbor bands' edge rows (`dist.rows`)."""
+    ny1, nx1 = xp.shape[-2] - 2, xp.shape[-1] - 2
+    y = torch.zeros((*xp.shape[:-2], ny1, nx1), dtype=xp.dtype,
+                    device=xp.device)
     for oy in range(3):
         for ox in range(3):
             xs = xp[..., oy : oy + ny1, ox : ox + nx1]

@@ -20,6 +20,7 @@ from smvs_tpu.pipeline import optimizer as jO
 from smvs_tpu.pipeline import views as jviews
 from smvs_tpu.surface import state as jS
 from smvs_tpu_torch.core import synthetic as tsyn
+from smvs_tpu_torch.dist import launch
 from smvs_tpu_torch.geometry import correspondence as corr
 from smvs_tpu_torch.pipeline import batch as tB
 from smvs_tpu_torch.pipeline import optimizer as tO
@@ -28,6 +29,7 @@ from smvs_tpu_torch.shading import lighting as tL
 from smvs_tpu_torch.shading import sh
 from smvs_tpu_torch.solver import cg, gn, mg, stencil
 from smvs_tpu_torch.surface import state as S
+import torch_dist_ranks
 from torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_batch.py:43-46
@@ -376,7 +378,7 @@ def test_create_planar_matches_jax():
                                   np.asarray(want.node_valid))
 
 
-def test_bucket_key_grouping_and_mesh():
+def test_bucket_key_grouping_and_mesh(tmp_path):
     mains, subs, _, inits = _problem()
     assert tB.bucket_key(mains[0], subs[0]) == (96, 96, 1)
     # The JAX CLI's groups: at most batch_views views and 3.0 MP in all.
@@ -386,12 +388,19 @@ def test_bucket_key_grouping_and_mesh():
         [[0], [1], [2]]
     assert tB.group_views(list(range(3)), (640, 640, 3), 1, 3.0) == \
         [[0], [1], [2]]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, "
-                                                  "item 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tB.optimize_view_batch(mains, subs,
                                tO.OptimizerOptions(**OPTS),
                                init_depths=inits, mesh=object(),
                                device="cpu")
+    # A 'patch' axis above 1 needs the row-sharded multigrid (not ported):
+    # every rank of a (1, 2) mesh raises before any work.
+    outs = launch.spawn(torch_dist_ranks.batch_on_mesh, 2, backend="gloo",
+                        device="cpu", store_path=str(tmp_path / "store"),
+                        args=(2,), timeout=300)
+    for o in outs:
+        assert "ROADMAP.md queue 1, item 6" in o["raised"]
+        assert "row-sharded multigrid" in o["raised"]
     with pytest.raises(ValueError, match="buckets"):
         tB.optimize_view_batch(mains, [subs[0], subs[0] * 2],
                                tO.OptimizerOptions(**OPTS),

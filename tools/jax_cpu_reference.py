@@ -1,7 +1,7 @@
 """Reference results of the JAX package, on the CPU, for the limits that
 `chip_smoke.py` holds the PyTorch/CUDA port to.
 
-Nine configurations, each at a dimension the caller picks (the card
+Ten configurations, each at a dimension the caller picks (the card
 runs them at 1440, 1280 (the CLI ones) and 1440; a CPU run at that size
 holds many GB, so the reference is mostly taken at a smaller one and the
 script's output says which):
@@ -15,6 +15,7 @@ script's output says which):
     python tools/jax_cpu_reference.py mesh --dim 640
     python tools/jax_cpu_reference.py flagship --dim 1440
     python tools/jax_cpu_reference.py batch --dim 720
+    python tools/jax_cpu_reference.py step --dim 480
 
 `general`: `stereo.reconstruct` (the general-warp SGM, 128 planes, range
 (4.0, 8.5)) on the two-view scene of tests/test_sgm.py, with the plane's
@@ -62,6 +63,16 @@ card runs dim 1440, whose auto input scale of 1 gives working views of
 fused points per working pixel, the median fused error, and the CLI's
 `Views [...] done` lines (its groups, batched or sequential).
 
+`step`: the sharded Newton step of `smvs_tpu/dist/viewbatch.py`
+(`training_step_fn`) in float32 on `make_view_batch(4, dim, scale 2)`
+over the 8 virtual CPU devices, on the meshes (1, 1), (4, 1) and (8, 2):
+each mesh's largest distance from the single-device float32 step, the
+share of entries outside the JAX multihost worker's bar (rtol 2e-3, atol
+5e-5), and the single-device float32 step's distance from the float64
+one. With `--port`, the same for the port: its single-process step in
+float32 and float64, and its sharded step on (1, 2) and (2, 2) meshes of
+gloo ranks on the CPU (`smvs_tpu_torch.dist`).
+
 `--port` runs the PyTorch port's CLI (`--device cpu`) on the same scene
 instead, to tell a difference of the card from one of the size:
 
@@ -76,6 +87,11 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+if "step" in sys.argv[1:2] and "xla_force_host_platform_device_count" \
+        not in os.environ.get("XLA_FLAGS", ""):  # the 8-device CPU mesh
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                               "--xla_force_host_platform_device_count=8")
 
 import jax  # noqa: E402
 
@@ -245,10 +261,87 @@ def flagship(dim: int, port: bool = False) -> dict:
     return dict(zip(("t_sgm", "t_opt", "coverage", "median_rel_err"), out))
 
 
+STEP_ARGS = ("nodes", "node_valid", "patch_valid", "vis", "active", "view")
+STEP_RTOL, STEP_ATOL = 2e-3, 5e-5  # smvs_tpu/dist/multihost.py:96-101
+
+
+def _gaps(got: np.ndarray, want: np.ndarray) -> dict:
+    diff = np.abs(got - want)
+    return {"max_abs": float(diff.max()),
+            "outside_bar": float((diff > STEP_ATOL + STEP_RTOL
+                                  * np.abs(want)).mean())}
+
+
+def _port_step_rank(rank, world, dev, dim, patch):
+    import torch
+
+    from smvs_tpu_torch.dist import mesh as M
+    from smvs_tpu_torch.dist import testing, viewbatch
+    from smvs_tpu_torch.solver import gn
+
+    template, batch = testing.make_view_batch(4, dim=dim, scale=2, device=dev)
+    mesh = M.make_mesh(world, patch_axis=patch, device=dev)
+    shard = viewbatch.training_step_fn(template, gn.GNOptions(), mesh)(
+        *(batch[k] for k in STEP_ARGS))
+    return viewbatch.gather_nodes(shard, mesh)
+
+
+def step(dim: int, port: bool = False) -> dict:
+    out = {"scale": 2}
+    if port:
+        import torch
+
+        from smvs_tpu_torch.dist import launch, testing, viewbatch
+        from smvs_tpu_torch.solver import gn
+
+        torch.set_num_threads(1)
+        ref = {}
+        for dt in (torch.float32, torch.float64):
+            t, b = testing.make_view_batch(4, dim=dim, scale=2, dtype=dt,
+                                           device="cpu")
+            ref[dt] = viewbatch.batched_newton_step(t, gn.GNOptions())(
+                *(b[k] for k in STEP_ARGS)).numpy()
+        single, single64 = ref[torch.float32], ref[torch.float64]
+        for views, patch in ((1, 2), (2, 2)):
+            with tempfile.TemporaryDirectory() as d:
+                got = launch.spawn(_port_step_rank, views * patch,
+                                   backend="gloo", device="cpu",
+                                   store_path=os.path.join(d, "store"),
+                                   args=(dim, patch))[0].numpy()
+            out[f"mesh ({views}, {patch})"] = {
+                **_gaps(got, single), "vs_float64":
+                    float(np.abs(got - single64).max())}
+    else:
+        from smvs_tpu.dist import testing, viewbatch
+        from smvs_tpu.solver import gn
+
+        ref = {}
+        for dt in (jnp.float32, jnp.float64):
+            if dt == jnp.float64:
+                jax.config.update("jax_enable_x64", True)
+            t, b = testing.make_view_batch(4, dim=dim, scale=2, dtype=dt)
+            step_fn = jax.jit(viewbatch.batched_newton_step(
+                t, gn.GNOptions(chunk=32)))
+            ref[dt] = np.asarray(step_fn(*(b[k] for k in STEP_ARGS)))
+        jax.config.update("jax_enable_x64", False)
+        single, single64 = ref[jnp.float32], ref[jnp.float64]
+        t, b = testing.make_view_batch(4, dim=dim, scale=2)
+        for n, patch in ((1, 1), (4, 1), (8, 2)):
+            fn = viewbatch.training_step_fn(t, gn.GNOptions(chunk=32),
+                                            viewbatch.make_mesh(n, patch))
+            got = np.asarray(fn(*(b[k] for k in STEP_ARGS)))
+            out[f"mesh ({n // patch}, {patch})"] = {
+                **_gaps(got, single), "vs_float64":
+                    float(np.abs(got - single64).max())}
+    out["single_float32_vs_float64"] = float(np.abs(single - single64).max())
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config",
-                    choices=("general", "flagship", "batch", *RUNS))
+                    choices=("general", "flagship", "batch", "step",
+                             *RUNS))
     ap.add_argument("--dim", type=int, required=True)
     ap.add_argument("--port", action="store_true",
                     help="run the PyTorch port instead (every "
@@ -260,6 +353,8 @@ def main(argv=None) -> int:
         out = flagship(args.dim, port=args.port)
     elif args.config == "batch":
         out = batch(args.dim, port=args.port)
+    elif args.config == "step":
+        out = step(args.dim, port=args.port)
     else:
         out = cli(args.config, args.dim, port=args.port)
     print(json.dumps({"config": args.config, "dim": args.dim,
