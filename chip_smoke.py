@@ -112,15 +112,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
    optimize seconds, host read-backs and peak memory per rank; (c) the
    scaling harness (`dist.scaling.measure`) at 1 and 2 ranks on
    `make_view_batch(dim=116)`, ranks sharing the card. A rank that fails
-   or outlasts its timeout stops the others and fails the phase.
+   or outlasts its timeout stops the others and fails the phase;
+16. the row-split pipeline (`optimize_view_batch` over a mesh whose
+   'patch' axis splits each view's node rows: band assembly, band
+   multigrid, halo stencil products, summed dots), gloo ranks sharing the
+   card: (a) phase 5's 1440^2 view from its SGM depth (rows 1-2 launched
+   there), min_scale 2, over a (1, 2) mesh against the unsharded batch
+   in this process, under the JAX dry run's fixed Newton steps (6 a
+   loop; its bars: the same coverage mask, rtol 1.5e-3, atol 1e-6, fewer
+   than 10% of the pixels drifting by more than 2e-4) and under
+   run_once's options (the main path's bar: coverage >= 0.84, median
+   relative error <= 1e-4); (b) phase 14's four 720^2 views over a (2, 2)
+   mesh against phase 14's unsharded batch, under the CLI's options: per
+   view the coverage apart by < 0.5% of the pixels and the median error
+   on the analytic depth at most twice the unsharded map's; (c)
+   `dist.dryrun.dryrun_multichip` at 2 and 4 ranks (a 'patch' axis of
+   2). Every rank must hold the same bits of every depth map. Per mesh
+   and rank: optimize seconds, peak memory, host read-backs, and the
+   collectives (halo exchanges, all-reduces, all-gathers) per PCG
+   iteration.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after; the `launches` of each kernel row come from the path named in
 its `path` key (rows 4 and 5 have no user path), and rows 1 and 2 also
 list their launches on the flagship and the CLI with `-S`. It prints one
 `{"flagship": {...}}` line with the flagship's numbers, one `{"dist":
-{...}}` line with phase 15's, one `{"kernels": [...]}` line with the five TPU kernel rows, each naming the
-CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
+{...}}` line with phase 15's, one `{"split": {...}}` line with phase
+16's, the card's name and power limit again, one `{"kernels": [...]}`
+line with the five TPU kernel rows, each naming the CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
 `sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
 5), and `sgm_deep_kernel`, which serves every row beyond 512 depths,
 timed on `aggregate` at D = 2048, then as the last line
@@ -155,7 +174,9 @@ from smvs_tpu_torch import cli  # noqa: E402
 from smvs_tpu_torch.core import scene as sc  # noqa: E402
 from smvs_tpu_torch.core import synthetic as syn  # noqa: E402
 from smvs_tpu_torch.device import set_cuda_precision  # noqa: E402
-from smvs_tpu_torch.dist import launch, scaling, viewbatch  # noqa: E402
+from smvs_tpu_torch.dist import dryrun, launch, rows  # noqa: E402
+from smvs_tpu_torch.dist import scaling, viewbatch  # noqa: E402
+from smvs_tpu_torch.dist.dryrun import check_bars  # noqa: E402
 from smvs_tpu_torch.dist.mesh import make_mesh, row_band  # noqa: E402
 from smvs_tpu_torch.dist.mesh import view_share  # noqa: E402
 from smvs_tpu_torch.dist.testing import make_view_batch  # noqa: E402
@@ -264,6 +285,19 @@ DIST_MESHES = ((2, 1), (1, 2), (2, 2))
 DIST_RTOL, DIST_ATOL = 2e-3, 5e-5  # the JAX multihost worker's, at dim 116
 DIST_F64_RATIO = 2.0  # sharded vs single float32, each against float64
 DIST_TIMEOUT = 300.0
+# Phase 16: (a)'s fixed-step run takes the JAX dry run's six Newton steps
+# a loop; every spawn's time limit.
+SPLIT_FIXED_STEPS = 6
+SPLIT_TIMEOUT = 300.0
+# (b) runs the CLI's options, whose Newton and PCG exits and working sets
+# read sums that the row split adds band by band: a view then takes other
+# iteration counts and its map moves by a convergence epsilon (the JAX
+# package's own row-split batch drifts 81% of one view's pixels by more
+# than 2e-4 on four plane views at dim 96, `tools/jax_cpu_reference.py
+# pipeline --dim 96 --scene plane`). So (b) holds each view to phase 14's
+# coverage gap and to twice the unsharded map's median error on the
+# analytic depth.
+SPLIT_ERR_RATIO = 2.0
 STEP_ARGS = ("nodes", "node_valid", "patch_valid", "vis", "active", "view")
 
 DEEP = (129, 192, 256, 512, 513, 1024, 2048)
@@ -366,16 +400,19 @@ def compare(name: str, fn, plain, acc_in: bool, elem: int = 2) -> dict:
     return out
 
 
-def phase_card() -> dict:
+def phase_card() -> tuple:
+    """The device entry of the last line, and the card's name and power
+    limit as nvidia-smi reads them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     return {"platform": "gpu", "kind": name,
-            "count": torch.cuda.device_count()}
+            "count": torch.cuda.device_count()}, card
 
 
 def phase_build() -> None:
@@ -611,14 +648,17 @@ def phase_wide() -> dict:
     return {"shape": list(shape), "launches": launches, "max_abs_err": err}
 
 
-def phase_main() -> dict:
+def phase_main(details: dict) -> dict:
+    """The rectified main path; ``details`` receives its view, SGM depth
+    and options (`bench_main.run_once`'s) for phase 16."""
     dim = 1440
     t0 = time.perf_counter()
     bench_main.run_once(dim, 2, device="cuda")
     log(f"warm-up run_once({dim}, 2): {time.perf_counter() - t0:.1f} s")
     cuda_agg.reset_launches()
     t_sgm, t_opt, cov, err = bench_main.run_once(dim, 2, device="cuda",
-                                                 verbose=True)
+                                                 verbose=True,
+                                                 details=details)
     launches = dict(cuda_agg.launches)
     mps = dim * dim / 1e6 / (t_sgm + t_opt)
     log(f"run_once({dim}, 2): sgm {t_sgm:.3f} s, optimizer {t_opt:.3f} s, "
@@ -1499,14 +1539,195 @@ def phase_dist(captured: list) -> dict:
     return out
 
 
+def _split_rank(rank: int, world: int, dev: torch.device, path: str,
+                patch: int) -> dict:
+    """Phase 16 (a)/(b) on one rank: `optimize_view_batch` over a
+    (world // patch, patch) mesh on the saved problem under each saved
+    option set: the depth maps, and the rank's seconds, peak memory,
+    host read-backs, collectives and PCG iterations."""
+    data = torch.load(path, map_location=dev, weights_only=False)
+    mesh = VB.make_view_mesh(world, patch_axis=patch, device=dev)
+    out = {"share": list(view_share(len(data["mains"]), mesh))}
+    for name, opts in data["opts"].items():
+        host_reads.clear()
+        rows.collectives.clear()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = VB.optimize_view_batch(data["mains"], data["subs_list"], opts,
+                                     sgm_depths=data["sgm_depths"],
+                                     mesh=mesh, device=dev)
+        torch.cuda.synchronize(dev)
+        out[name] = _split_stats(time.perf_counter() - t0, dev)
+        out[name]["depths"] = [r.depth.cpu() for r in res]
+    return out
+
+
+def _split_stats(seconds: float, dev) -> dict:
+    """The optimize seconds, peak memory, read-backs and collectives of
+    the run just ended, with the collectives per PCG iteration."""
+    pcg = host_reads.get("cg", 0)
+    return {"seconds": seconds,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "host_reads": dict(host_reads),
+            "collectives": dict(rows.collectives),
+            "collectives_per_pcg_iteration":
+                sum(rows.collectives.values()) / max(pcg, 1)}
+
+
+def _split_spawn(root: str, name: str, problem: dict, world: int,
+                 patch: int) -> tuple:
+    """Save ``problem`` and run `_split_rank` on ``world`` ranks sharing
+    the card; every rank must hold the same bits of every depth map.
+    Returns (per-rank outputs, seconds of the spawn)."""
+    path = os.path.join(root, f"{name}.pt")
+    torch.save(problem, path)
+    t0 = time.perf_counter()
+    outs = launch.spawn(_split_rank, world, backend="gloo", device="cuda",
+                        store_path=os.path.join(root, f"store_{name}"),
+                        args=(path, patch), timeout=SPLIT_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    for key in problem["opts"]:
+        for r, o in enumerate(outs[1:], 1):
+            for i, (a, b) in enumerate(zip(o[key]["depths"],
+                                           outs[0][key]["depths"])):
+                if not _same_bits(a, b):
+                    raise RuntimeError(f"split {name} {key}: rank {r} holds "
+                                       f"another depth map of view {i}")
+    return outs, seconds
+
+
+def _per_rank(outs: list, key: str) -> list:
+    return [{k: v for k, v in o[key].items() if k != "depths"}
+            for o in outs]
+
+
+def phase_split_main(root: str, details: dict) -> dict:
+    """Phase 16(a): the main path's 1440^2 view over a (1, 2) mesh."""
+    opts = {"fixed": dataclasses.replace(
+                details["opts"], max_newton_steps=SPLIT_FIXED_STEPS,
+                fixed_newton_steps=True),
+            "defaults": details["opts"]}
+    main, subs = _fresh(details["main"]), [_fresh(v) for v in
+                                           details["subs"]]
+    problem = {"mains": [main], "subs_list": [subs],
+               "sgm_depths": [details["sgm_depth"]], "opts": opts}
+    unsharded = {}
+    for key, o in opts.items():
+        host_reads.clear()
+        rows.collectives.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = VB.optimize_view_batch([main], [subs], o,
+                                     sgm_depths=[details["sgm_depth"]],
+                                     device="cuda")
+        torch.cuda.synchronize()
+        unsharded[key] = _split_stats(time.perf_counter() - t0, None)
+        unsharded[key]["depth"] = res[0].depth.cpu().numpy()
+    outs, seconds = _split_spawn(root, "main", problem, 2, 2)
+    gt = details["gt"]
+    out = {"mesh": [1, 2], "spawn_seconds": seconds}
+    for key in opts:
+        got = outs[0][key]["depths"][0].numpy()
+        want = unsharded[key].pop("depth")
+        both = (got > 0) & (want > 0)
+        rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-6)
+        cov = float((got > 0).mean())
+        err = float(np.median(np.abs(got[got > 0] - gt[got > 0])
+                              / gt[got > 0]))
+        out[key] = {"ranks": _per_rank(outs, key),
+                    "unsharded": unsharded[key],
+                    "coverage": cov, "median_rel_err": err,
+                    "coverage_unsharded": float((want > 0).mean()),
+                    "mask_flips": float(((got > 0) != (want > 0)).mean()),
+                    "drift_share": float((rel[both] > 2e-4).mean()),
+                    "max_rel_drift": float(rel[both].max())}
+        log(f"  split (a) {key}: {out[key]}")
+        if key == "fixed":
+            out[key]["bars"] = check_bars(got, want, "split (a) fixed steps")
+        elif not (cov >= 0.84 and err <= 1e-4):
+            raise RuntimeError(f"split (a) defaults: coverage {cov:.4f}, "
+                               f"median_rel_err {err:.3e}; the main path's "
+                               "bar is 0.84 and 1e-4")
+    return out
+
+
+def _median_err(depth: np.ndarray, gt: np.ndarray) -> float:
+    """Median relative error of a depth map's covered pixels within the
+    analytic depth's extent (the working view's; the canvas pads it)."""
+    d = depth[:gt.shape[0], :gt.shape[1]]
+    m = d > 0
+    return float(np.median(np.abs(d[m] - gt[m]) / gt[m]))
+
+
+def phase_split_batch(root: str, captured: list) -> dict:
+    """Phase 16(b): phase 14's four 720^2 views over a (2, 2) mesh."""
+    group = next(g for g in captured
+                 if [m.view_id for m in g["mains"]] == [0, 2, 4, 6])
+    problem = {k: group[k] for k in ("mains", "subs_list", "sgm_depths")}
+    problem["opts"] = {"defaults": group["opts"]}
+    outs, seconds = _split_spawn(root, "batch", problem, 4, 2)
+    # The analytic depths of the working views (input scale 1).
+    gts = syn.make_dtu_scene(BATCH_VIEWS, [(BATCH_DIMS[i % 2] + 1) // 2
+                                           for i in range(BATCH_VIEWS)]
+                             ).depths
+    per_view = {}
+    for i, (got, want) in enumerate(zip(outs[0]["defaults"]["depths"],
+                                        group["results"])):
+        a, b = got.numpy(), want["tensors"][0].numpy()
+        gt = gts[group["mains"][i].view_id]
+        both = (a > 0) & (b > 0)
+        drift = np.abs(a[both] - b[both]) / np.abs(b[both])
+        per_view[i] = {"coverage_gap": float(((a > 0) != (b > 0)).mean()),
+                       "drift_share": float((drift > BATCH_DRIFT).mean()),
+                       "max_rel_drift": float(drift.max()),
+                       "median_rel_err": _median_err(a, gt),
+                       "median_rel_err_unsharded": _median_err(b, gt)}
+    out = {"mesh": [2, 2], "views": [m.view_id for m in group["mains"]],
+           "dims": list(group["mains"][0].image.shape),
+           "spawn_seconds": seconds, "per_view": per_view,
+           "ranks": _per_rank(outs, "defaults"),
+           "shares": [o["share"] for o in outs]}
+    log(f"  split (b): {out}")
+    for i, v in per_view.items():
+        if not (v["coverage_gap"] < BATCH_MAX_COVERAGE_GAP
+                and v["median_rel_err"] <= SPLIT_ERR_RATIO
+                * v["median_rel_err_unsharded"]):
+            raise RuntimeError(f"split (b) view {i}: apart from the "
+                               f"unsharded batch: {v}")
+    return out
+
+
+def phase_split(details: dict, captured: list) -> dict:
+    """Phase 16, the row-split pipeline, on gloo ranks sharing this card."""
+    t0 = time.perf_counter()
+    cuda_agg.reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        out = {"main": phase_split_main(root, details),
+               "batch": phase_split_batch(root, captured)}
+    out["dryrun"] = {}
+    for n in (2, 4):
+        t1 = time.perf_counter()
+        dryrun.dryrun_multichip(n, device="cuda")
+        out["dryrun"][n] = {"mesh": [n // dryrun.patch_axis(n),
+                                     dryrun.patch_axis(n)],
+                            "seconds": time.perf_counter() - t1}
+    out["launches_in_this_process"] = dict(cuda_agg.launches)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"split phase: {out['seconds']:.1f} s; dry runs {out['dryrun']}")
+    return out
+
+
 def main() -> int:
     set_cuda_precision()
-    device = phase_card()
+    device, card = phase_card()
     phase_build()
     rows = phase_kernel_rectified()
     rows.update(phase_kernel_general())
     rows["fused_pass"]["wide_problem"] = phase_wide()
-    main_launches = phase_main()
+    main_details = {}
+    main_launches = phase_main(main_details)
     phase_general()
     phase_cli("cli", None, CLI_MIN_POINT_SHARE, CLI_MAX_ERR,
               ("fused_pass", "fused_pass_batch"))
@@ -1523,7 +1744,8 @@ def main() -> int:
     captured = []
     batch_cli = phase_cli_batch(captured)
     dist = phase_dist(captured)
-    del captured
+    split = phase_split(main_details, captured)
+    del captured, main_details
     main_path = "bench_main.run_once(1440, 2): rectified SGM"
     path_launches = {  # (path, launches on it)
         "fused_pass": (main_path, main_launches["fused_pass"]),
@@ -1583,6 +1805,8 @@ def main() -> int:
     print(json.dumps({"cli_color": color_cli, "cli_mesh": mesh_cli,
                       "cli_batch": batch_cli}), flush=True)
     print(json.dumps({"dist": dist}, default=str), flush=True)
+    print(json.dumps({"split": split}, default=str), flush=True)
+    print(card, flush=True)  # beside the numbers of the lines around it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -45,12 +45,15 @@ SPANS = ("run_once.sgm", "run_once.optimizer")
 
 def run_once(dim: int, min_scale: int,
              device: str | torch.device | None = None, verbose: bool = False,
-             sync_stages: bool = False):
+             sync_stages: bool = False, details: dict | None = None):
     """One reconstruction -> (t_sgm, t_opt, coverage, median_rel_err).
 
     ``verbose`` logs the optimizer's progress and stage times to stderr;
     ``sync_stages`` makes those stage times exact by synchronizing the
-    device at each stage boundary (which costs the overlap).
+    device at each stage boundary (which costs the overlap); ``details``
+    (a dict), if given, receives the views ("main", "subs"), the SGM
+    depth ("sgm_depth"), the optimizer's options ("opts"), its
+    `DepthResult` ("result") and the analytic depth ("gt").
     """
     dev = resolve_device(device)
     log = (lambda m: print(m, file=sys.stderr, flush=True)) if verbose \
@@ -83,6 +86,9 @@ def run_once(dim: int, min_scale: int,
                                  device=dev, log=log)
         synchronize(dev)
     t_opt = time.perf_counter() - t0
+    if details is not None:
+        details.update(main=main_v, subs=[sub_v], sgm_depth=sgm_depth,
+                       opts=opts, result=result, gt=scene.depths[1])
 
     depth = result.depth.cpu().numpy()
     mask = depth > 0

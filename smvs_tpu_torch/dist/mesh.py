@@ -23,6 +23,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from smvs_tpu_torch.device import resolve_device
 
 MESH_DIMS = ("views", "patch")
+GATHER_ROWS = 8  # least rows of a rank's band of a coarse multigrid level
 
 
 def make_mesh(n_devices: int | None = None, patch_axis: int = 1,
@@ -77,3 +78,11 @@ def row_band(ny1: int, mesh: DeviceMesh) -> range:
         raise ValueError(f"{ny1} node rows cannot be split over {n} ranks "
                          "of the 'patch' axis: a band would be empty")
     return split(ny1, n, mesh.get_local_rank("patch"))
+
+
+def coarse_band(band: range) -> range:
+    """The next-coarser multigrid level's rows of a rank that holds the
+    rows ``band`` of a level: the coarse rows I with 2I in ``band``
+    (`solver.mg.coarse_size` keeps every even-index node). May be empty
+    (a band of one odd row)."""
+    return range((band.start + 1) // 2, (band.stop + 1) // 2)

@@ -8,6 +8,11 @@ halo exchanges and the CG's dot products `psum`s
 rows (`mesh.row_band`) of a ``patch`` group's grid, and these functions
 take that group.
 
+`RowSplit` carries a grid's split (every rank's band) with these
+operations, for the Newton step's layout (`viewbatch.RowBands`) and the
+multigrid hierarchy (`solver.mg.build`'s ``split``), whose every level
+is split as `mesh.coarse_band` derives it from the finer one.
+
 gloo's point-to-point send and receive take host tensors only, so where
 the band lies on a card and the group runs gloo (ranks that share one
 card) the halo rows pass through host memory (`_exchange_rows`); its
@@ -16,10 +21,18 @@ collectives take CUDA tensors as they are.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 import torch.distributed as dist
 
+from smvs_tpu_torch.dist.mesh import GATHER_ROWS, coarse_band, split
 from smvs_tpu_torch.solver import stencil
+
+# Collectives this process issued, by kind ("halo": one exchange with the
+# band's neighbors; "all_reduce"; "all_gather"), for the counts per PCG
+# iteration that `chip_smoke.py` reports.
+collectives = Counter()
 
 
 def _staged(x: torch.Tensor, group) -> bool:
@@ -37,7 +50,9 @@ def _exchange_rows(sends: list, group) -> list:
     staged = _staged(sends[0][0], group)
     ops, recvs = [], []
     for row, peer in sends:
-        out = row.cpu() if staged else row.contiguous()
+        out = row.contiguous()  # gloo sends contiguous tensors only
+        if staged:
+            out = out.cpu()
         buf = torch.empty_like(out)
         ops.append(dist.P2POp(dist.isend, out, peer, group))
         ops.append(dist.P2POp(dist.irecv, buf, peer, group))
@@ -56,6 +71,7 @@ def exchange_halo(x: torch.Tensor, band: range, group) -> torch.Tensor:
     if x.shape[-2] != len(band):
         raise ValueError(f"a band of {len(band)} rows, x has {x.shape[-2]}")
     idx, n = dist.get_rank(group), dist.get_world_size(group)
+    collectives["halo"] += 1
     sends, where = [], []
     if idx > 0:
         sends.append((x[..., :1, :], dist.get_global_rank(group, idx - 1)))
@@ -83,4 +99,71 @@ def sum_over(v: torch.Tensor, group) -> torch.Tensor:
     over ``group``; every rank gets the same bits."""
     out = v.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    collectives["all_reduce"] += 1
     return out
+
+
+def gather_rows(x: torch.Tensor, bands: list, group) -> torch.Tensor:
+    """The whole grid [..., n, nx] on every rank of ``group``, from each
+    rank's rows ``x`` [..., len(band), nx]; ``bands`` lists every rank's
+    band in the group's rank order (a band may be empty)."""
+    if x.dtype == torch.bool:  # gloo gathers bytes
+        return gather_rows(x.to(torch.uint8), bands, group).to(torch.bool)
+    width = max(len(b) for b in bands)
+    pad = x.new_zeros((*x.shape[:-2], width, x.shape[-1]))
+    pad[..., :x.shape[-2], :] = x
+    parts = [torch.empty_like(pad) for _ in bands]
+    dist.all_gather(parts, pad, group=group)
+    collectives["all_gather"] += 1
+    return torch.cat([p[..., :len(b), :] for p, b in zip(parts, bands)],
+                     dim=-2)
+
+
+class RowSplit:
+    """A grid's rows split over the ranks of a ``patch`` group: every
+    rank's band (``bands``, in the group's rank order, covering the grid's
+    ``n`` rows), this rank's (``band``), and the band operations above on
+    them."""
+
+    def __init__(self, bands: list, group):
+        self.bands = list(bands)
+        self.group = group
+        self.band = self.bands[dist.get_rank(group)]
+        self.n = self.bands[-1].stop
+
+    @classmethod
+    def of(cls, n: int, group) -> RowSplit:
+        """A grid of ``n`` rows split as `mesh.row_band` splits it."""
+        parts = dist.get_world_size(group)
+        if parts > n:
+            raise ValueError(f"{n} node rows cannot be split over {parts} "
+                             "ranks of the 'patch' axis: a band would be "
+                             "empty")
+        return cls([split(n, parts, i) for i in range(parts)], group)
+
+    def coarse(self) -> RowSplit:
+        """The next-coarser multigrid level's split."""
+        return RowSplit([coarse_band(b) for b in self.bands], self.group)
+
+    @property
+    def banded(self) -> bool:
+        """Whether a coarse level stays split: every rank holds at least
+        `mesh.GATHER_ROWS` rows of it (one that does not is gathered whole
+        onto every rank)."""
+        return all(len(b) >= GATHER_ROWS for b in self.bands)
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole grid [..., n, nx]."""
+        return t[..., self.band.start:self.band.stop, :]
+
+    def halo(self, x: torch.Tensor) -> torch.Tensor:
+        return exchange_halo(x, self.band, self.group)
+
+    def spmv(self, Hb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return spmv(Hb, x, self.band, self.group)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return gather_rows(x, self.bands, self.group)
+
+    def sum(self, v: torch.Tensor) -> torch.Tensor:
+        return sum_over(v, self.group)

@@ -21,6 +21,12 @@ JAX step; here they are written out:
 
 With a ``patch`` axis of 1 the step is `batched_newton_step` on the
 rank's views, bit-equal to the single-process step.
+
+`RowBands` is the same split for the optimizer's own Newton step
+(`optimizer._newton_step_batch`'s layout, under `optimize_view_batch` on
+a mesh with a ``patch`` axis above 1): the band's assembly, the band
+multigrid (`solver.mg.build`'s ``split``), the halo stencil product and
+the sums over the group, and the solution's bands gathered whole.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from smvs_tpu_torch.dist import rows
 from smvs_tpu_torch.dist.mesh import row_band, split, view_share
-from smvs_tpu_torch.solver import cg, gn, stencil
+from smvs_tpu_torch.solver import cg, gn, mg, stencil
 from smvs_tpu_torch.surface.state import Surface
 from smvs_tpu_torch.utils.perview import per_view
 
@@ -70,7 +76,8 @@ def batched_newton_step(template: Surface, gn_opts: gn.GNOptions,
 
 
 def assemble_band(template: Surface, nodes, node_valid, patch_valid, vis,
-                  active, view: gn.ViewSet, band: range, gn_opts):
+                  active, view: gn.ViewSet, band: range, gn_opts,
+                  lighting: torch.Tensor | None = None):
     """Rows ``band`` = [r0, r1) of the batch's stencil system (g [4, V,
     r1 - r0, nx1], Hb [3, 3, 4, 4, V, r1 - r0, nx1]) from the whole
     grid's inputs, assembling only the patch rows [r0 - 1, r1) that touch
@@ -92,27 +99,66 @@ def assemble_band(template: Surface, nodes, node_valid, patch_valid, vis,
         patch_valid=patch_valid[:, p0:p1],
         start_y=template.start_y + p0 * template.patchsize)
     g, Hb = gn.assemble(surf, view, vis[:, p0:p1], active[:, p0:p1 + 1],
-                        gn_opts)
+                        gn_opts, lighting)
     lo, hi = r0 - p0, r1 - p0
     return (g[..., lo:hi, :].contiguous(),
             Hb[..., lo:hi, :].contiguous())
 
 
+class RowBands:
+    """The layout of `optimizer.WholeGrid` with each view's node rows split
+    over the ranks of a ``patch`` group (`for_rows` binds it to a grid's
+    `rows.RowSplit`)."""
+
+    def __init__(self, group, split: rows.RowSplit | None = None):
+        self.group = group
+        self.split = split
+
+    def for_rows(self, ny1: int) -> RowBands:
+        return RowBands(self.group, rows.RowSplit.of(ny1, self.group))
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        return self.split.rows(t)
+
+    def assemble(self, s: Surface, view: gn.ViewSet, vis, act, gn_opts,
+                 lighting):
+        return assemble_band(s, s.nodes, s.node_valid, s.patch_valid, vis,
+                             act, view, self.split.band, gn_opts, lighting)
+
+    def grad_norm(self, g: torch.Tensor) -> torch.Tensor:
+        sq = per_view(lambda x: cg._dot(x, x), g, dim=1)
+        return torch.sqrt(self.split.sum(sq))
+
+    def spmv(self, Hb: torch.Tensor):
+        return lambda x: self.split.spmv(Hb, x)
+
+    def build_mg(self, Hb: torch.Tensor, act: torch.Tensor,
+                 damp_rows: bool) -> mg.Levels:
+        return mg.build(Hb, act, damp_rows=damp_rows, split=self.split)
+
+    @property
+    def reduce(self):
+        return self.split.sum
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return self.split.gather(x)
+
+
 def _band_step(template, gn_opts, nodes, node_valid, patch_valid, vis,
-               active, view, band: range, group):
+               active, view, group):
+    surf = dataclasses.replace(template, nodes=nodes, node_valid=node_valid,
+                               patch_valid=patch_valid)
+    lay = RowBands(group).for_rows(nodes.shape[1])
     act = active & node_valid
-    g, Hb = assemble_band(template, nodes, node_valid, patch_valid, vis, act,
-                          view, band, gn_opts)
-    r0, r1 = band.start, band.stop
-    Pinv = stencil.block_jacobi_inverse(Hb, act[:, r0:r1])
-    sq = per_view(lambda x: cg._dot(x, x), g, dim=1)
-    gnorm = torch.sqrt(rows.sum_over(sq, group))
+    g, Hb = lay.assemble(surf, view, vis, act, gn_opts, None)
+    Pinv = stencil.block_jacobi_inverse(Hb, lay.rows(act))
     res = cg.solve_batch(
-        lambda x: rows.spmv(Hb, x, band, group), -g,
-        precond=lambda x: stencil.apply_block_diag(Pinv, x),
-        max_iterations=200, error_tolerance=gnorm * 0.01, q_tolerance=1e-3,
-        reduce=lambda v: rows.sum_over(v, group))
-    return _update(nodes[:, r0:r1], node_valid[:, r0:r1], res.x)
+        lay.spmv(Hb), -g, precond=lambda x: stencil.apply_block_diag(Pinv, x),
+        max_iterations=200, error_tolerance=lay.grad_norm(g) * 0.01,
+        q_tolerance=1e-3, reduce=lay.reduce)
+    band = lay.split.band
+    return _update(nodes[:, band.start:band.stop],
+                   node_valid[:, band.start:band.stop], res.x)
 
 
 def training_step_fn(template: Surface, gn_opts: gn.GNOptions,
@@ -135,7 +181,7 @@ def training_step_fn(template: Surface, gn_opts: gn.GNOptions,
             return nodes[sl, band.start:band.stop]
         if mesh.size(1) == 1:
             return local(*args)
-        return _band_step(template, gn_opts, *args, band, group)
+        return _band_step(template, gn_opts, *args, group)
 
     return step
 

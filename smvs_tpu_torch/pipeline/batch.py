@@ -15,13 +15,25 @@ that every view of a batch shares every shape. The JAX module's
 the background; eager PyTorch compiles nothing, and the CUDA kernels are
 built at their first use).
 
-Over a ('views', 'patch') mesh of ranks (`make_view_mesh`) each rank
-optimizes its share of the views (`dist.mesh.view_share`) and then
-receives every other view's result from the rank that computed it. A
-view's result does not depend on the views batched with it, so the
-results are the unsharded batch's bit for bit. Splitting each view's
-node rows over a ``patch`` axis needs the multigrid preconditioner split
-by rows, which is not ported (ROADMAP.md queue 1, item 6).
+Over a ('views', 'patch') mesh of ranks (`make_view_mesh`) each
+``views`` row optimizes its share of the views (`dist.mesh.view_share`)
+and then receives every other view's result from the first rank of the
+row that computed it. A view's result does not depend on the views
+batched with it, so with a ``patch`` axis of 1 the results are the
+unsharded batch's bit for bit.
+
+With a ``patch`` axis above 1 the ranks of a row split each view's node
+rows (`dist.mesh.row_band`) in the Newton step's linear system
+(`dist.viewbatch.RowBands`): each assembles, preconditions (the band
+multigrid) and solves its band, with one row of halo from its
+neighbors and the PCG's sums over the row, and the solution's bands are
+gathered whole after the solve. Everything else (the surface, the
+visibility and its z-buffer, the boundary cuts and cleanup, subdivision,
+the lighting fit, the extraction and every exit test) runs on the whole
+grid, the same on every rank of the row, as XLA runs a scatter it cannot
+partition. The PCG's sums then add band by band, so the results are not
+the unsharded batch's bit for bit (`dist.dryrun` holds them to the JAX
+dry run's bars).
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import torch.distributed as dist
 from smvs_tpu_torch.device import resolve_device
 from smvs_tpu_torch.dist.mesh import make_mesh as make_view_mesh  # noqa: F401
 from smvs_tpu_torch.dist.mesh import check_mesh, split, view_share
+from smvs_tpu_torch.dist.viewbatch import RowBands
 from smvs_tpu_torch.image import bilateral
 from smvs_tpu_torch.pipeline import optimizer as O
 from smvs_tpu_torch.pipeline.views import StereoViewState
@@ -68,30 +81,38 @@ def optimize_view_batch(
     coarser, as `optimize_view` does. Runs on ``device`` (the GPU unless
     ``"cpu"`` is passed), where the views must live.
 
-    With ``mesh`` (`make_view_mesh`, a 'patch' axis of 1) every rank
-    passes every view and gets every view's result: it optimizes its
-    share of them and receives the others from their ranks.
+    With ``mesh`` (`make_view_mesh`) every rank passes every view and
+    gets every view's result: its ``views`` row optimizes a share of them,
+    with each view's node rows split over the row's ranks when the
+    ``patch`` axis is above 1, and it receives the others from their
+    rows. A view whose grid at its first (coarsest) scale has fewer node
+    rows than the ``patch`` axis raises `ValueError`.
     """
     V = len(mains)
     if len(subs_list) != V or V == 0:
         raise ValueError("one list of neighbors per main view")
-    if mesh is not None:
-        check_mesh(mesh)
-        if mesh.size(1) > 1:
-            raise NotImplementedError(
-                "not ported yet: a view batch with its node rows split over "
-                f"a 'patch' axis of {mesh.size(1)} needs the row-sharded "
-                "multigrid: ROADMAP.md queue 1, item 6")
-        share = view_share(V, mesh)
-        sl = slice(share.start, share.stop)
-        mine = [] if not share else optimize_view_batch(
-            mains[sl], subs_list[sl], opts,
-            None if sgm_depths is None else sgm_depths[sl],
-            None if init_depths is None else init_depths[sl],
-            log=log, device=device)
-        return _share_results(mine, V, (mains[0].height,
-                                        mains[0].width), mesh,
-                              resolve_device(device))
+    if mesh is None:
+        return _optimize_batch(mains, subs_list, opts, sgm_depths,
+                               init_depths, log, device, O.WHOLE_GRID)
+    check_mesh(mesh)
+    share = view_share(V, mesh)
+    sl = slice(share.start, share.stop)
+    layout = O.WHOLE_GRID if mesh.size(1) == 1 else \
+        RowBands(mesh.get_group("patch"))
+    mine = [] if not share else _optimize_batch(
+        mains[sl], subs_list[sl], opts,
+        None if sgm_depths is None else sgm_depths[sl],
+        None if init_depths is None else init_depths[sl], log, device,
+        layout)
+    return _share_results(mine, V, (mains[0].height, mains[0].width), mesh,
+                          resolve_device(device))
+
+
+def _optimize_batch(mains, subs_list, opts, sgm_depths, init_depths, log,
+                    device, layout) -> list[O.DepthResult]:
+    """`optimize_view_batch` on one rank, or one ``views`` row of ranks,
+    its Newton systems solved in ``layout``."""
+    V = len(mains)
     keys = {bucket_key(m, s) for m, s in zip(mains, subs_list)}
     if len(keys) != 1:
         raise ValueError(f"views of several buckets in one batch: {keys}")
@@ -120,6 +141,7 @@ def optimize_view_batch(
             surfs.append(S.create_from_depth(src, scale0 + 1))
         fill_srcs.append(src)
     bsurf = S.stack_surfaces(surfs)
+    layout.for_rows(bsurf.nodes.shape[1])  # a grid too small raises here
     bfill = torch.stack(fill_srcs)
     inv_flens = [1.0 / m.flen() for m in mains]
     timer = StageTimer(sync_device=dev if opts.debug_lvl >= 2 else None)
@@ -153,7 +175,8 @@ def optimize_view_batch(
                                         shading)
         return O.run_newton_iterations_batch(
             bsurf, list(mains), gn.stack_viewsets(views), opts, sgm_zbs,
-            log=log, timer=timer, lighting=lighting, ncc_images=ncc_images)
+            log=log, timer=timer, lighting=lighting, ncc_images=ncc_images,
+            layout=layout)
 
     bsurf = run_scale(bsurf)
     while bsurf.scale > opts.min_scale and bsurf.scale > 0:
@@ -175,9 +198,9 @@ def optimize_view_batch(
 
 def _share_results(mine: list, V: int, hw: tuple, mesh,
                    dev: torch.device) -> list[O.DepthResult]:
-    """Every view's DepthResult on every rank of a ('views', 1) mesh, each
-    broadcast from the rank whose share (``mine``) holds it; ``hw`` is
-    the views' (height, width)."""
+    """Every view's DepthResult on every rank of a ('views', 'patch')
+    mesh, each broadcast from the first rank of the ``views`` row whose
+    share (``mine``) holds it; ``hw`` is the views' (height, width)."""
     owners = [row[0] for row in mesh.mesh.tolist()]
     # The grid of the last scale as the first rank has it (its share is
     # never empty); every view of a batch ends on it.

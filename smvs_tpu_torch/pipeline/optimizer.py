@@ -624,6 +624,52 @@ def run_newton_iterations(surf: S.Surface, main: StereoViewState,
 # arrays, and a view that is done keeps its nodes whatever the batch
 # computes afterwards. Boundary cuts, expansion, visibility and cleanup
 # run view by view (`S.over_views`), each as it runs alone.
+#
+# The step's linear system follows a layout: `WholeGrid` (every view's
+# whole node grid, the default) or `dist.viewbatch.RowBands` (each view's
+# node rows split over the ranks of a 'patch' group). The surface, the
+# visibility and everything after the solve stay whole on every rank;
+# the layout gives the band's assembly, preconditioner, stencil product
+# and sums, and puts the solution's bands together, so every rank takes
+# the same exits.
+
+
+class WholeGrid:
+    """The Newton step's system on each view's whole node grid."""
+
+    def for_rows(self, ny1: int) -> WholeGrid:
+        """The layout of a grid of ``ny1`` node rows."""
+        return self
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The rows of a whole-grid tensor [..., ny1, nx1] the system
+        holds."""
+        return t
+
+    def assemble(self, s: S.Surface, view: gn.ViewSet, vis, act, gn_opts,
+                 lighting):
+        return gn.assemble(s, view, vis, act, gn_opts, lighting)
+
+    def grad_norm(self, g: torch.Tensor) -> torch.Tensor:
+        """Each view's ||g|| [V]."""
+        return per_view(lambda x: torch.linalg.vector_norm(x.reshape(-1)),
+                        g, dim=1)
+
+    def spmv(self, Hb: torch.Tensor):
+        return lambda x: stencil.spmv(Hb, x)
+
+    def build_mg(self, Hb: torch.Tensor, act: torch.Tensor,
+                 damp_rows: bool) -> mg.Levels:
+        return mg.build(Hb, act, damp_rows=damp_rows)
+
+    reduce = None  # `cg.solve_batch`'s ``reduce``
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole grid of a vector [4, V, rows, nx1]."""
+        return x
+
+
+WHOLE_GRID = WholeGrid()
 
 
 @dataclasses.dataclass
@@ -640,30 +686,33 @@ class _BatchStepResult:
 def _newton_step_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
                        active: torch.Tensor, opts: OptimizerOptions,
                        lighting: torch.Tensor | None,
-                       running: np.ndarray) -> _BatchStepResult:
+                       running: np.ndarray,
+                       layout: WholeGrid = WHOLE_GRID) -> _BatchStepResult:
     """`_newton_step` for a batch of views (surface, view, vis [V, ny, nx,
     N], active [V, ny1, nx1], lighting [V, 16]); only the ``running``
-    views take part in the PCG. One [V, 4] read-back."""
+    views take part in the PCG. The system is solved in ``layout``; the
+    rest of the step runs on the whole grids. One [V, 4] read-back."""
     s = surf
+    lay = layout.for_rows(s.nodes.shape[1])
     act = active & s.node_valid
     gn_opts = gn.GNOptions(
         regularization=opts.regularization,
         light_surf_regularization=opts.light_surf_regularization)
-    g, Hb = gn.assemble(s, view, vis, act, gn_opts, lighting)
+    g, Hb = lay.assemble(s, view, vis, act, gn_opts, lighting)
     if opts.precond == "mg":
-        levels = mg.build(Hb, act, damp_rows=lighting is None)
+        levels = lay.build_mg(Hb, lay.rows(act), lighting is None)
         precond = lambda x: mg.apply(levels, x)  # noqa: E731
     elif opts.precond == "jacobi":
-        P = stencil.block_jacobi_inverse(Hb, act)
+        P = stencil.block_jacobi_inverse(Hb, lay.rows(act))
         precond = lambda x: stencil.apply_block_diag(P, x)  # noqa: E731
     else:
         raise ValueError(f"precond is 'mg' or 'jacobi', not {opts.precond!r}")
-    gnorm = per_view(lambda x: torch.linalg.vector_norm(x.reshape(-1)), g,
-                     dim=1)  # [V]
-    res = cg.solve_batch(lambda x: stencil.spmv(Hb, x), -g, precond=precond,
-                         max_iterations=200, error_tolerance=gnorm * 0.01,
-                         q_tolerance=1e-3, running=running)
-    delta = torch.movedim(res.x, 0, -1)  # [V, ny1, nx1, 4]
+    res = cg.solve_batch(lay.spmv(Hb), -g, precond=precond,
+                         max_iterations=200,
+                         error_tolerance=lay.grad_norm(g) * 0.01,
+                         q_tolerance=1e-3, running=running,
+                         reduce=lay.reduce)
+    delta = torch.movedim(lay.gather(res.x), 0, -1)  # [V, ny1, nx1, 4]
     bad = ~torch.isfinite(delta).flatten(1).all(1)
     delta = torch.where(bad[:, None, None, None], 0.0, delta)
 
@@ -687,7 +736,8 @@ def _newton_step_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
 
 def _newton_loop_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
                        active: torch.Tensor, opts: OptimizerOptions,
-                       lighting, alive: np.ndarray):
+                       lighting, alive: np.ndarray,
+                       layout: WholeGrid = WHOLE_GRID):
     """`_newton_loop` for a batch of views: each ``alive`` view runs its
     own loop, with its own exits, in one batched step per iteration;
     the others keep their nodes and take no step. Returns (nodes, active,
@@ -715,7 +765,7 @@ def _newton_loop_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
             break
         run = ~done
         st = _newton_step_batch(dataclasses.replace(surf, nodes=nodes), view,
-                                vis, active_, opts, lighting, run)
+                                vis, active_, opts, lighting, run, layout)
         converged = st.rel_step < _F32(1e-4)
         improved = (st.n_active < best_act) | (st.avg < _F32(0.9) * best_avg)
         stall = np.where(run, np.where(improved, 0, stall + 1), stall)
@@ -739,7 +789,8 @@ def _newton_loop_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
 
 def scale_program_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
                         inv_cals: list, opts: OptimizerOptions, lighting,
-                        ncc_images: list | None = None):
+                        ncc_images: list | None = None,
+                        layout: WholeGrid = WHOLE_GRID):
     """`scale_program` for a batch of views (``inv_cals`` and
     ``ncc_images`` one per view): each view leaves the outer loop at its
     own patch-count test, after which it keeps its surface. Returns
@@ -750,7 +801,7 @@ def scale_program_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
     alive = np.ones(V, bool)
     for _ in range(opts.num_iterations):
         nodes, _, steps, cg_total = _newton_loop_batch(
-            surf, view, vis, surf.node_valid, opts, lighting, alive)
+            surf, view, vis, surf.node_valid, opts, lighting, alive, layout)
         surf = dataclasses.replace(surf, nodes=nodes)
         surfs = [S.unstack_surface(surf, i) for i in range(V)]
         viss = list(vis)
@@ -779,9 +830,12 @@ def run_newton_iterations_batch(surf: S.Surface, mains: list,
                                 sgm_zbuffers: list | None, log=None,
                                 timer: StageTimer | None = None,
                                 lighting: torch.Tensor | None = None,
-                                ncc_images: list | None = None) -> S.Surface:
+                                ncc_images: list | None = None,
+                                layout: WholeGrid = WHOLE_GRID
+                                ) -> S.Surface:
     """`run_newton_iterations` for a batch of views: visibility and the
-    first boundary cuts view by view, then `scale_program_batch`."""
+    first boundary cuts view by view, then `scale_program_batch`, its
+    Newton systems solved in ``layout``."""
     V = surf.nodes.shape[0]
     inv_cals = [torch.as_tensor(
         m.camera.inverse_calibration(m.width, m.height),
@@ -801,7 +855,7 @@ def run_newton_iterations_batch(surf: S.Surface, mains: list,
         surf, vis = S.stack_surfaces(surfs), torch.stack(viss)
     with timer.stage(f"iterations@s{surf.scale}"):
         surf, stats = scale_program_batch(surf, view, vis, inv_cals, opts,
-                                          lighting, ncc_images)
+                                          lighting, ncc_images, layout)
     if log:
         for i, rows in enumerate(stats):
             log(f"  view {mains[i].view_id} s{surf.scale}: " + " ".join(

@@ -9,6 +9,16 @@ systems, a constant OMEGA for shading systems (`build`'s ``damp_rows``;
 the JAX package's ``SMVS_MG_OMEGA=const`` override has no counterpart
 here). A per-apply guard falls back to damped block-Jacobi when the
 V-cycle is indefinite for a system.
+
+The hierarchy also runs on a grid split by rows over the ranks of a
+``patch`` group (`build`'s ``split``, a `dist.rows.RowSplit`): each rank
+holds a band of every level's rows, derived from the finer level's band
+(coarse node I is fine node 2I), and the transfers, the Galerkin
+products and the smoother's stencil products take one row of halo from
+the neighbor bands. The damping map's median gathers the level's row
+sums, and the guard's sums are summed over the group. From the first
+level on which a rank would hold no row, the levels are gathered whole
+onto every rank and solved there as on one device.
 """
 
 from __future__ import annotations
@@ -63,16 +73,30 @@ def _weights_4(dtype, device):
     return cvt(wx), cvt(wy)
 
 
+def _taps_up(xp: torch.Tensor, W: dict) -> torch.Tensor:
+    """Fine entries 2k and 2k + 1 from coarse entries k and k + 1 of xp
+    [4, ..., m + 1] (last axis): [4, ..., 2m]."""
+    even = torch.einsum("ab,b...->a...", W[0], xp[..., :-1])
+    odd = (torch.einsum("ab,b...->a...", W[1], xp[..., :-1])
+           + torch.einsum("ab,b...->a...", W[-1], xp[..., 1:]))
+    return torch.stack([even, odd], dim=-1).reshape(*xp.shape[:-1], -1)
+
+
 def _axis_up(x: torch.Tensor, W: dict, axis: int, n_out: int
              ) -> torch.Tensor:
     """1D prolongation along `axis` of x [4, ...]: coarse n -> fine n_out."""
     x = torch.movedim(x, axis, -1)
-    xp = torch.nn.functional.pad(x, (0, 1))
-    even = torch.einsum("ab,b...->a...", W[0], xp[..., :-1])
-    odd = (torch.einsum("ab,b...->a...", W[1], xp[..., :-1])
-           + torch.einsum("ab,b...->a...", W[-1], xp[..., 1:]))
-    inter = torch.stack([even, odd], dim=-1).reshape(*x.shape[:-1], -1)
+    inter = _taps_up(torch.nn.functional.pad(x, (0, 1)), W)
     return torch.movedim(inter[..., :n_out], -1, axis)
+
+
+def _taps_down(xp: torch.Tensor, W: dict, s: int, nc: int) -> torch.Tensor:
+    """Coarse entries i < nc from entries s + 2i, s + 2i + 1 and
+    s + 2i + 2 of xp (last axis; fine nodes 2I - 1, 2I, 2I + 1)."""
+    xp = xp[..., s:]
+    return (torch.einsum("ba,b...->a...", W[0], xp[..., 1::2][..., :nc])
+            + torch.einsum("ba,b...->a...", W[1], xp[..., 2::2][..., :nc])
+            + torch.einsum("ba,b...->a...", W[-1], xp[..., 0::2][..., :nc]))
 
 
 def _axis_down(x: torch.Tensor, W: dict, axis: int) -> torch.Tensor:
@@ -81,10 +105,7 @@ def _axis_down(x: torch.Tensor, W: dict, axis: int) -> torch.Tensor:
     n = x.shape[-1]
     nc = coarse_size(n)
     xp = torch.nn.functional.pad(x, (1, 2 * nc - n))
-    out = (torch.einsum("ba,b...->a...", W[0], xp[..., 1::2][..., :nc])
-           + torch.einsum("ba,b...->a...", W[1], xp[..., 2::2][..., :nc])
-           + torch.einsum("ba,b...->a...", W[-1], xp[..., 0::2][..., :nc]))
-    return torch.movedim(out, -1, axis)
+    return torch.movedim(_taps_down(xp, W, 0, nc), -1, axis)
 
 
 def prolong(xc: torch.Tensor, ny1: int, nx1: int) -> torch.Tensor:
@@ -99,21 +120,64 @@ def restrict(xf: torch.Tensor) -> torch.Tensor:
     return _axis_down(_axis_down(xf, wx, -1), wy, -2)
 
 
+def _taps(x: torch.Tensor, axis: int, s: int, nc: int) -> torch.Tensor:
+    """Sum of entries s + 2i, s + 2i + 1, s + 2i + 2 along ``axis``."""
+    x = torch.movedim(x, axis, -1)[..., s:]
+    out = (x[..., 1::2][..., :nc] + x[..., 2::2][..., :nc]
+           + x[..., 0::2][..., :nc])
+    return torch.movedim(out, -1, axis)
+
+
 def restrict_mask(active: torch.Tensor) -> torch.Tensor:
     """Coarse activity: any fine node in the transfer support is active."""
     a = active.to(torch.float32)
     ny1, nx1 = a.shape[-2:]
     ncy, ncx = coarse_size(ny1), coarse_size(nx1)
     ap = torch.nn.functional.pad(a, (1, 2 * ncx - nx1, 1, 2 * ncy - ny1))
+    return _taps(_taps(ap, -1, 0, ncx), -2, 0, ncy) > 0
 
-    def taps(x, axis):
-        x = torch.movedim(x, axis, -1)
-        nc = (x.shape[-1] - 1) // 2
-        out = (x[..., 1::2][..., :nc] + x[..., 2::2][..., :nc]
-               + x[..., 0::2][..., :nc])
-        return torch.movedim(out, -1, axis)
 
-    return taps(taps(ap, -1), -2) > 0
+# The same transfers on a band of a level's rows (``split``, a
+# `dist.rows.RowSplit`): its rows [r0, r1) with one halo row on each side
+# give the coarse rows c = [c0, c1) whose fine rows 2I it holds, and the
+# coarse rows [c0 - 1, c1 + 1) give its fine rows; ``s`` = 2 c0 - r0
+# aligns the taps.
+
+
+def _coarse_rows(split) -> tuple:
+    c = split.coarse().band
+    return c, 2 * c.start - split.band.start
+
+
+def restrict_band(xf: torch.Tensor, split) -> torch.Tensor:
+    """`restrict` on a band: the coarse band's rows [4, (V,), c1 - c0,
+    ncx] from the fine band's rows."""
+    wx, wy = _weights_4(xf.dtype, xf.device)
+    c, s = _coarse_rows(split)
+    xh = split.halo(_axis_down(xf, wx, -1))
+    return torch.movedim(_taps_down(torch.movedim(xh, -2, -1), wy, s,
+                                    len(c)), -1, -2)
+
+
+def prolong_band(xch: torch.Tensor, band: range, c: range, nx1: int
+                 ) -> torch.Tensor:
+    """`prolong` on a band: the fine rows ``band`` from the coarse rows
+    [c0 - 1, c1 + 1) ``xch`` (zero beyond the grid), ``c`` the coarse
+    band of ``band``."""
+    wx, wy = _weights_4(xch.dtype, xch.device)
+    x = torch.movedim(_axis_up(xch, wx, -1, nx1), -2, -1)
+    lo = band.start - 2 * (c.start - 1)  # fine rows from 2 (c0 - 1)
+    return torch.movedim(_taps_up(x, wy)[..., lo:lo + len(band)], -1, -2)
+
+
+def restrict_mask_band(active: torch.Tensor, split) -> torch.Tensor:
+    """`restrict_mask` on a band: the coarse band's activity."""
+    a = active.to(torch.float32)
+    nx1 = a.shape[-1]
+    ncx = coarse_size(nx1)
+    c, s = _coarse_rows(split)
+    ax = _taps(torch.nn.functional.pad(a, (1, 2 * ncx - nx1)), -1, 0, ncx)
+    return _taps(split.halo(ax), -2, s, len(c)) > 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -147,15 +211,31 @@ def galerkin_coarse(Hb: torch.Tensor) -> torch.Tensor:
     stencil planes. Hb: [3, 3, 4, 4, (V,) ny1, nx1] ->
     [3, 3, 4, 4, (V,) ncy, ncx]."""
     ny1, nx1 = Hb.shape[-2:]
-    lead = tuple(Hb.shape[4:-2])
     ncy, ncx = coarse_size(ny1), coarse_size(nx1)
     Hp = torch.nn.functional.pad(Hb, (1, 2 * ncx - nx1, 1, 2 * ncy - ny1))
-    Hp = Hp.reshape(9, 16, *Hp.shape[4:])
+    return _galerkin(Hp, 0, ncy, ncx)
+
+
+def galerkin_band(Hb: torch.Tensor, split) -> torch.Tensor:
+    """`galerkin_coarse` on a band: the coarse band's operator rows."""
+    nx1 = Hb.shape[-1]
+    ncx = coarse_size(nx1)
+    c, s = _coarse_rows(split)
+    Hp = torch.nn.functional.pad(split.halo(Hb), (1, 2 * ncx - nx1))
+    return _galerkin(Hp, s, len(c), ncx)
+
+
+def _galerkin(Hp: torch.Tensor, s: int, ncy: int, ncx: int) -> torch.Tensor:
+    """The coarse rows i < ncy of A_c from the fine stencil padded by a
+    row and a column (Hp: fine rows 2I - 1 .. 2I + 1 of coarse row i at
+    s + 2i .. s + 2i + 2)."""
+    lead = tuple(Hp.shape[4:-2])
+    Hp = Hp[..., s:, :].reshape(9, 16, *Hp.shape[4:-2], -1, Hp.shape[-1])
     win = torch.stack(
         [Hp[..., 1 + u::2, 1 + v::2][..., :ncy, :ncx]
          for u in (-1, 0, 1) for v in (-1, 0, 1)], dim=0)
-    G = torch.as_tensor(_galerkin_weight_np(), dtype=Hb.dtype,
-                        device=Hb.device)
+    G = torch.as_tensor(_galerkin_weight_np(), dtype=Hp.dtype,
+                        device=Hp.device)
     if not lead:
         out = G @ win.reshape(9 * 9 * 16, ncy * ncx)
     else:  # one product per view, as the view alone takes it
@@ -172,6 +252,10 @@ class Levels(NamedTuple):
     shapes: tuple  # (ny1, nx1) per level
     omegas: tuple  # per-node damping maps [(V,) ny1_l, nx1_l]
     active: torch.Tensor | None = None  # fine-level active mask
+    # Per level its `dist.rows.RowSplit` (the tensors above then hold this
+    # rank's band of its rows) or None (the whole level); None for a
+    # hierarchy on one device.
+    splits: tuple | None = None
 
 
 def num_levels(ny1: int, nx1: int, min_size: int = 8) -> int:
@@ -183,7 +267,7 @@ def num_levels(ny1: int, nx1: int, min_size: int = 8) -> int:
 
 
 def build(Hb: torch.Tensor, active: torch.Tensor, min_size: int = 8,
-          damp_rows: bool = True) -> Levels:
+          damp_rows: bool = True, split=None) -> Levels:
     """The V-cycle hierarchy for one assembled system, or for a batch of
     views' systems (Hb [3, 3, 4, 4, V, ny1, nx1], active [V, ny1, nx1]),
     each level and damping map computed per view.
@@ -195,31 +279,48 @@ def build(Hb: torch.Tensor, active: torch.Tensor, min_size: int = 8,
     indefinite; False (shading systems) keeps a constant OMEGA on every
     level, because their stiff rows are the shading term's only strong
     constraint on weakly textured nodes.
+
+    With ``split`` (a `dist.rows.RowSplit` of the grid's rows), Hb and
+    active are this rank's band of them, and so is every level of the
+    hierarchy until a rank would hold no row of one (`RowSplit.banded`):
+    that level and the coarser ones are gathered whole on every rank.
     """
 
-    def omega(H, pinv):
+    def omega(H, pinv, sp):
         if damp_rows:
-            return _node_omega(H, pinv)
+            return _node_omega(H, pinv, None if sp is None else sp.gather)
         return torch.full(H.shape[4:], OMEGA, dtype=H.dtype,
                           device=H.device)
 
-    ny1, nx1 = Hb.shape[-2:]
+    ny1 = Hb.shape[-2] if split is None else split.n
+    nx1 = Hb.shape[-1]
     pinv0 = stencil.block_jacobi_inverse(Hb, active)
     ops = [Hb]
     pinvs = [pinv0]
     shapes = [(ny1, nx1)]
-    omegas = [omega(Hb, pinv0)]
+    omegas = [omega(Hb, pinv0, split)]
+    splits = [split]
     act = active
     for _ in range(num_levels(ny1, nx1, min_size) - 1):
-        Hb = galerkin_coarse(Hb)
-        act = restrict_mask(act)
+        sp = splits[-1]
+        if sp is None:
+            Hb = galerkin_coarse(Hb)
+            act = restrict_mask(act)
+        else:
+            Hb = galerkin_band(Hb, sp)
+            act = restrict_mask_band(act, sp)
+            sp = sp.coarse()
+            if not sp.banded:
+                Hb, act, sp = sp.gather(Hb), sp.gather(act), None
         pinv = stencil.block_jacobi_inverse(Hb, act)
         ops.append(Hb)
         pinvs.append(pinv)
-        shapes.append(tuple(Hb.shape[-2:]))
-        omegas.append(omega(Hb, pinv))
+        shapes.append((Hb.shape[-2] if sp is None else sp.n, Hb.shape[-1]))
+        omegas.append(omega(Hb, pinv, sp))
+        splits.append(sp)
     return Levels(ops=tuple(ops), pinvs=tuple(pinvs), shapes=tuple(shapes),
-                  omegas=tuple(omegas), active=active)
+                  omegas=tuple(omegas), active=active,
+                  splits=None if split is None else tuple(splits))
 
 
 def _median_of_positive(lam: torch.Tensor, batch_dims: int = 0
@@ -247,16 +348,19 @@ def _row_sums(Hb: torch.Tensor, pinv: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(prod * prod, dim=(2, 3))).sum((0, 1))
 
 
-def _node_omega(Hb: torch.Tensor, pinv: torch.Tensor) -> torch.Tensor:
+def _node_omega(Hb: torch.Tensor, pinv: torch.Tensor, gather=None
+                ) -> torch.Tensor:
     """Per-node smoother damping map [(V,) ny1, nx1]: rows are damped by
     their excess over the typical row (of their own view),
     w_i = OMEGA * min(1, F * median(lam) / lam_i) with the Gershgorin
-    block-row sum lam_i = sum_j ||pinv_i A_ij||_F."""
+    block-row sum lam_i = sum_j ||pinv_i A_ij||_F. On a band of the rows,
+    ``gather`` puts the level's row sums together for the median."""
     if Hb.ndim == 6:
         lam = _row_sums(Hb, pinv)
     else:  # view by view (`utils.perview`), each summed as it is alone
         lam = per_view(_row_sums, Hb, pinv, dim=(4, 2))
-    med = _median_of_positive(lam, lam.ndim - 2)[..., None, None]
+    whole = lam if gather is None else gather(lam)
+    med = _median_of_positive(whole, lam.ndim - 2)[..., None, None]
     scale = torch.clamp(_ROW_STIFF_FACTOR * med / torch.clamp(lam, min=1e-6),
                         max=1.0)
     return OMEGA * scale.to(Hb.dtype)
@@ -271,33 +375,63 @@ def apply(levels: Levels, r: torch.Tensor) -> torch.Tensor:
     """z = M^-1 r: one symmetric V(1,1) cycle, projected on the active
     set, with the indefiniteness guard: if <r, z> <= 0 the damped
     block-Jacobi result is returned for this apply (for a batch of views,
-    r [4, V, ny1, nx1], the guard is taken per view)."""
+    r [4, V, ny1, nx1], the guard is taken per view; on bands of the rows
+    its sums are summed over the group)."""
     z = apply_vcycle(levels, r)
     if levels.active is not None:
         r = torch.where(levels.active[None], r, 0.0)
     rz = r * z
     if r.ndim > 3:  # per view, as each view alone sums it
-        rz = per_view(torch.sum, rz, dim=1).reshape(1, -1, 1, 1)
+        rz = per_view(torch.sum, rz, dim=1)
     else:
         rz = torch.sum(rz)
+    if levels.splits is not None:
+        rz = levels.splits[0].sum(rz)
+    if r.ndim > 3:
+        rz = rz.reshape(1, -1, 1, 1)
     return torch.where(rz > 0, z, jacobi(levels, r))
 
 
 def apply_vcycle(levels: Levels, r: torch.Tensor) -> torch.Tensor:
     """One symmetric V(1,1) cycle, active-projected, without the guard."""
+    splits = levels.splits or (None,) * len(levels.ops)
+
+    def spmv(l: int, x: torch.Tensor) -> torch.Tensor:
+        sp = splits[l]
+        if sp is None:
+            return stencil.spmv(levels.ops[l], x)
+        return sp.spmv(levels.ops[l], x)
+
+    def down(l: int, x: torch.Tensor) -> torch.Tensor:
+        """Level l's residual -> level l + 1's."""
+        sp = splits[l]
+        if sp is None:
+            return restrict(x)
+        xc = restrict_band(x, sp)
+        return xc if splits[l + 1] is not None else sp.coarse().gather(xc)
+
+    def up(l: int, zc: torch.Tensor) -> torch.Tensor:
+        """Level l + 1's correction -> level l's."""
+        sp = splits[l]
+        if sp is None:
+            return prolong(zc, levels.shapes[l][0], levels.shapes[l][1])
+        c = sp.coarse().band
+        if splits[l + 1] is not None:
+            zh = splits[l + 1].halo(zc)
+        else:  # the whole coarse level: its rows [c0 - 1, c1 + 1)
+            zh = stencil._pad_yx(zc, 1, 1, 0, 0)[..., c.start:c.stop + 2, :]
+        return prolong_band(zh, sp.band, c, levels.shapes[l][1])
 
     def cycle(l: int, rl: torch.Tensor) -> torch.Tensor:
-        A = levels.ops[l]
         if l == len(levels.ops) - 1:
             z = _smooth(levels, l, rl)
             for _ in range(COARSE_SWEEPS - 1):
-                z = z + _smooth(levels, l, rl - stencil.spmv(A, z))
+                z = z + _smooth(levels, l, rl - spmv(l, z))
             return z
         z = _smooth(levels, l, rl)
-        coarse_r = restrict(rl - stencil.spmv(A, z))
-        zc = cycle(l + 1, coarse_r)
-        z = z + prolong(zc, levels.shapes[l][0], levels.shapes[l][1])
-        return z + _smooth(levels, l, rl - stencil.spmv(A, z))
+        zc = cycle(l + 1, down(l, rl - spmv(l, z)))
+        z = z + up(l, zc)
+        return z + _smooth(levels, l, rl - spmv(l, z))
 
     if levels.active is not None:
         r = torch.where(levels.active[None], r, 0.0)

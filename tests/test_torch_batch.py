@@ -21,6 +21,7 @@ from smvs_tpu.pipeline import views as jviews
 from smvs_tpu.surface import state as jS
 from smvs_tpu_torch.core import synthetic as tsyn
 from smvs_tpu_torch.dist import launch
+from smvs_tpu_torch.dist.dryrun import check_bars
 from smvs_tpu_torch.geometry import correspondence as corr
 from smvs_tpu_torch.pipeline import batch as tB
 from smvs_tpu_torch.pipeline import optimizer as tO
@@ -393,14 +394,23 @@ def test_bucket_key_grouping_and_mesh(tmp_path):
                                tO.OptimizerOptions(**OPTS),
                                init_depths=inits, mesh=object(),
                                device="cpu")
-    # A 'patch' axis above 1 needs the row-sharded multigrid (not ported):
-    # every rank of a (1, 2) mesh raises before any work.
+    # Over a (1, 2) mesh both ranks split each view's node rows: both get
+    # the same bits, within the JAX dry run's bars of the unsharded batch.
     outs = launch.spawn(torch_dist_ranks.batch_on_mesh, 2, backend="gloo",
                         device="cpu", store_path=str(tmp_path / "store"),
                         args=(2,), timeout=300)
+    want = tB.optimize_view_batch(mains, subs, tO.OptimizerOptions(**OPTS),
+                                  init_depths=inits, device="cpu")
     for o in outs:
-        assert "ROADMAP.md queue 1, item 6" in o["raised"]
-        assert "row-sharded multigrid" in o["raised"]
+        assert list(o["share"]) == [0, 1]
+        for got, first in zip(o["results"], outs[0]["results"]):
+            assert all(torch_dist_ranks.same_bits(a, b)
+                       for a, b in zip(got[:5], first[:5]))
+    for got, w in zip(outs[0]["results"], want):
+        check_bars(got[0].numpy(), w.depth.numpy(), "(1, 2) mesh")
+        assert got[5] == (w.surface.scale, w.surface.start_x,
+                          w.surface.start_y, w.surface.width,
+                          w.surface.height)
     with pytest.raises(ValueError, match="buckets"):
         tB.optimize_view_batch(mains, [subs[0], subs[0] * 2],
                                tO.OptimizerOptions(**OPTS),

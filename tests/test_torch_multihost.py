@@ -94,7 +94,7 @@ def test_optimize_view_batch_on_mesh(tmp_path):
 
 def test_dryrun_two_ranks(capsys):
     dryrun.dryrun_multichip(2, device="cpu")
-    assert "dryrun_multichip ok: mesh={'views': 2, 'patch': 1} views=2" \
+    assert "dryrun_multichip ok: mesh={'views': 1, 'patch': 2} views=1" \
         in capsys.readouterr().out
 
 

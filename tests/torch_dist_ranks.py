@@ -6,6 +6,8 @@ apart from the test files, which import JAX: a rank imports torch and the
 port only. Each returns plain data with its tensors on the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -14,7 +16,7 @@ from smvs_tpu_torch.dist import rows, viewbatch
 from smvs_tpu_torch.dist.testing import make_view_batch, plane_view_problem
 from smvs_tpu_torch.pipeline import batch as B
 from smvs_tpu_torch.pipeline import optimizer as O
-from smvs_tpu_torch.solver import gn
+from smvs_tpu_torch.solver import gn, mg
 
 ARGS = ("nodes", "node_valid", "patch_valid", "vis", "active", "view")
 
@@ -79,24 +81,27 @@ def training_step(rank, world, dev, patch_axis):
                 full=viewbatch.gather_nodes(shard, mesh))
 
 
-def batch_on_mesh(rank, world, dev, patch_axis):
+def batch_on_mesh(rank, world, dev, patch_axis, dim=96, min_scale=4):
     """`optimize_view_batch` over a ('views', patch_axis) mesh on the two
-    mains of tests/test_batch.py's problem; with a 'patch' axis above 1,
-    the error it raises."""
-    mains, subs, inits = plane_view_problem(2, device=dev)
+    mains of tests/test_batch.py's problem (at ``dim``, down to
+    ``min_scale``): this rank's view share and every view's result."""
+    mains, subs, inits = plane_view_problem(2, dim=dim, device=dev)
     mesh = B.make_view_mesh(world, patch_axis=patch_axis, device=dev)
-    opts = O.OptimizerOptions(**BATCH_OPTS)
-    try:
-        out = B.optimize_view_batch(mains, subs, opts, init_depths=inits,
-                                    mesh=mesh, device=dev)
-    except NotImplementedError as e:
-        return {"raised": str(e)}
+    opts = O.OptimizerOptions(**{**BATCH_OPTS, "min_scale": min_scale})
+    out = B.optimize_view_batch(mains, subs, opts, init_depths=inits,
+                                mesh=mesh, device=dev)
     return {"share": M.view_share(2, mesh),
             "results": [(r.depth, r.normals, r.surface.nodes,
                          r.surface.node_valid, r.surface.patch_valid,
                          (r.surface.scale, r.surface.start_x,
                           r.surface.start_y, r.surface.width,
                           r.surface.height), r.lighting) for r in out]}
+
+
+def batches_on_mesh(rank, world, dev, patch_axis, problems):
+    """`batch_on_mesh` at each (dim, min_scale) of ``problems``."""
+    return [batch_on_mesh(rank, world, dev, patch_axis, dim, min_scale)
+            for dim, min_scale in problems]
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -116,3 +121,38 @@ def seeded_system(V: int, ny1: int, nx1: int, seed: int = 0) -> dict:
     return dict(Hb=torch.as_tensor(rng.normal(size=(3, 3, 4, 4, V, ny1,
                                                     nx1))),
                 x=torch.as_tensor(rng.normal(size=(4, V, ny1, nx1))))
+
+
+def band_multigrid(rank, world, dev, path, min_size):
+    """`mg.build` and one `mg.apply` on this rank's band of the seeded
+    system saved at ``path``, over a 'patch' axis of ``world``: each
+    level's band (None for a gathered level), operator, inverted
+    diagonal, damping map, and the apply's rows."""
+    data = torch.load(path)
+    mesh = M.make_mesh(world, patch_axis=world, device=dev)
+    split = rows.RowSplit.of(data["x"].shape[-2], mesh.get_group("patch"))
+    levels = mg.build(split.rows(data["Hb"]).contiguous(),
+                      split.rows(data["active"]), min_size=min_size,
+                      split=split)
+    z = mg.apply(levels, split.rows(data["x"]))
+    return dict(bands=[None if sp is None else sp.band
+                       for sp in levels.splits],
+                ops=levels.ops, pinvs=levels.pinvs, omegas=levels.omegas,
+                shapes=levels.shapes, z=z)
+
+
+def band_newton_step(rank, world, dev, dim, scale):
+    """`optimizer._newton_step_batch` (multigrid PCG) with each view's
+    node rows split over a 'patch' axis of ``world`` on
+    `make_view_batch(2, dim, scale)` in float64: the step's result."""
+    template, batch = make_view_batch(2, dim=dim, scale=scale,
+                                      dtype=torch.float64, device=dev)
+    mesh = M.make_mesh(world, patch_axis=world, device=dev)
+    surf = dataclasses.replace(template, nodes=batch["nodes"],
+                               node_valid=batch["node_valid"],
+                               patch_valid=batch["patch_valid"])
+    st = O._newton_step_batch(surf, batch["view"], batch["vis"],
+                              batch["active"], O.OptimizerOptions(), None,
+                              np.ones(2, bool),
+                              viewbatch.RowBands(mesh.get_group("patch")))
+    return dataclasses.asdict(st)

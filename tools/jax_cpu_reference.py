@@ -16,6 +16,7 @@ script's output says which):
     python tools/jax_cpu_reference.py flagship --dim 1440
     python tools/jax_cpu_reference.py batch --dim 720
     python tools/jax_cpu_reference.py step --dim 480
+    python tools/jax_cpu_reference.py pipeline --dim 480 --patch 2
 
 `general`: `stereo.reconstruct` (the general-warp SGM, 128 planes, range
 (4.0, 8.5)) on the two-view scene of tests/test_sgm.py, with the plane's
@@ -73,6 +74,22 @@ one. With `--port`, the same for the port: its single-process step in
 float32 and float64, and its sharded step on (1, 2) and (2, 2) meshes of
 gloo ranks on the CPU (`smvs_tpu_torch.dist`).
 
+`pipeline`: `bench.py:run_once`'s view (the two-view slanted plane, its
+rectified SGM depth) through the batched pipeline `optimize_view_batch`
+with each view's node rows split over a 'patch' axis of ``--patch``
+(`make_view_mesh(P, patch_axis=P)` of the 8 virtual CPU devices; the
+JAX package splits an array's rows only where the axis divides them),
+against the same pipeline unsharded, in float32: under the JAX dry run's
+`fixed_newton_steps` (6 Newton steps a loop) and under run_once's
+options. For each: the share of pixels whose coverage flips, the share
+of the commonly covered ones drifting by more than 2e-4, the largest
+relative drift, and each run's coverage and median relative error
+against the analytic depth. With `--port`, the port's sharded pipeline
+on a (1, P) mesh of gloo ranks on the CPU against its unsharded batch.
+`--scene plane` runs four views of `make_plane_scene(7, dim)` instead
+(views 0, 2, 4 and 6, each against one neighbor, from their analytic
+depths, down to scale 3), batched: where the Newton and PCG exits differ.
+
 `--port` runs the PyTorch port's CLI (`--device cpu`) on the same scene
 instead, to tell a difference of the card from one of the size:
 
@@ -88,7 +105,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if "step" in sys.argv[1:2] and "xla_force_host_platform_device_count" \
+if sys.argv[1:2] in (["step"], ["pipeline"]) and "xla_force_host_platform_device_count" \
         not in os.environ.get("XLA_FLAGS", ""):  # the 8-device CPU mesh
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
                                "--xla_force_host_platform_device_count=8")
@@ -337,12 +354,130 @@ def step(dim: int, port: bool = False) -> dict:
     return out
 
 
+def _pipeline_options(O, min_scale: int = 2) -> dict:
+    """run_once's optimizer options, and the same under the JAX dry run's
+    fixed Newton steps."""
+    base = dict(regularization=0.01, num_iterations=5, min_scale=min_scale,
+                use_sgm=True)
+    return {"fixed": O.OptimizerOptions(**base, max_newton_steps=6,
+                                        fixed_newton_steps=True),
+            "defaults": O.OptimizerOptions(**base)}
+
+
+def _depth_gaps(got: np.ndarray, want: np.ndarray, gt: np.ndarray) -> dict:
+    both = (got > 0) & (want > 0)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-6)
+    return {"mask_flips": float(((got > 0) != (want > 0)).mean()),
+            "drift_share": float((rel[both] > 2e-4).mean()),
+            "max_rel_drift": float(rel[both].max()),
+            "coverage": [float((got > 0).mean()), float((want > 0).mean())],
+            "median_rel_err": [
+                float(np.median(np.abs(d[d > 0] - gt[d > 0]) / gt[d > 0]))
+                for d in (got, want)]}
+
+
+def _port_pipeline_rank(rank, world, dev, path, patch):
+    import torch
+
+    from smvs_tpu_torch.pipeline import batch as B
+
+    data = torch.load(path, weights_only=False)
+    mesh = B.make_view_mesh(world, patch_axis=patch, device=dev)
+    return {name: [r.depth for r in B.optimize_view_batch(
+        data["mains"], data["subs_list"], opts,
+        sgm_depths=data["sgm_depths"], mesh=mesh, device=dev)]
+        for name, opts in data["opts"].items()}
+
+
+def _pipeline_problem(scene: str, dim: int, port: bool):
+    """(mains, neighbor lists, SGM depths, analytic depths, min_scale) of
+    the scene, as the port's views or the JAX package's."""
+    from smvs_tpu_torch.core.synthetic import make_plane_scene, \
+        make_two_view_scene
+
+    if port:
+        from smvs_tpu_torch.pipeline.views import make_view
+        from smvs_tpu_torch.sgm import stereo as sgm
+        kw = {"device": "cpu"}
+    else:
+        from smvs_tpu.pipeline.views import make_view
+        from smvs_tpu.sgm import stereo as sgm
+        kw = {}
+    if scene == "main":
+        slope = 0.005 * 460.0 / dim  # bench.py:run_once's scene
+        sc = make_two_view_scene(
+            dim=dim, rotate=True, texture="noise",
+            depth_fn=lambda i, j: 5.0 + slope * i + slope * j)
+        main_v, sub_v = (make_view(sc.cameras[i], sc.images[i], view_id=i,
+                                   **kw) for i in (1, 0))
+        depth = sgm.reconstruct_auto(
+            sc.cameras[1], sc.cameras[0], main_v.image * 255.0,
+            sub_v.image * 255.0, range_main=(3.5, 9.5),
+            range_nbr=(3.5, 9.5), **kw)
+        return [main_v], [[sub_v]], [depth], [sc.depths[1]], 2
+    sc = make_plane_scene(n_views=7, dim=dim)
+    views = [make_view(sc.cameras[i], sc.images[i], view_id=i, **kw)
+             for i in range(7)]
+    nbr = {0: 1, 2: 1, 4: 3, 6: 5}
+    depths = [sc.depths[i].astype(np.float32) for i in nbr]
+    if not port:
+        depths = [jnp.asarray(d) for d in depths]
+    return ([views[i] for i in nbr], [[views[j]] for j in nbr.values()],
+            depths, [sc.depths[i] for i in nbr], 3)
+
+
+def pipeline(dim: int, patch: int, scene: str, port: bool = False) -> dict:
+    mains, subs, sgms, gts, min_scale = _pipeline_problem(scene, dim, port)
+    out = {"scene": scene, "patch": patch, "min_scale": min_scale}
+    if port:
+        import torch
+
+        from smvs_tpu_torch.dist import launch
+        from smvs_tpu_torch.pipeline import batch as B
+        from smvs_tpu_torch.pipeline import optimizer as O
+
+        torch.set_num_threads(1)
+        opts = _pipeline_options(O, min_scale)
+        ref = {name: [r.depth.numpy() for r in B.optimize_view_batch(
+            mains, subs, o, sgm_depths=sgms, device="cpu")]
+            for name, o in opts.items()}
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "problem.pt")
+            torch.save({"mains": mains, "subs_list": subs,
+                        "sgm_depths": sgms, "opts": opts}, path)
+            got = launch.spawn(_port_pipeline_rank, patch, backend="gloo",
+                               device="cpu",
+                               store_path=os.path.join(d, "store"),
+                               args=(path, patch), timeout=3600)[0]
+        got = {k: [t.numpy() for t in v] for k, v in got.items()}
+    else:
+        from smvs_tpu.pipeline import batch as B
+        from smvs_tpu.pipeline import optimizer as O
+
+        opts = _pipeline_options(O, min_scale)
+        mesh = B.make_view_mesh(patch, patch_axis=patch)
+        ref, got = {}, {}
+        for name, o in opts.items():
+            for dst, m in ((ref, None), (got, mesh)):
+                dst[name] = [np.asarray(r.depth) for r in
+                             B.optimize_view_batch(mains, subs, o,
+                                                   sgm_depths=sgms, mesh=m)]
+    for name in ref:
+        out[name] = [_depth_gaps(g, w, gt)
+                     for g, w, gt in zip(got[name], ref[name], gts)]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config",
                     choices=("general", "flagship", "batch", "step",
-                             *RUNS))
+                             "pipeline", *RUNS))
     ap.add_argument("--dim", type=int, required=True)
+    ap.add_argument("--patch", type=int, default=2,
+                    help="pipeline: the 'patch' axis")
+    ap.add_argument("--scene", choices=("main", "plane"), default="main",
+                    help="pipeline: run_once's view, or four plane views")
     ap.add_argument("--port", action="store_true",
                     help="run the PyTorch port instead (every "
                          "configuration but general)")
@@ -355,6 +490,8 @@ def main(argv=None) -> int:
         out = batch(args.dim, port=args.port)
     elif args.config == "step":
         out = step(args.dim, port=args.port)
+    elif args.config == "pipeline":
+        out = pipeline(args.dim, args.patch, args.scene, port=args.port)
     else:
         out = cli(args.config, args.dim, port=args.port)
     print(json.dumps({"config": args.config, "dim": args.dim,
