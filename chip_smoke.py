@@ -72,9 +72,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    configuration (`tools/jax_cpu_reference.py color`);
 13. the CLI on the gray scene of phase 7 with `--full-opt -m` (row 1-2
    launches, a triangle mesh whose points, faces and error are held to
-   limits from `tools/jax_cpu_reference.py fullopt`), then `-m -y` in the
-   same directory (it skips every view and only fuses, no launch; the
-   greedy triangulation's mesh has fewer faces than the full one), and
+   limits from `tools/jax_cpu_reference.py fullopt`), then `-m -y -l 0-1`
+   in the same directory (it skips both views and only fuses them, no
+   launch; the greedy triangulation's mesh has fewer faces than the full
+   one; two views, not four, to keep the run's time), and
    the simplify tool (`smvs_tpu_torch.tools.simplify`) on the full mesh;
 14. view batching: the CLI with its defaults (`--batch-views 4`) on 8 views
    of the JAX repository's DTU-scale camera grid (`make_dtu_scene`), their
@@ -130,7 +131,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    2). Every rank must hold the same bits of every depth map. Per mesh
    and rank: optimize seconds, peak memory, host read-backs, and the
    collectives (halo exchanges, all-reduces, all-gathers) per PCG
-   iteration.
+   iteration;
+17. what users and a benchmark run beyond the CLI: (a) the benchmark
+   driver `smvs_tpu_torch.bench` (`bench.py`'s counterpart) at 1440 with
+   3 passes: the main path's bars (coverage >= 0.84, median relative
+   error <= 1e-4) and the flagship's (>= 0.85, <= 1e-2), MP/s median, min
+   and max; (b) `smvs_tpu_torch.bench_scene` at its defaults (10 plane
+   views of 720^2, groups of 5) and (c) `smvs_tpu_torch.bench_dtu` on 10
+   views of the DTU grid at scale 0 (7 of 1440^2, 3 of 1280^2, two shape
+   buckets) in a fresh directory, cold then warm: each at least 90% of
+   the coverage and at most three times the median error of the JAX
+   driver on the CPU (`tools/jax_cpu_reference.py scene` and `dtu`), and
+   set beside the JAX package's TPU records; (d) run_once's rectified SGM
+   at 1440 with `SGMOptions(cost_interp=True)`: rows 1-2 bit-equal to
+   plain on its volume, the depth map within limits from the JAX
+   package's cost-interpolated SGM (`tools/jax_cpu_reference.py
+   costinterp`), and its t_sgm beside the default cost's, in turns;
+   (e) the CLI with `-d 2 -S` on a 4-view 320^2 plane scene: every view
+   run alone, the debug images of the JAX CLI in every view, finite. The
+   kernel rows 1-2 launch on (a)-(e), each path's counts set to 0 just
+   before it and read just after.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after; the `launches` of each kernel row come from the path named in
@@ -138,7 +158,8 @@ its `path` key (rows 4 and 5 have no user path), and rows 1 and 2 also
 list their launches on the flagship and the CLI with `-S`. It prints one
 `{"flagship": {...}}` line with the flagship's numbers, one `{"dist":
 {...}}` line with phase 15's, one `{"split": {...}}` line with phase
-16's, the card's name and power limit again, one `{"kernels": [...]}`
+16's, one `{"drivers": {...}}` line with phase 17's (the three drivers'
+dicts among them), the card's name and power limit again, one `{"kernels": [...]}`
 line with the five TPU kernel rows, each naming the CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
 `sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
 5), and `sgm_deep_kernel`, which serves every row beyond 512 depths,
@@ -169,7 +190,8 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from smvs_tpu_torch import bench_main  # noqa: E402
+from smvs_tpu_torch import bench as bench_driver  # noqa: E402
+from smvs_tpu_torch import bench_dtu, bench_main, bench_scene  # noqa: E402
 from smvs_tpu_torch import cli  # noqa: E402
 from smvs_tpu_torch.core import scene as sc  # noqa: E402
 from smvs_tpu_torch.core import synthetic as syn  # noqa: E402
@@ -299,6 +321,34 @@ SPLIT_TIMEOUT = 300.0
 # analytic depth.
 SPLIT_ERR_RATIO = 2.0
 STEP_ARGS = ("nodes", "node_valid", "patch_valid", "vis", "active", "view")
+# Phase 17. (a) holds the main path's and the flagship's bars above. (b)
+# and (c) hold 90% of the coverage and three times the median relative
+# error of the JAX driver on the CPU at the same view count
+# (`tools/jax_cpu_reference.py scene --dim 720` and `dtu --dim 720`;
+# PERF.md): `bench_scene.py` at its defaults, 10 x 720^2, coverage 0.9046,
+# error 2.1e-5; `bench_dtu.py` on 10 grid views of 720^2 and 640^2 (the
+# largest the CPU runs; the card runs 1440^2 and 1280^2), 0.9447, 3.28e-4.
+DRIVER_MIN_COV_SHARE = 0.9
+DRIVER_MAX_ERR_FACTOR = 3.0
+SCENE_JAX_CPU = (0.9046, 2.1e-5)
+DTU_JAX_CPU = (0.9447, 3.28e-4)
+DTU_VIEWS = 10
+# The JAX package's TPU records, a class check printed beside (b) and (c):
+# `bench_scene_r5.json` and `BENCH_DTU_r5.json` (49 views).
+SCENE_TPU_RECORD = (0.9046, 2.1e-5)
+DTU_TPU_RECORD = (0.9447, 2.64e-4)
+# (d): the cost-interpolated SGM depth of run_once's pair, held to 90% of
+# the coverage and twice the median relative error of the JAX package's on
+# the same pair at 1440 on the CPU (`tools/jax_cpu_reference.py
+# costinterp --dim 1440`: 0.8660, 1.908e-3; the default cost 0.8670,
+# 1.273e-3; PERF.md).
+COST_INTERP_MIN_COVERAGE = 0.779
+COST_INTERP_MAX_ERR = 3.8e-3
+# (e): the CLI with -d 2 -S on 4 plane views of this size; the debug
+# images the JAX CLI writes there.
+DEBUG_DIM = 320
+DEBUG_IMAGES = ("smvs-sgm-filtered", "smvs-initial", "smvs-shaded",
+                "smvs-shaded-sphere", "smvs-implicit-albedo")
 
 DEEP = (129, 192, 256, 512, 513, 1024, 2048)
 DEEP_HW = 640  # [640, 640, D] problems for them
@@ -835,9 +885,9 @@ def phase_cli_color() -> dict:
 
 def phase_cli_mesh() -> dict:
     """The CLI on the gray 4-view 1280^2 plane scene with `--full-opt -m`,
-    then `-m -y` in the same directory (every view skipped, only the
-    fusion into greedy simplified meshes), then the simplify tool on the
-    full mesh."""
+    then `-m -y` on views 0 and 1 in the same directory (both skipped,
+    only the fusion into greedy simplified meshes, which took 104 s for
+    all four), then the simplify tool on the full mesh."""
     scene = syn.make_plane_scene(n_views=4, dim=CLI_DIM)
     with tempfile.TemporaryDirectory() as path:
         syn.save_as_mve_scene(scene, path)
@@ -847,9 +897,9 @@ def phase_cli_mesh() -> dict:
                        FULLOPT_MIN_FACE_SHARE, embedding="smvs-B0")
         kept = os.path.join(path, "full-mesh.ply")
         shutil.copy(os.path.join(path, "smvs-m-B0.ply"), kept)
-        simple = run_cli("cli -m -y", path, scene, ("-m", "-y"),
+        simple = run_cli("cli -m -y", path, scene, ("-m", "-y", "-l", "0-1"),
                          "smvs-m-B0.ply", ())
-        if "Skipping 4 views that are already reconstructed." not in \
+        if "Skipping 2 views that are already reconstructed." not in \
                 simple["text"]:
             raise RuntimeError("cli -m -y: the views were reconstructed "
                                "again")
@@ -1719,6 +1769,185 @@ def phase_split(details: dict, captured: list) -> dict:
     return out
 
 
+def _rows_launched(label: str, launches: dict) -> None:
+    if launches["fused_pass"] <= 0 or launches["fused_pass_batch"] <= 0:
+        raise RuntimeError(f"{label}: no launch of kernel rows 1-2: "
+                           f"{launches}")
+
+
+def _against_jax_cpu(label: str, res: dict, ref: tuple, record: tuple
+                     ) -> dict:
+    """Phase 17's bar for a driver's coverage and median relative error
+    against the JAX driver's on the CPU; the TPU record beside it."""
+    cov, err = res["coverage"], res["median_rel_err"]
+    bar = {"min_coverage": DRIVER_MIN_COV_SHARE * ref[0],
+           "max_err": DRIVER_MAX_ERR_FACTOR * ref[1],
+           "jax_cpu": list(ref), "jax_tpu_record": list(record)}
+    log(f"{label}: coverage {cov}, median_rel_err {err}; bar {bar}")
+    if not (cov >= bar["min_coverage"] and err <= bar["max_err"]):
+        raise RuntimeError(f"{label}: coverage {cov}, median_rel_err {err}; "
+                           f"the bar is {bar}")
+    return bar
+
+
+def phase_bench() -> dict:
+    """Phase 17(a): the `bench.py` driver at 1440, 3 passes."""
+    cuda_agg.reset_launches()
+    res = bench_driver.run(dim=1440, min_scale=2, passes=3, device="cuda")
+    launches = dict(cuda_agg.launches)
+    _rows_launched("bench", launches)
+    for key, (min_cov, max_err) in (("base", (0.84, 1e-4)),
+                                    ("shading_flagship", (0.85, 1e-2))):
+        r = res[key]
+        log(f"bench {key}: {r}")
+        if not (r["coverage"] >= min_cov and r["median_rel_err"] <= max_err):
+            raise RuntimeError(f"bench {key}: {r}; the bar is coverage >= "
+                               f"{min_cov}, median_rel_err <= {max_err}")
+    return {"result": res, "launches": launches}
+
+
+def phase_bench_scene() -> dict:
+    """Phase 17(b): the `bench_scene.py` driver at its defaults."""
+    cuda_agg.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = bench_scene.run(device="cuda")
+    launches = dict(cuda_agg.launches)
+    _rows_launched("bench_scene", launches)
+    bar = _against_jax_cpu("bench_scene", res, SCENE_JAX_CPU,
+                           SCENE_TPU_RECORD)
+    return {"result": res, "launches": launches, "bar": bar,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def phase_bench_dtu() -> dict:
+    """Phase 17(c): the `bench_dtu.py` driver on 10 views at scale 0 in a
+    fresh directory, cold then warm."""
+    cuda_agg.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as root:
+        res = bench_dtu.run(n_views=DTU_VIEWS, dim1=1440, dim2=1280,
+                            scene_dir=os.path.join(root, "dtu"),
+                            device="cuda")
+    launches = dict(cuda_agg.launches)
+    _rows_launched("bench_dtu", launches)
+    bar = _against_jax_cpu("bench_dtu", res, DTU_JAX_CPU, DTU_TPU_RECORD)
+    return {"result": res, "launches": launches, "bar": bar,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def phase_cost_interp() -> dict:
+    """Phase 17(d): run_once's rectified SGM at 1440 with cost_interp."""
+    dim = 1440
+    slope = 0.005 * 460.0 / dim
+    scene = syn.make_two_view_scene(
+        dim=dim, rotate=True, texture="noise",
+        depth_fn=lambda i, j: 5.0 + slope * i + slope * j)
+    main = torch.as_tensor(scene.images[1], device="cuda") * 255.0
+    nbr = torch.as_tensor(scene.images[0], device="cuda") * 255.0
+    gt = scene.depths[1]
+
+    def sgm(interp: bool):
+        t0 = time.perf_counter()
+        depth = stereo.reconstruct_auto(
+            scene.cameras[1], scene.cameras[0], main, nbr, (3.5, 9.5),
+            (3.5, 9.5), stereo.SGMOptions(cost_interp=interp),
+            device="cuda")
+        torch.cuda.synchronize()
+        return depth.cpu().numpy(), time.perf_counter() - t0
+
+    # The kernel rows on the cost-interpolated volume against plain.
+    checked = []
+    real = cuda_agg.aggregate_batch
+
+    def against_plain(cost, inten, p1, p2):
+        got = real(cost, inten, p1, p2)
+        want = cuda_agg.plain_aggregate_batch(cost, inten, p1, p2)
+        checked.append(int((got.to(torch.int64) - want.to(torch.int64))
+                           .abs().max()))
+        return got
+
+    cuda_agg.aggregate_batch = against_plain
+    try:
+        sgm(True)
+    finally:
+        cuda_agg.aggregate_batch = real
+    if checked != [0]:
+        raise RuntimeError(f"cost_interp: aggregate_batch against plain: "
+                           f"max abs differences {checked}")
+    sgm(False)  # warm-up of the default cost
+    times = {False: [], True: []}
+    launches = None
+    for interp in (False, True, True, False):
+        cuda_agg.reset_launches()
+        depth, seconds = sgm(interp)
+        times[interp].append(seconds)
+        if interp:
+            launches = dict(cuda_agg.launches)
+            interp_depth = depth
+        else:
+            default_depth = depth
+    _rows_launched("cost_interp", launches)
+    out = {"launches": launches, "aggregate_batch_max_abs_err": checked[0],
+           "t_sgm_default": times[False], "t_sgm_cost_interp": times[True]}
+    for key, depth in (("default", default_depth),
+                       ("cost_interp", interp_depth)):
+        m = depth > 0
+        out[key] = {"coverage": float(m.mean()), "median_rel_err": float(
+            np.median(np.abs(depth[m] - gt[m]) / gt[m]))}
+    log(f"cost_interp: {out}")
+    c = out["cost_interp"]
+    if not (c["coverage"] >= COST_INTERP_MIN_COVERAGE
+            and c["median_rel_err"] <= COST_INTERP_MAX_ERR):
+        raise RuntimeError(f"cost_interp SGM depth: {c}; the bar is "
+                           f"coverage >= {COST_INTERP_MIN_COVERAGE}, median "
+                           f"relative error <= {COST_INTERP_MAX_ERR}")
+    return out
+
+
+def phase_debug_cli() -> dict:
+    """Phase 17(e): the CLI with -d 2 -S on 4 plane views of 320^2."""
+    scene = syn.make_plane_scene(n_views=4, dim=DEBUG_DIM)
+    with tempfile.TemporaryDirectory() as path:
+        syn.save_as_mve_scene(scene, path)
+        res = run_cli("cli -d 2 -S", path, scene, ("-d", "2", "-S"),
+                      "smvs-S0.ply", ("fused_pass", "fused_pass_batch"),
+                      embedding="smvs-S0")
+        views = sc.Scene.load(path).views
+        for v in views:
+            for name in (*DEBUG_IMAGES, "smvs-S0"):
+                if not v.has_embedding(name):
+                    raise RuntimeError(f"cli -d 2 -S: view {v.view_id} has "
+                                       f"no {name}")
+                if not np.isfinite(np.asarray(v.get_image(name))).all():
+                    raise RuntimeError(f"cli -d 2 -S: view {v.view_id}'s "
+                                       f"{name} is not finite")
+    groups = _groups(res["text"])
+    if not groups or any(kind != "sequential" for _, kind in groups):
+        raise RuntimeError(f"cli -d 2 -S: groups {groups}; -d 2 runs every "
+                           "view alone")
+    out = _summary(res)
+    out["groups"] = groups
+    out["views"] = len(views)
+    return out
+
+
+def phase_drivers() -> dict:
+    """Phase 17: the benchmark drivers, cost_interp and -d 2 -S."""
+    t0 = time.perf_counter()
+    out = {}
+    for key, phase in (("bench", phase_bench),
+                       ("bench_scene", phase_bench_scene),
+                       ("bench_dtu", phase_bench_dtu),
+                       ("cost_interp", phase_cost_interp),
+                       ("cli_debug", phase_debug_cli)):
+        t1 = time.perf_counter()
+        out[key] = phase()
+        out[key]["phase_seconds"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    log(f"drivers phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     set_cuda_precision()
     device, card = phase_card()
@@ -1746,6 +1975,7 @@ def main() -> int:
     dist = phase_dist(captured)
     split = phase_split(main_details, captured)
     del captured, main_details
+    drivers = phase_drivers()
     main_path = "bench_main.run_once(1440, 2): rectified SGM"
     path_launches = {  # (path, launches on it)
         "fused_pass": (main_path, main_launches["fused_pass"]),
@@ -1806,6 +2036,7 @@ def main() -> int:
                       "cli_batch": batch_cli}), flush=True)
     print(json.dumps({"dist": dist}, default=str), flush=True)
     print(json.dumps({"split": split}, default=str), flush=True)
+    print(json.dumps({"drivers": drivers}, default=str), flush=True)
     print(card, flush=True)  # beside the numbers of the lines around it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -34,7 +34,7 @@ from torch.profiler import record_function
 
 from smvs_tpu_torch.core.synthetic import (make_plane_scene,
                                            make_two_view_scene)
-from smvs_tpu_torch.device import resolve_device, synchronize
+from smvs_tpu_torch.device import device_name, resolve_device, synchronize
 from smvs_tpu_torch.pipeline import optimizer as O
 from smvs_tpu_torch.pipeline.views import make_view
 from smvs_tpu_torch.sgm import stereo as sgm
@@ -222,8 +222,7 @@ def main(argv=None) -> int:
     run(args.dim, args.min_scale, dev)  # warm-up
     t_sgm, t_opt, cov, err = run(args.dim, args.min_scale, dev,
                                  verbose=True)
-    out = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
-           else "cpu", "path": run.__name__, "dim": args.dim,
+    out = {"device": device_name(dev), "path": run.__name__, "dim": args.dim,
            "t_sgm": t_sgm, "t_opt": t_opt,
            "mps": args.dim * args.dim / 1e6 / (t_sgm + t_opt),
            "coverage": cov, "median_rel_err": err}

@@ -17,7 +17,9 @@ the JAX CLI reads them: the optimizer works on their luminance, the
 shading image and the fused colors come from the RGB image, and the SGM
 init takes gray views only, so a color scene needs ``--no-sgm`` (it
 raises NotImplementedError otherwise, where the JAX CLI fails in its
-SGM). ``-d`` above 1 (debug image sinks) raises NotImplementedError.
+SGM). ``-d`` above 1 writes the optimizer's debug images as embeddings
+of each view and runs every view alone (no batching), each stage
+synchronized for its time.
 
 Views are optimized in groups, as the JAX CLI groups them: buckets keyed
 by the padded working dims and the neighbor count, split into groups of
@@ -126,9 +128,6 @@ def parse_view_list(spec: str, n: int) -> list[int]:
 
 def main(argv=None) -> int:
     conf = build_parser().parse_args(argv)
-    if conf.debug_lvl > 1:
-        raise NotImplementedError("not ported yet: -d above 1 (debug image "
-                                  "sinks): ROADMAP.md queue 1, item 8")
     dev = resolve_device(conf.device)
 
     scene = sc.Scene.load(conf.scene)
@@ -359,6 +358,12 @@ def main(argv=None) -> int:
         with timer.stage("splat"):
             return None, prepare_splat(i, oh, ow, main_v.height, main_v.width)
 
+    def debug_sink(i):
+        """Under -d above 1: writes view i's debug images as embeddings."""
+        def sink(name, img):
+            by_id[i].set_image(name, img.cpu().numpy().astype(np.float32))
+        return sink if conf.debug_lvl > 1 else None
+
     # Group views into buckets of one shape (the padded working dims and
     # the neighbor count, as the JAX CLI keys them); a group of two or
     # more runs as one batch (the reference's per-view thread fan-out,
@@ -378,7 +383,7 @@ def main(argv=None) -> int:
                              for i in group]
             inits = [prepare_init(i, oh, ow, m)
                      for i, (oh, ow), m in zip(group, dims, mains)]
-            batched = len(group) >= 2
+            batched = len(group) >= 2 and conf.debug_lvl <= 1
             with timer.stage("optimize"):
                 if batched:
                     results = VB.optimize_view_batch(
@@ -389,8 +394,9 @@ def main(argv=None) -> int:
                 else:
                     results = [O.optimize_view(
                         m, subs, opts, sgm_d, device=dev, log=log,
-                        init_depth=init_d) for m, subs, (sgm_d, init_d)
-                        in zip(mains, subs_list, inits)]
+                        init_depth=init_d, debug_sink=debug_sink(i))
+                        for i, m, subs, (sgm_d, init_d)
+                        in zip(group, mains, subs_list, inits)]
                 for i, result, (oh, ow) in zip(group, results, dims):
                     write_result(i, result, oh, ow)
             print(f"Views {group} done in {time.time()-t0:.1f}s "

@@ -273,6 +273,37 @@ class View:
         )
 
 
+def save_legacy_mve(view: View, path: str) -> None:
+    """Write a view as a legacy single-file ``.mve`` container, the layout
+    `View.load_legacy` reads (byte for byte the JAX package's writer); for
+    building legacy scenes to test the migration, as new scenes use the
+    directory layout (`View.save`)."""
+    lines = [f"id {view.view_id}", f"name {view.name}"]
+    cam = view.camera
+    if cam is not None:
+        ext = " ".join(repr(float(v)) for v in
+                       list(cam.rot.reshape(-1)) + list(cam.trans))
+        lines.append(f"camera-ext {ext}")
+        lines.append(f"camera-int {float(cam.flen)!r} "
+                     f"{float(cam.paspect)!r} "
+                     f"{float(cam.ppoint[0])!r} {float(cam.ppoint[1])!r}")
+    payloads = []
+    for name in view.embedding_names():
+        img = np.asarray(view.get_image(name))
+        if img.ndim == 2:
+            img = img[..., None]
+        h, w, c = img.shape
+        code = _DTYPE_TO_TYPE[np.dtype(img.dtype)]
+        lines.append(f"embedding {name} {w} {h} {c} {code}")
+        payloads.append(np.ascontiguousarray(img).tobytes())
+    with open(path, "wb") as f:
+        f.write(LEGACY_MVE_SIGNATURE)
+        f.write(("\n".join(lines) + "\n").encode("ascii"))
+        f.write(b"end_headers\n")
+        for p in payloads:
+            f.write(p)
+
+
 # ---------------------------------------------------------------------------
 # bundle (SfM features)
 

@@ -314,6 +314,35 @@ def forward_cameras() -> list[Camera]:
             for c in centers]
 
 
+def degrade_scene(
+    scene: SyntheticScene,
+    noise_std: float = 0.0,
+    exposure_delta: float = 0.0,
+    gamma_err: float = 0.0,
+    seed: int = 0,
+) -> SyntheticScene:
+    """Photo-like degradations of the images, the cameras and depths
+    untouched: ``gamma_err`` a per-view exponent error image **
+    (1 + gamma_err * u_i), ``exposure_delta`` a per-view gain
+    1 + exposure_delta * u_i (u_i evenly spaced in [-1, 1] over the
+    views), ``noise_std`` i.i.d. Gaussian sensor noise drawn from
+    ``seed``, in that order, then clipped to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    n = len(scene.images)
+    us = np.linspace(-1.0, 1.0, n) if n > 1 else np.zeros(1)
+    images = []
+    for i, img in enumerate(scene.images):
+        out = np.asarray(img, np.float64)
+        if gamma_err:
+            out = np.clip(out, 0.0, None) ** (1.0 + gamma_err * us[i])
+        if exposure_delta:
+            out = out * (1.0 + exposure_delta * us[i])
+        if noise_std:
+            out = out + rng.normal(size=out.shape) * noise_std
+        images.append(np.clip(out, 0.0, 1.0).astype(np.float32))
+    return dataclasses.replace(scene, images=images)
+
+
 def save_as_mve_scene(scene: SyntheticScene, path: str,
                       n_features: int = 200) -> None:
     """Write the synthetic scene as an on-disk MVE scene (views + bundle).

@@ -48,3 +48,10 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name (`torch.cuda.get_device_name`), or "cpu"."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"

@@ -40,3 +40,13 @@ def normal_divergence(x, y, flen, w, dx, dy, dxy, dxx, dyy):
     zx = (ax * n - a * nx) / (t * flen)
     zy = (ay * n - a * ny) / (t * flen)
     return torch.stack([xx, -yx, zx, xy, -yy, zy], dim=-1)
+
+
+def mean_curvature(dx, dy, dxy, dxx, dyy):
+    """Mean curvature of the graph surface; reference
+    `lib/surface_derivative.cc:193-203`."""
+    dx2 = dx * dx
+    dy2 = dy * dy
+    c = (1.0 + dx2) * dyy - 2.0 * dx * dy * dxy + (1.0 + dy2) * dxx
+    denom = 1.0 + dx2 + dy2
+    return c / torch.sqrt(denom * denom * denom)

@@ -193,6 +193,34 @@ def bilinear_packed4(img4: torch.Tensor, x: torch.Tensor, y: torch.Tensor
     return (top * (1 - fy) + bot * fy).reshape(shape)
 
 
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once, like a fused multiply-add.
+
+    XLA's CPU compile fuses some of the JAX package's products and sums
+    into FMAs (the SGM sweep's shift ramp and plane blend, the warps'
+    bilinear blends), and a census flips a bit on a one-ulp difference,
+    so the port rounds those the same way on every device: float64 holds
+    the float32 product exactly.
+    """
+    if a.dtype != torch.float32:
+        return a * b + c
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def bilinear_packed4_fma(img4: torch.Tensor, x: torch.Tensor, y: torch.Tensor
+                         ) -> torch.Tensor:
+    """`bilinear_packed4` with each blend ``a * (1 - f) + b * f`` as XLA
+    fuses it in a compiled warp: ``fma(b, f, a * (1 - f))``, the last one
+    as ``fma(top, 1 - fy, bot * fy)``."""
+    h, w = img4.shape[0], img4.shape[1]
+    shape = x.shape
+    x0, y0, fx, fy = _corners(x.reshape(-1), y.reshape(-1), w, h)
+    rows = img4.reshape(h * w, 4)[y0 * w + x0]  # [M, 4]
+    top = fma(rows[:, 1], fx, rows[:, 0] * (1 - fx))
+    bot = fma(rows[:, 3], fx, rows[:, 2] * (1 - fx))
+    return fma(top, 1 - fy, bot * fy).reshape(shape)
+
+
 def pack_gradhess(grad: torch.Tensor, hess: torch.Tensor) -> torch.Tensor:
     """Stack grad [2, H, W] + hess [3, H, W] into one [H, W, 5] image with
     channels (Ix, Iy, Ixx, Ixy, Iyy)."""

@@ -30,6 +30,7 @@ from smvs_tpu_torch.geometry import correspondence as corr
 from smvs_tpu_torch.image import bilateral
 from smvs_tpu_torch.image import ops as iops
 from smvs_tpu_torch.pipeline.views import StereoViewState
+from smvs_tpu_torch.shading import lighting as L
 from smvs_tpu_torch.shading.lighting import fit_lighting
 from smvs_tpu_torch.solver import cg, gn, mg, stencil
 from smvs_tpu_torch.surface import bicubic
@@ -879,7 +880,8 @@ class DepthResult:
 def optimize_view(main: StereoViewState, subs: list[StereoViewState],
                   opts: OptimizerOptions, sgm_depth=None,
                   device: str | torch.device | None = None,
-                  log=None, init_depth=None) -> DepthResult:
+                  log=None, init_depth=None, init_surface=None,
+                  debug_sink=None) -> DepthResult:
     """Coarse-to-fine optimization of one view (reference
     `DepthOptimizer::optimize`, `lib/depth_optimizer.cc:53-162`).
 
@@ -887,22 +889,40 @@ def optimize_view(main: StereoViewState, subs: list[StereoViewState],
     views must live. With ``opts.use_sgm`` it starts from ``sgm_depth``
     [H, W], the SGM z-depth map (bilateral-filtered, which also feeds the
     visibility z-buffer); without, from ``init_depth`` [H, W], a sparse
-    z-depth prior (the bundle's feature splats), a scale coarser.
+    z-depth prior (the bundle's feature splats), a scale coarser. An
+    ``init_surface`` (a `Surface`, e.g. `S.create_planar`) is the
+    starting surface instead, and subdivision then fills no patch from a
+    depth map.
+
+    With ``opts.debug_lvl`` above 1, ``debug_sink(name, image)`` receives
+    the debug images the JAX package writes: "smvs-sgm-filtered",
+    "smvs-initial" and, under shading, "smvs-shaded",
+    "smvs-shaded-sphere" and "smvs-implicit-albedo".
     """
     dev = resolve_device(device)
     for v in [main, *subs]:
         if v.device != dev:
             raise ValueError(f"view {v.view_id} lives on {v.device}, "
                              f"not on {dev}")
+    if debug_sink is None or opts.debug_lvl <= 1:
+        debug_sink = lambda name, img: None  # noqa: E731
     dtype = torch.float32
     scale0 = initial_scale(main.width, main.height)
-    if opts.use_sgm:
+    if init_surface is not None:
+        surf = init_surface
+        fill_src = None
+        # the SGM z-buffer, if any, from the unfiltered map
+        zb_src = None if sgm_depth is None else \
+            torch.as_tensor(sgm_depth, device=dev).to(dtype)
+    elif opts.use_sgm:
         if sgm_depth is None:
             raise ValueError("use_sgm needs an sgm_depth")
         sgm = torch.as_tensor(sgm_depth, device=dev).to(dtype)
         fill_src = bilateral.depthmap_bilateral_filter(sgm,
                                                        main.image.to(dtype))
+        zb_src = fill_src
         surf = S.create_from_depth(fill_src, scale0)
+        debug_sink("smvs-sgm-filtered", fill_src)
     else:
         if init_depth is None:
             raise ValueError("without use_sgm the optimizer needs an "
@@ -925,10 +945,10 @@ def optimize_view(main: StereoViewState, subs: list[StereoViewState],
         if not opts.use_sgm:
             ncc_images = (main.at_scale(surf.scale).image, torch.stack(
                 [s.at_scale(surf.scale).image for s in subs]))
-        elif sgm_zb is None:
+        elif sgm_zb is None and zb_src is not None:
             # Scale-invariant (blur keeps resolution and the reprojections
             # fixed): scatter the SGM z-buffer once per view.
-            sgm_zb = zbuffer_scatter(view, fill_src)
+            sgm_zb = zbuffer_scatter(view, zb_src)
         if opts.use_shading and surf.scale < 4:
             # Refit the lighting to this scale's (subdivided) surface; the
             # coarser scales run without the shading term.
@@ -941,11 +961,13 @@ def optimize_view(main: StereoViewState, subs: list[StereoViewState],
                                      log=log, timer=timer, lighting=lighting,
                                      ncc_images=ncc_images)
 
+    debug_sink("smvs-initial", S.depth_map(surf))
     surf = run_scale(surf)
     while surf.scale > opts.min_scale and surf.scale > 0:
         with timer.stage(f"subdivide@s{surf.scale}"):
             surf = S.subdivide(surf)
-            surf = S.fill_patches_from_depth(surf, fill_src)
+            if fill_src is not None:
+                surf = S.fill_patches_from_depth(surf, fill_src)
         surf = run_scale(surf)
 
     with timer.stage("extract"):
@@ -953,5 +975,27 @@ def optimize_view(main: StereoViewState, subs: list[StereoViewState],
         normals = S.normal_map(surf, 1.0 / main.flen())
     if log:
         log(timer.report())
+    if lighting is not None:
+        shaded = L.render_normal_map(lighting, normals)
+        debug_sink("smvs-shaded", shaded)
+        debug_sink("smvs-shaded-sphere", render_lighting_sphere(lighting))
+        shading_img, _ = main.shading_images()
+        debug_sink("smvs-implicit-albedo", torch.where(
+            shaded > 0, shading_img.to(shaded.dtype)
+            / torch.clamp(shaded, min=1e-6), 0.0))
     return DepthResult(depth=depth, normals=normals, surface=surf,
                        lighting=lighting)
+
+
+def render_lighting_sphere(params: torch.Tensor, size: int = 555
+                           ) -> torch.Tensor:
+    """The lighting rendered on a unit sphere seen head-on, a debug image
+    (reference `GlobalLighting::get_rendered_sphere`,
+    `lib/global_lighting.cc:48-75`)."""
+    t = (torch.arange(size, dtype=params.dtype, device=params.device)
+         + 0.5) / size * 2.0 - 1.0
+    v, u = torch.meshgrid(t, t, indexing="ij")
+    r2 = u * u + v * v
+    nz = torch.sqrt(torch.clamp(1.0 - r2, min=0.0))
+    val = L.value_for_normal(params, torch.stack([u, v, -nz], dim=-1))
+    return torch.where(r2 <= 1.0, val, 0.0)

@@ -171,6 +171,10 @@ def warp_homography(img: torch.Tensor, H_inv: torch.Tensor,
 
     Output pixel (x, y) samples the input at ``H_inv @ (x+0.5, y+0.5, 1)``
     (bilinear, zero outside); ``out_width`` renders onto a wider canvas.
+    Rounded as the JAX package's compiled warp: the homography's linear
+    forms in plain float32, the bilinear blends as fused multiply-adds
+    (`iops.bilinear_packed4_fma`), so the census of a rectified image
+    reads the same bits.
     """
     h, w = img.shape
     ow = w if out_width is None else out_width
@@ -185,5 +189,5 @@ def warp_homography(img: torch.Tensor, H_inv: torch.Tensor,
     px = px / pz - 0.5
     py = py / pz - 0.5
     ok = (pz > 0) & (px >= 0) & (py >= 0) & (px <= w - 1) & (py <= h - 1)
-    return torch.where(ok, iops.bilinear_packed4(iops.pack_window4(img),
-                                                 px, py), 0.0)
+    return torch.where(ok, iops.bilinear_packed4_fma(iops.pack_window4(img),
+                                                     px, py), 0.0)

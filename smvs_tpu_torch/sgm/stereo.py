@@ -4,7 +4,9 @@
 - 9x7 census transform held as one int64 word of 63 bits (the JAX
   package packs the same bits into two uint32 words);
 - the rectified path (`reconstruct_rectified`): per-plane census Hamming
-  cost over fractional x-shifts of the rectified neighbor, both SGM
+  cost over fractional x-shifts of the rectified neighbor (or, with
+  `SGMOptions.cost_interp`, the Hamming costs of the integer shifts
+  interpolated, one census per image), both SGM
   directions aggregated in one `cuda_agg.aggregate_batch` call, sub-pixel
   WTA, bidirectional consistency and un-rectify;
 - the general-warp path (`reconstruct`) for pairs that do not rectify
@@ -48,7 +50,8 @@ class SGMOptions:
     max_depth: float = 0.0
     penalty1: int = 6
     penalty2: int = 96
-    # Cost-space interpolation of the rectified sweep; not ported yet.
+    # Cost-space interpolation of the rectified sweep
+    # (`_disparity_cost_interp`); the general warp ignores it.
     cost_interp: bool = False
 
 
@@ -107,19 +110,6 @@ def _hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _popcount63(a ^ b)
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded once, like a fused multiply-add.
-
-    XLA fuses the sweep's shift ramp and plane blend into FMAs, and the
-    census of a blended plane flips a bit on a one-ulp difference, so the
-    port rounds these two the same way on every device: float64 holds the
-    float32 product exactly.
-    """
-    if a.dtype != torch.float32:
-        return a * b + c
-    return (a.double() * b.double() + c.double()).to(torch.float32)
-
-
 def _disparity_cost(m_census: torch.Tensor, nbr_img: torch.Tensor,
                     shifts: torch.Tensor, out: torch.Tensor | None = None
                     ) -> torch.Tensor:
@@ -147,10 +137,46 @@ def _disparity_cost(m_census: torch.Tensor, nbr_img: torch.Tensor,
         t0 = torch.stack([pimg[:, s : s + w] for s in starts[c0:c1]])
         t1 = torch.stack([pimg[:, s - 1 : s - 1 + w] for s in starts[c0:c1]])
         a = frac[c0:c1, None, None]
-        warped = torch.where((t0 != 0) & (t1 != 0), _fma(1 - a, t0, a * t1),
-                             0.0)
+        warped = torch.where((t0 != 0) & (t1 != 0),
+                             iops.fma(1 - a, t0, a * t1), 0.0)
         cost = _hamming(m_census, census_transform(warped))
         cost = torch.where(warped != 0, cost, INVALID_COST)
+        out[..., c0:c1] = cost.permute(1, 2, 0).to(torch.int16)
+    return out
+
+
+def _disparity_cost_interp(m_census: torch.Tensor, nbr_img: torch.Tensor,
+                           shifts: torch.Tensor,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """`_disparity_cost` by cost-space interpolation: the neighbor's census
+    is taken once, and each plane lerps the Hamming costs at its two
+    bracketing integer shifts by the fractional part and rounds (half to
+    even, as `jnp.round`), which skips the per-plane census transforms.
+    Validity as in the blend path: both tapped samples nonzero."""
+    h, w = m_census.shape
+    wn = nbr_img.shape[1]
+    D = shifts.shape[0]
+    P = w + wn
+    pimg = torch.nn.functional.pad(nbr_img, (P, P))
+    pcen = torch.nn.functional.pad(census_transform(nbr_img), (P, P))
+    si = torch.floor(shifts).to(torch.int32)
+    frac = shifts - si.to(shifts.dtype)
+    starts = torch.clamp(P - si, 1, P + wn).tolist()
+    if out is None:
+        out = torch.empty((h, w, D), dtype=torch.int16, device=nbr_img.device)
+    for c0 in range(0, D, _PLANE_CHUNK):
+        c1 = min(D, c0 + _PLANE_CHUNK)
+
+        def taps(img, k):
+            return torch.stack([img[:, s - k : s - k + w]
+                                for s in starts[c0:c1]])
+
+        a = frac[c0:c1, None, None]
+        cost0 = _hamming(m_census, taps(pcen, 0)).to(a.dtype)
+        cost1 = _hamming(m_census, taps(pcen, 1)).to(a.dtype)
+        cost = torch.round((1 - a) * cost0 + a * cost1)
+        cost = torch.where((taps(pimg, 0) != 0) & (taps(pimg, 1) != 0),
+                           cost.to(torch.int32), INVALID_COST)
         out[..., c0:c1] = cost.permute(1, 2, 0).to(torch.int16)
     return out
 
@@ -163,25 +189,10 @@ def _warp_fma(M: torch.Tensor, t: torch.Tensor, u, v, w):
     p = M[0, 0] * u + M[0, 1] * v + M[0, 2]
     q = M[1, 0] * u + M[1, 1] * v + M[1, 2]
     r = M[2, 0] * u + M[2, 1] * v + M[2, 2]
-    a = _fma(w, p, t[0])
-    b = _fma(w, q, t[1])
-    d = _fma(w, r, t[2])
+    a = iops.fma(w, p, t[0])
+    b = iops.fma(w, q, t[1])
+    d = iops.fma(w, r, t[2])
     return a / d, b / d, d
-
-
-def _bilinear_fma(img4: torch.Tensor, x: torch.Tensor, y: torch.Tensor
-                  ) -> torch.Tensor:
-    """`ops.bilinear_packed4` with each blend ``a * (1 - f) + b * f`` as
-    XLA fuses it: ``fma(b, f, a * (1 - f))``, the last one as
-    ``fma(top, 1 - fy, bot * fy)``. The census turns a one-ulp difference
-    of a sample into whole bits, so the port rounds the same way."""
-    h, w = img4.shape[0], img4.shape[1]
-    shape = x.shape
-    x0, y0, fx, fy = iops._corners(x.reshape(-1), y.reshape(-1), w, h)
-    rows = img4.reshape(h * w, 4)[y0 * w + x0]  # [M, 4]
-    top = _fma(rows[:, 1], fx, rows[:, 0] * (1 - fx))
-    bot = _fma(rows[:, 3], fx, rows[:, 2] * (1 - fx))
-    return _fma(top, 1 - fy, bot * fy).reshape(shape)
 
 
 def cost_volume(main_img: torch.Tensor, neighbor_img: torch.Tensor,
@@ -216,7 +227,8 @@ def cost_volume(main_img: torch.Tensor, neighbor_img: torch.Tensor,
         py = py - 0.5
         ok = (depth_n > 0) & (px >= 0) & (py >= 0) & (px <= wn - 1) & \
             (py <= hn - 1)
-        warped = torch.where(ok, _bilinear_fma(nbr_win4, px, py), 0.0)
+        warped = torch.where(ok, iops.bilinear_packed4_fma(nbr_win4, px, py),
+                             0.0)
         cost = _hamming(m_census, census_transform(warped))
         cost = torch.where(warped != 0, cost, INVALID_COST)
         out[..., c0 : c0 + d.shape[0]] = cost.permute(1, 2, 0).to(torch.int16)
@@ -339,7 +351,8 @@ def _wta_subpixel(agg: torch.Tensor, raw_cost: torch.Tensor,
 
 
 def _rectified_sgm(main_r, nbr_r, hinv_nbr, H_main, L_main, fB, off,
-                   disp0, dstep, shifts, p1: int, p2: int) -> torch.Tensor:
+                   disp0, dstep, shifts, p1: int, p2: int,
+                   cost_interp: bool = False) -> torch.Tensor:
     """Bidirectional SGM in the rectified frame -> main-view z-depth.
 
     main_r [H, W] / nbr_r [H, W + 2*nbr_pad]: rectified intensities (0..255,
@@ -363,8 +376,9 @@ def _rectified_sgm(main_r, nbr_r, hinv_nbr, H_main, L_main, fB, off,
     # line restarts the recurrence).
     vol = torch.full((2, h, wn, D), INVALID_COST, dtype=torch.int16,
                      device=dev)
-    _disparity_cost(m_c, nbr_r, shifts, out=vol[0, :, :w])
-    _disparity_cost(n_c, main_r, -shifts, out=vol[1])
+    cost_fn = _disparity_cost_interp if cost_interp else _disparity_cost
+    cost_fn(m_c, nbr_r, shifts, out=vol[0, :, :w])
+    cost_fn(n_c, main_r, -shifts, out=vol[1])
     im = torch.nn.functional.pad(main_r, (0, wn - w))
     inten = torch.stack([im, nbr_r]).to(torch.int32)
     agg2 = cuda_agg.aggregate_batch(vol, inten, p1, p2)
@@ -449,7 +463,8 @@ def _rectified_sgm(main_r, nbr_r, hinv_nbr, H_main, L_main, fB, off,
 
 
 def _rectified_sgm_packed(main_img, nbr_img, params, num_steps: int,
-                          p1: int, p2: int, nbr_pad: int = 0):
+                          p1: int, p2: int, cost_interp: bool = False,
+                          nbr_pad: int = 0):
     """Warps + sweep + consistency for one pair.
 
     ``params`` packs the per-pair scalars into one f32[34] tensor:
@@ -466,10 +481,10 @@ def _rectified_sgm_packed(main_img, nbr_img, params, num_steps: int,
     main_r = R.warp_homography(main_img, hinv_m)
     nbr_r = R.warp_homography(nbr_img, hinv_n,
                               out_width=main_img.shape[1] + 2 * nbr_pad)
-    shifts = _fma(dstep, torch.arange(num_steps, dtype=f32,
-                                      device=main_img.device), disp0)
+    shifts = iops.fma(dstep, torch.arange(num_steps, dtype=f32,
+                                          device=main_img.device), disp0)
     return _rectified_sgm(main_r, nbr_r, hinv_n, h_main, l_main, fB, off,
-                          disp0, dstep, shifts, p1, p2)
+                          disp0, dstep, shifts, p1, p2, cost_interp)
 
 
 def _pair_params(rp, num_steps: int) -> np.ndarray:
@@ -490,13 +505,11 @@ def reconstruct_rectified(rp: R.RectifiedPair, main_img: torch.Tensor,
     Images are [H, W] intensities on the 0..255 scale in the original
     frames, on the device to run on; the depth map is in the main frame.
     """
-    if opts.cost_interp:
-        raise NotImplementedError(
-            "SGMOptions.cost_interp is not ported yet (ROADMAP.md queue 1)")
     d = opts.num_steps
     params = torch.as_tensor(_pair_params(rp, d), device=main_img.device)
     return _rectified_sgm_packed(main_img, nbr_img, params, d, opts.penalty1,
-                                 opts.penalty2, nbr_pad=rp.nbr_pad)
+                                 opts.penalty2, opts.cost_interp,
+                                 nbr_pad=rp.nbr_pad)
 
 
 def _average_depths(acc: torch.Tensor | None, d: torch.Tensor
@@ -525,9 +538,6 @@ def reconstruct_auto_multi(cam_main, cams_nbr, main_img, nbr_imgs,
     pad enters the neighbor's homography and the sweep, so sharing it
     keeps the depth maps equal to the JAX package's.
     """
-    if opts.cost_interp:
-        raise NotImplementedError(
-            "SGMOptions.cost_interp is not ported yet (ROADMAP.md queue 1)")
     dev = resolve_device(device)
     main_img = torch.as_tensor(main_img, device=dev)
     nbr_imgs = [torch.as_tensor(n, device=dev) for n in nbr_imgs]

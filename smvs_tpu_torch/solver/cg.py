@@ -43,9 +43,10 @@ def solve(
     max_iterations: int = 200,
     error_tolerance: torch.Tensor | float = 1e-20,
     q_tolerance: float = 1e-3,
+    flexible: bool = False,
 ) -> CGResult:
-    """Solve A x = b from x0 = 0 (Fletcher-Reeves beta): `solve_batch`
-    on a batch of one.
+    """Solve A x = b from x0 = 0 (Fletcher-Reeves beta, or with
+    ``flexible`` Polak-Ribiere): `solve_batch` on a batch of one.
 
     The iterate after the exit test equals the JAX loop's; the
     preconditioner apply that JAX computes after its final test is
@@ -55,7 +56,7 @@ def solve(
     res = solve_batch(lambda x: A(x[:, 0])[:, None], b[:, None],
                       lambda x: P(x[:, 0])[:, None], max_iterations,
                       torch.as_tensor(error_tolerance).reshape(1),
-                      q_tolerance)
+                      q_tolerance, flexible=flexible)
     return CGResult(x=res.x[:, 0], iterations=int(res.iterations[0]),
                     residual=res.residual[0])
 
@@ -76,10 +77,17 @@ def solve_batch(
     running: np.ndarray | None = None,
     view_dim: int = 1,
     reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    flexible: bool = False,
 ) -> CGBatchResult:
     """Solve a batch of views' systems A x = b from x0 = 0 (Fletcher-Reeves
     beta), the views on axis ``view_dim`` of ``b`` ([4, V, ny1, nx1] in
     the stencil layout).
+
+    ``flexible`` takes the Polak-Ribiere beta
+    ``<z, r - r_prev> / <z_prev, r_prev>`` (flexible PCG), which stays
+    convergent when the preconditioner varies between applications; the
+    optimizer does not use it (the JAX package measured it stalling the
+    flagship's Newton trajectory).
 
     ``error_tolerance`` is a scalar or one per view [V]; ``running`` [V]
     (host bools, default all) says which views take part: the others keep
@@ -134,6 +142,7 @@ def solve_batch(
         dAd = vdot(d, Ad)
         alpha = torch.where(dAd != 0, rdr / dAd, 0.0).reshape(shape_v)
         x = keep(run, x + alpha * d, x)
+        r_prev = r
         r = keep(run, r - alpha * Ad, r)
         new_rr = vdot(r, r)
         q1 = -vdot(x, b + r)
@@ -149,7 +158,8 @@ def solve_batch(
             run = ~stop if run is None else run & ~stop
         z = P(r)
         new_rdr = vdot(z, r)
-        beta = torch.where(rdr != 0, new_rdr / rdr, 0.0).reshape(shape_v)
+        num = vdot(z, r - r_prev) if flexible else new_rdr
+        beta = torch.where(rdr != 0, num / rdr, 0.0).reshape(shape_v)
         d = keep(run, z + beta * d, d)
         rdr = keep(run, new_rdr, rdr)
         q_prev = keep(run, q1, q_prev)

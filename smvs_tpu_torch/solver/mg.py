@@ -6,9 +6,10 @@ own function space: Hermite-subdivision prolongation, Galerkin coarse
 operators ``A_c = P^T A P`` in closed form on the 9-point block stencil,
 and damped block-Jacobi smoothing: per-node relative row damping for base
 systems, a constant OMEGA for shading systems (`build`'s ``damp_rows``;
-the JAX package's ``SMVS_MG_OMEGA=const`` override has no counterpart
-here). A per-apply guard falls back to damped block-Jacobi when the
-V-cycle is indefinite for a system.
+``SMVS_MG_OMEGA=const`` in the environment, read at import as in the JAX
+package, keeps the constant OMEGA for every system). A per-apply guard
+falls back to damped block-Jacobi when the V-cycle is indefinite for a
+system.
 
 The hierarchy also runs on a grid split by rows over the ranks of a
 ``patch`` group (`build`'s ``split``, a `dist.rows.RowSplit`): each rank
@@ -17,13 +18,15 @@ holds a band of every level's rows, derived from the finer level's band
 products and the smoother's stencil products take one row of halo from
 the neighbor bands. The damping map's median gathers the level's row
 sums, and the guard's sums are summed over the group. From the first
-level on which a rank would hold no row, the levels are gathered whole
-onto every rank and solved there as on one device.
+level on which a rank would hold fewer than `dist.mesh.GATHER_ROWS` (8)
+rows, the levels are gathered whole onto every rank and solved there as
+on one device.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -35,6 +38,9 @@ from smvs_tpu_torch.utils.perview import per_view
 OMEGA = 0.8  # smoother damping ceiling
 COARSE_SWEEPS = 8  # damped-Jacobi sweeps on the coarsest grid
 _ROW_STIFF_FACTOR = 2.0  # rows past this multiple of the median get damped
+# "const" turns the relative row damping off (a constant OMEGA on every
+# system, the guard carrying stiff ones), as in the JAX package.
+_OMEGA_POLICY = os.environ.get("SMVS_MG_OMEGA", "rel")
 
 
 def coarse_size(n: int) -> int:
@@ -282,12 +288,13 @@ def build(Hb: torch.Tensor, active: torch.Tensor, min_size: int = 8,
 
     With ``split`` (a `dist.rows.RowSplit` of the grid's rows), Hb and
     active are this rank's band of them, and so is every level of the
-    hierarchy until a rank would hold no row of one (`RowSplit.banded`):
-    that level and the coarser ones are gathered whole on every rank.
+    hierarchy until a rank would hold fewer than `dist.mesh.GATHER_ROWS`
+    rows of one (`RowSplit.banded`): that level and the coarser ones are
+    gathered whole on every rank.
     """
 
     def omega(H, pinv, sp):
-        if damp_rows:
+        if damp_rows and _OMEGA_POLICY != "const":
             return _node_omega(H, pinv, None if sp is None else sp.gather)
         return torch.full(H.shape[4:], OMEGA, dtype=H.dtype,
                           device=H.device)

@@ -87,3 +87,36 @@ def pixel_basis(patchsize: int, subsample: int = 1, dtype=torch.float32,
         [1.0, 1.0 / s, 1.0 / s, 1.0 / s**2, 1.0 / s**2, 1.0 / s**2],
         dtype=dtype, device=device)
     return rows * scale[None, :, None]
+
+
+def evaluate(params16: torch.Tensor, x, y) -> torch.Tensor:
+    """(f, dx, dy, dxy, dxx, dyy) at unit-cell coords: params16 (..., 16)
+    node-major, x/y broadcastable to its leading shape; returns (..., 6)."""
+    rows = basis_rows(torch.as_tensor(x, dtype=params16.dtype,
+                                      device=params16.device),
+                      torch.as_tensor(y, dtype=params16.dtype,
+                                      device=params16.device))
+    return torch.einsum("...km,...m->...k", rows, params16)
+
+
+def fit_to_data(x: torch.Tensor, y: torch.Tensor, data: torch.Tensor
+                ) -> torch.Tensor:
+    """Least-squares power-basis coefficients alpha[j*4+i] of x^i y^j
+    fitted to samples (reference `lib/bicubic_patch.cc:341-383`): the
+    minimum-norm solution through the SVD, singular values below
+    eps * max(n, 16) of the largest cut, as `jnp.linalg.lstsq` solves it
+    on every device."""
+    px, _, _ = _powers(x)
+    py, _, _ = _powers(y)
+    A = torch.einsum("ni,nj->nji", px, py).reshape(x.shape[0], 16)
+    rtol = torch.finfo(A.dtype).eps * max(A.shape)
+    return torch.linalg.pinv(A, rtol=rtol) @ data
+
+
+def evaluate_power(alpha: torch.Tensor, x, y) -> torch.Tensor:
+    """A power-basis patch (from `fit_to_data`) at (x, y)."""
+    px, _, _ = _powers(torch.as_tensor(x, dtype=alpha.dtype,
+                                       device=alpha.device))
+    py, _, _ = _powers(torch.as_tensor(y, dtype=alpha.dtype,
+                                       device=alpha.device))
+    return torch.einsum("...i,...j,ji->...", px, py, alpha.reshape(4, 4))

@@ -57,6 +57,9 @@ class Surface:
     def num_valid_patches(self) -> int:
         return int(self.patch_valid.sum())
 
+    def num_valid_nodes(self) -> int:
+        return int(self.node_valid.sum())
+
 
 def stack_surfaces(surfs: list[Surface]) -> Surface:
     """Batch surfaces of one grid on a leading view axis (the grid meta

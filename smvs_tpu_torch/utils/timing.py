@@ -8,11 +8,15 @@ anything.
 `host_reads` counts the solver loops' read-backs of exit flags, one per
 PCG iteration ("cg") and one per Newton step ("newton"), whether a loop
 serves one view or a batch; `host_reads.clear()` resets it.
+
+`device_trace` records a block under `torch.profiler` (the counterpart
+of the JAX package's `jax.profiler` trace).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import Counter, defaultdict
 
@@ -56,3 +60,27 @@ class StageTimer:
             lines.append(f"  {name:<28s} {t:8.2f}s  ({c} calls, "
                          f"{t / max(c, 1) * 1000:7.1f} ms avg)")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str | None):
+    """Trace the block with `torch.profiler` (the host and, when a GPU is
+    present, the device) into a Chrome trace file under ``log_dir``;
+    a no-op when ``log_dir`` is empty."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -150,14 +150,64 @@ def test_cli_migrates_legacy_embeddings(runs):
     np.testing.assert_array_equal(v2.get_image("smvs-sgm"), fake)
 
 
-@pytest.mark.parametrize("flags", [["-d", "2"]])
-def test_cli_unported_flags_raise(runs, flags):
-    """`-d` above 1 (the debug image sinks) is not ported. Every other
-    flag is: `-S` and `-R` below, `-g`, `--full-opt`, `-m`, `-y` and
-    `--no-sgm` in tests/test_torch_cli_modes.py and
-    tests/test_torch_cli_color.py."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcli.main([runs["tpath"], "--device", "cpu", *flags])
+# The debug images `-d` above 1 writes, beside the depth and normal maps.
+DEBUG_DEPTHS = ("smvs-sgm-filtered", "smvs-initial")
+DEBUG_SHADING = ("smvs-shaded", "smvs-shaded-sphere", "smvs-implicit-albedo")
+
+
+def _depth_bar(got, want):
+    """The optimizer bound above: the same mask, rtol 1.5e-3, fewer than
+    10% of pixels drifting by > 2e-4."""
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got > 0, want > 0)
+    m = want > 0
+    assert m.mean() > 0.6
+    np.testing.assert_allclose(got[m], want[m], rtol=1.5e-3)
+    rel = np.abs(got[m] - want[m]) / np.abs(want[m])
+    assert (rel > 2e-4).mean() < 0.1
+
+
+@pytest.mark.parametrize("flags", [["-d", "2"], ["-d", "2", "-S"]])
+def test_cli_unported_flags_raise(runs, shading_runs, flags):
+    """`-d 2` (and with `-S`), once unported, against the JAX CLI on views
+    1 and 2 of the scene, which `-d 2` runs one at a time (a group of two
+    without it): on view 1 the same embeddings, the debug depth maps within the
+    optimizer bound above, and the depth map the port's `-d 0` run wrote
+    (batched there, alone here) bit for bit. Under `-S` the debug
+    renders of the fitted lighting are held by class, as the shading
+    endpoint is (`test_cli_shading_matches_jax_class`): finite, their
+    means within 2% and their median difference within 5% of JAX's
+    median (measured: 0.02-0.6% and 0.1-1.7%)."""
+    shading = "-S" in flags
+    done = shading_runs if shading else runs
+    out = "smvs-S0" if shading else "smvs-B0"
+    jpath, tpath = (str(runs["root"] / f"debug{len(flags)}_{k}")
+                    for k in ("j", "t"))
+    shutil.copytree(done["jpath"], jpath)
+    shutil.copytree(done["tpath"], tpath)
+    args = [*flags, "-l", "1-2", "-r", "-f", *ARGS]
+    jrc, _ = _run(jcli.main, [jpath, "--platform", "cpu", *args])
+    trc, tout = _run(tcli.main, [tpath, "--device", "cpu", *args])
+    assert jrc == 0 and trc == 0
+    assert "(3 neighbors, sequential)" in tout and "Views [1, 2]" in tout
+    jv, tv = (jsc.Scene.load(p).views[1] for p in (jpath, tpath))
+    names = set(tv.embedding_names())
+    assert names == set(jv.embedding_names())
+    assert names >= {*DEBUG_DEPTHS, *(DEBUG_SHADING if shading else ())}
+    for name in DEBUG_DEPTHS:
+        _depth_bar(np.asarray(tv.get_image(name)),
+                   np.asarray(jv.get_image(name)))
+    np.testing.assert_array_equal(
+        np.asarray(tv.get_image(out)),
+        _embeddings(done["tpath"], out)[1])
+    for name in DEBUG_SHADING if shading else ():
+        got = np.asarray(tv.get_image(name), np.float64)
+        want = np.asarray(jv.get_image(name), np.float64)
+        assert got.shape == want.shape and np.isfinite(got).all()
+        m = want != 0
+        assert abs(got[m].mean() - want[m].mean()) <= 0.02 * want[m].mean()
+        assert np.median(np.abs(got[m] - want[m])) <= \
+            0.05 * np.median(np.abs(want[m]))
 
 
 @pytest.fixture(scope="module")

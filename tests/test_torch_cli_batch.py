@@ -103,8 +103,9 @@ def test_center_pair_cost_is_the_jax_census_of_the_same_planes():
     warps, the port's cost volume equals the JAX package's census and
     Hamming cost of the same blended planes, compiled plane by plane. So
     what keeps the CLIs' SGM depths of views 1 and 3 apart is how XLA
-    rounds (the warps' blends fused into FMAs, the plane blend inside its
-    census fusion), not the port's census."""
+    rounds the plane blend inside its census fusion, not the port's
+    census (the port's rectifying warps equal these compiled ones bit for
+    bit, tests/test_torch_sgm.py)."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -132,7 +133,7 @@ def test_center_pair_cost_is_the_jax_census_of_the_same_planes():
         jnp.asarray(half[2].numpy()), jnp.asarray(params[9:18]).reshape(3, 3),
         out_width=w + 2 * rp.nbr_pad)))
 
-    shifts = tst._fma(P[33], torch.arange(128, dtype=torch.float32), P[32])
+    shifts = tops.fma(P[33], torch.arange(128, dtype=torch.float32), P[32])
     cost = tst._disparity_cost(tst.census_transform(main_r), nbr_r, shifts)
 
     @jax.jit
@@ -150,7 +151,7 @@ def test_center_pair_cost_is_the_jax_census_of_the_same_planes():
     for d, s in enumerate(torch.clamp(pad - si, 1, pad + wn).tolist()):
         t0, t1 = pimg[:, s:s + w], pimg[:, s - 1:s - 1 + w]
         warped = torch.where((t0 != 0) & (t1 != 0),
-                             tst._fma(1 - frac[d], t0, frac[d] * t1), 0.0)
+                             tops.fma(1 - frac[d], t0, frac[d] * t1), 0.0)
         np.testing.assert_array_equal(
             cost[..., d].numpy(),
             np.asarray(plane_cost(jnp.asarray(warped.numpy()), m_hi, m_lo)))

@@ -206,6 +206,63 @@ def test_rectify_and_warp_homography_match():
     np.testing.assert_array_equal(got == 0, want == 0)
 
 
+def _warp_pair(name):
+    """(main image, neighbor image, rectified pair) of the rotated 64 px
+    two-view scene above, or of views 1 and 2 of the 5-view 160 px plane
+    scene of tests/test_torch_cli_batch.py at its SGM scale (80 px)."""
+    from smvs_tpu_torch.image import ops as tops
+
+    if name == "two_view_64":
+        ts = tsyn.make_two_view_scene(dim=64, rotate=True, texture="noise")
+        rp = trect.rectify_pair(ts.cameras[1], ts.cameras[0], 64, 64,
+                                (3.5, 9.5), (3.5, 9.5))
+        return ts.images[1] * 255.0, ts.images[0] * 255.0, rp
+    scene = tsyn.make_plane_scene(n_views=5, dim=160)
+    main, nbr = (tops.rescale_half_size(torch.as_tensor(
+        np.clip(scene.images[i] * 255.0, 0, 255).astype(np.uint8)
+        .astype(np.float32))).numpy() for i in (1, 2))
+    rp = trect.rectify_pair(scene.cameras[1], scene.cameras[2], 80, 80,
+                            (3.4, 25.8), (3.4, 25.6))
+    return main, nbr, rp
+
+
+@pytest.mark.parametrize("name", ["two_view_64", "plane_160"])
+def test_warp_homography_rounds_as_the_compiled_jax_warp(name):
+    """Both rectified images bit-equal to the JAX package's compiled warp,
+    which XLA compiles with its bilinear blends fused into multiply-adds
+    (`iops.bilinear_packed4_fma`; unfused, 882-1310 pixels of these main
+    images fall one ulp apart). The JAX pipeline compiles the warp inside
+    `_rectified_sgm_packed`: its depth map equals `_rectified_sgm` run on
+    the standalone compiled warps, so it reads the same bits there."""
+    import jax
+
+    main, nbr, rp = _warp_pair(name)
+    assert rp.valid
+    params = tst._pair_params(rp, 128)
+    w = main.shape[1]
+    warps = []
+    for img, hinv, ow in ((main, params[0:9], None),
+                          (nbr, params[9:18], w + 2 * rp.nbr_pad)):
+        want = jrect.warp_homography(jnp.asarray(img),
+                                     jnp.asarray(hinv).reshape(3, 3),
+                                     out_width=ow)
+        got = trect.warp_homography(torch.from_numpy(img),
+                                    torch.from_numpy(hinv).reshape(3, 3),
+                                    out_width=ow)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        warps.append(want)
+    P = jnp.asarray(params)
+    shifts = jax.jit(lambda p: p[32] + p[33] * jnp.arange(
+        128, dtype=jnp.float32))(P)
+    alone = jst._rectified_sgm(
+        *warps, P[9:18].reshape(3, 3), P[18:27].reshape(3, 3), P[27:30],
+        P[30], P[31], P[32], P[33], shifts, 6, 96, False)
+    packed = jst._rectified_sgm_packed(
+        jnp.asarray(main), jnp.asarray(nbr), P, 128, 6, 96, False,
+        nbr_pad=rp.nbr_pad)
+    np.testing.assert_array_equal(np.asarray(packed), np.asarray(alone))
+
+
 def test_reconstruct_auto_matches_jax_dim96():
     dim = 96
     slope = 0.005 * 460.0 / dim

@@ -1,7 +1,7 @@
 """Reference results of the JAX package, on the CPU, for the limits that
 `chip_smoke.py` holds the PyTorch/CUDA port to.
 
-Ten configurations, each at a dimension the caller picks (the card
+Thirteen configurations, each at a dimension the caller picks (the card
 runs them at 1440, 1280 (the CLI ones) and 1440; a CPU run at that size
 holds many GB, so the reference is mostly taken at a smaller one and the
 script's output says which):
@@ -90,8 +90,25 @@ on a (1, P) mesh of gloo ranks on the CPU against its unsharded batch.
 (views 0, 2, 4 and 6, each against one neighbor, from their analytic
 depths, down to scale 3), batched: where the Newton and PCG exits differ.
 
+`costinterp`: `stereo.reconstruct_auto` with `SGMOptions(cost_interp=True)`
+(the cost-space interpolated cost volume) on `bench.py:run_once`'s
+two-view scene at dim: the SGM depth map's coverage and median relative
+error against the analytic depth, and the same for the default cost.
+
+`scene`: the JAX repository's `bench_scene.py` (10 plane views of dim,
+SGM against the 2 nearest, `optimize_view_batch` in groups of 5, a warm
+pass), its JSON line. `dtu`: `bench_dtu.py` on 10 views of its camera
+grid, 7 of dim and 3 of dim * 1280 / 1440 (two shape buckets), at input
+scale 0, written to a fresh directory, its JSON line. The card runs
+`scene` at 720 and `dtu` at 1440 (`chip_smoke.py` phase 17):
+
+    python tools/jax_cpu_reference.py costinterp --dim 720
+    python tools/jax_cpu_reference.py scene --dim 720
+    python tools/jax_cpu_reference.py dtu --dim 720
+
 `--port` runs the PyTorch port's CLI (`--device cpu`) on the same scene
-instead, to tell a difference of the card from one of the size:
+instead (for `scene` and `dtu`, the port's drivers), to tell a
+difference of the card from one of the size:
 
     python tools/jax_cpu_reference.py forward --dim 960 --port
 """
@@ -276,6 +293,74 @@ def flagship(dim: int, port: bool = False) -> dict:
         import bench
         out = bench.run_shading_once(dim, 2, verbose=False)
     return dict(zip(("t_sgm", "t_opt", "coverage", "median_rel_err"), out))
+
+
+def cost_interp(dim: int, port: bool = False) -> dict:
+    from smvs_tpu.core import synthetic as jsyn
+
+    slope = 0.005 * 460.0 / dim
+    scene = jsyn.make_two_view_scene(
+        dim=dim, rotate=True, texture="noise",
+        depth_fn=lambda i, j: 5.0 + slope * i + slope * j)
+    main = scene.images[1] * np.float32(255.0)
+    nbr = scene.images[0] * np.float32(255.0)
+    gt = scene.depths[1]
+    out = {}
+    for key, interp in (("default", False), ("cost_interp", True)):
+        t0 = time.time()
+        if port:
+            from smvs_tpu_torch.sgm import stereo as tst
+            depth = tst.reconstruct_auto(
+                scene.cameras[1], scene.cameras[0], main, nbr, (3.5, 9.5),
+                (3.5, 9.5), tst.SGMOptions(cost_interp=interp),
+                device="cpu").numpy()
+        else:
+            from smvs_tpu.sgm import stereo as jst
+            depth = np.asarray(jst.reconstruct_auto(
+                scene.cameras[1], scene.cameras[0], jnp.asarray(main),
+                jnp.asarray(nbr), (3.5, 9.5), (3.5, 9.5),
+                jst.SGMOptions(cost_interp=interp)))
+        m = depth > 0
+        out[key] = {"coverage": float(m.mean()),
+                    "median_rel_err": float(np.median(
+                        np.abs(depth[m] - gt[m]) / gt[m])),
+                    "cpu_seconds": time.time() - t0}
+    return out
+
+
+def _driver_json(main) -> dict:
+    """The JSON line a benchmark driver's ``main()`` prints last."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main()
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def scene_bench(dim: int, port: bool = False) -> dict:
+    if port:
+        from smvs_tpu_torch import bench_scene as tbs
+        return tbs.run(dim=dim, device="cpu")
+    import bench_scene
+    os.environ.update(SMVS_SCENE_DIM=str(dim), SMVS_SCENE_VIEWS="10",
+                      SMVS_SCENE_BATCH="5", SMVS_SCENE_MIN_SCALE="2")
+    return _driver_json(bench_scene.main)
+
+
+def dtu_bench(dim: int, port: bool = False) -> dict:
+    dim2 = dim * 1280 // 1440
+    path = os.path.join(tempfile.mkdtemp(), "dtu")
+    if port:
+        from smvs_tpu_torch import bench_dtu as tbd
+        return tbd.run(n_views=10, dim1=dim, dim2=dim2, scene_dir=path,
+                       device="cpu")
+    import bench_dtu
+    os.environ.update(SMVS_DTU_VIEWS="10", SMVS_DTU_DIM=str(dim),
+                      SMVS_DTU_DIM2=str(dim2), SMVS_DTU_SCALE="0",
+                      SMVS_DTU_DIR=path)
+    return _driver_json(bench_dtu.main)
 
 
 STEP_ARGS = ("nodes", "node_valid", "patch_valid", "vis", "active", "view")
@@ -472,7 +557,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config",
                     choices=("general", "flagship", "batch", "step",
-                             "pipeline", *RUNS))
+                             "pipeline", "costinterp", "scene", "dtu",
+                             *RUNS))
     ap.add_argument("--dim", type=int, required=True)
     ap.add_argument("--patch", type=int, default=2,
                     help="pipeline: the 'patch' axis")
@@ -492,6 +578,12 @@ def main(argv=None) -> int:
         out = step(args.dim, port=args.port)
     elif args.config == "pipeline":
         out = pipeline(args.dim, args.patch, args.scene, port=args.port)
+    elif args.config == "costinterp":
+        out = cost_interp(args.dim, port=args.port)
+    elif args.config == "scene":
+        out = scene_bench(args.dim, port=args.port)
+    elif args.config == "dtu":
+        out = dtu_bench(args.dim, port=args.port)
     else:
         out = cli(args.config, args.dim, port=args.port)
     print(json.dumps({"config": args.config, "dim": args.dim,
