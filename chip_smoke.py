@@ -150,7 +150,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (e) the CLI with `-d 2 -S` on a 4-view 320^2 plane scene: every view
    run alone, the debug images of the JAX CLI in every view, finite. The
    kernel rows 1-2 launch on (a)-(e), each path's counts set to 0 just
-   before it and read just after.
+   before it and read just after;
+18. the autodiff oracle (`gn.GNOptions(analytic=False)`): the final
+   surfaces of phase 5's run_once and phase 10's flagship (with its
+   lighting) assembled on the card by the analytic assembly and by the
+   oracle, in float64 (the view set rebuilt in float64; the largest
+   entry's scaled difference of g and of H <= 1e-9, the JAX test's bar)
+   and in float32 with the optimizer's bf16 view set (the norms of g and
+   H of both paths within rtol 0.1 of the float64 oracle's, phase 10's
+   float32 bar); each assembly's median time of 5 and peak device memory,
+   beside the card's name and power limit. No kernel launches there.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after; the `launches` of each kernel row come from the path named in
@@ -159,7 +168,8 @@ list their launches on the flagship and the CLI with `-S`. It prints one
 `{"flagship": {...}}` line with the flagship's numbers, one `{"dist":
 {...}}` line with phase 15's, one `{"split": {...}}` line with phase
 16's, one `{"drivers": {...}}` line with phase 17's (the three drivers'
-dicts among them), the card's name and power limit again, one `{"kernels": [...]}`
+dicts among them), one `{"oracle": {...}}` line with phase 18's, the
+card's name and power limit again, one `{"kernels": [...]}`
 line with the five TPU kernel rows, each naming the CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
 `sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
 5), and `sgm_deep_kernel`, which serves every row beyond 512 depths,
@@ -349,6 +359,15 @@ COST_INTERP_MAX_ERR = 3.8e-3
 DEBUG_DIM = 320
 DEBUG_IMAGES = ("smvs-sgm-filtered", "smvs-initial", "smvs-shaded",
                 "smvs-shaded-sphere", "smvs-implicit-albedo")
+
+# Phase 18: the autodiff oracle against the analytic assembly on the
+# card. float64: the largest entry's scaled difference within JAX's bar on
+# the CPU (tests/test_gn_analytic.py); float32 with the optimizer's bf16
+# view set: the norms of g and H within phase 10's float32 bar of the
+# float64 oracle's. Times are the median of ORACLE_REPS.
+ORACLE_F64_BAR = 1e-9
+ORACLE_F32_RTOL = SHADING_F32_RTOL
+ORACLE_REPS = 5
 
 DEEP = (129, 192, 256, 512, 513, 1024, 2048)
 DEEP_HW = 640  # [640, 640, D] problems for them
@@ -1358,13 +1377,14 @@ def shading_assembly_check(details: dict) -> dict:
     return out
 
 
-def phase_shading() -> dict:
+def phase_shading(details: dict) -> dict:
+    """The flagship; ``details`` receives its `run_shading_once` details
+    (result, views, options) for phase 18."""
     dim = 1440
     t0 = time.perf_counter()
     bench_main.run_shading_once(dim, 2, device="cuda")
     log(f"warm-up run_shading_once({dim}, 2): "
         f"{time.perf_counter() - t0:.1f} s")
-    details = {}
     cuda_agg.reset_launches()
     t_sgm, t_opt, cov, err = bench_main.run_shading_once(
         dim, 2, device="cuda", details=details)
@@ -1387,7 +1407,6 @@ def phase_shading() -> dict:
         raise RuntimeError(f"flagship median_rel_err {err:.3e} > "
                            f"{SHADING_MAX_ERR}")
     assembly = shading_assembly_check(details)
-    del details
     # The optimizer's stage split, Newton steps and CG iterations per step,
     # with the device synchronized at each stage boundary.
     _, t_opt_sync, cov_s, err_s = bench_main.run_shading_once(
@@ -1948,6 +1967,121 @@ def phase_drivers() -> dict:
     return out
 
 
+def _scaled_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _timed_assembly(surf, view, vis, act, gopts, light) -> dict:
+    """One assembly's (g, H), its peak device memory above what was
+    allocated before it, and the median seconds of ORACLE_REPS more, each
+    between two synchronizes."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g, H = gn.assemble(surf, view, vis, act, gopts, light)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    if g.device.type != "cuda" or H.device.type != "cuda":
+        raise RuntimeError(f"the assembly left the card: {g.device}")
+    times = []
+    for _ in range(ORACLE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gn.assemble(surf, view, vis, act, gopts, light)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"g": g, "H": H, "ms": 1e3 * statistics.median(times),
+            "peak_mib": peak / 2**20}
+
+
+def oracle_check(label: str, details: dict, card: str) -> dict:
+    """Phase 18 on one final surface: the analytic assembly and the
+    autodiff oracle (`GNOptions(analytic=False)`) on the card, in float64
+    (the view set rebuilt in float64, as `shading_assembly_check` does)
+    and in float32 with the optimizer's bf16 view set, from the same
+    surface, visibility and lighting."""
+    res, main, subs = details["result"], details["main"], details["subs"]
+    opts, light = details["opts"], details["result"].lighting
+    shading = light is not None
+    surf = res.surface
+    view32 = O._build_viewset(main, subs, surf.scale, torch.float32,
+                              bf16_gather=opts.bf16_gather,
+                              use_shading=shading)
+    surf, vis = O.compute_visibility(surf, view32, None)
+    act = surf.node_valid
+    f64 = torch.float64
+    dev = surf.nodes.device
+    views = [make_view(v.camera, v.image.cpu().numpy(), view_id=v.view_id,
+                       device=dev, dtype=f64) for v in (main, *subs)]
+    view64 = O._build_viewset(views[0], views[1:], surf.scale, f64,
+                              use_shading=shading)
+    surf64 = dataclasses.replace(surf, nodes=surf.nodes.to(f64))
+    analytic = gn.GNOptions(regularization=opts.regularization,
+                            light_surf_regularization=(
+                                opts.light_surf_regularization))
+    oracle = dataclasses.replace(analytic, analytic=False)
+    runs = {}
+    for prec, s, v, lt in (
+            ("float64", surf64, view64, light.to(f64) if shading else None),
+            ("float32", surf, view32, light)):
+        for path, gopts in (("analytic", analytic), ("oracle", oracle)):
+            runs[prec, path] = _timed_assembly(s, v, vis, act, gopts, lt)
+    ref = _norms(runs["float64", "oracle"]["g"], runs["float64", "oracle"]["H"])
+    out = {"label": label, "card": card, "scale": surf.scale,
+           "patches": int(surf.patch_valid.sum()),
+           "neighbors": len(subs), "shading": shading,
+           "sub_gh": str(view32.sub_gh.dtype), "reps": ORACLE_REPS}
+    for prec in ("float64", "float32"):
+        an, orc = runs[prec, "analytic"], runs[prec, "oracle"]
+        out[prec] = {
+            "scaled_diff_g": _scaled_diff(an["g"], orc["g"]),
+            "scaled_diff_H": _scaled_diff(an["H"], orc["H"]),
+            "analytic_ms": an["ms"], "oracle_ms": orc["ms"],
+            "analytic_peak_mib": an["peak_mib"],
+            "oracle_peak_mib": orc["peak_mib"],
+            "analytic_g_H_norms": _norms(an["g"], an["H"]),
+            "oracle_g_H_norms": _norms(orc["g"], orc["H"])}
+    log(f"oracle on {label} (scale {surf.scale}, {out['patches']} patches, "
+        f"{len(subs)} neighbors, shading {shading}), {card}: "
+        + "; ".join(f"{p}: scaled |dg| {out[p]['scaled_diff_g']:.3e}, "
+                    f"|dH| {out[p]['scaled_diff_H']:.3e}, analytic "
+                    f"{out[p]['analytic_ms']:.2f} ms "
+                    f"({out[p]['analytic_peak_mib']:.1f} MiB), oracle "
+                    f"{out[p]['oracle_ms']:.2f} ms "
+                    f"({out[p]['oracle_peak_mib']:.1f} MiB)"
+                    for p in ("float64", "float32")))
+    f64r = out["float64"]
+    if not (f64r["scaled_diff_g"] <= ORACLE_F64_BAR
+            and f64r["scaled_diff_H"] <= ORACLE_F64_BAR):
+        raise RuntimeError(f"{label}: the float64 analytic assembly departs "
+                           f"from the oracle: {f64r}")
+    for path in ("analytic", "oracle"):
+        got = out["float32"][f"{path}_g_H_norms"]
+        for i, what in enumerate(("g", "H")):
+            if not abs(got[i] - ref[i]) <= ORACLE_F32_RTOL * ref[i]:
+                raise RuntimeError(
+                    f"{label}: the float32 {path} assembly's |{what}| "
+                    f"{got[i]:.6e} is not within {ORACLE_F32_RTOL} of the "
+                    f"float64 oracle's {ref[i]:.6e}")
+    return out
+
+
+def phase_oracle(main_details: dict, shading_details: dict,
+                 card: str) -> dict:
+    """Phase 18: the oracle on run_once's and the flagship's final
+    surfaces."""
+    t0 = time.perf_counter()
+    out = {"run_once": oracle_check("bench_main.run_once(1440, 2)",
+                                    main_details, card),
+           "flagship": oracle_check("bench_main.run_shading_once(1440, 2)",
+                                    shading_details, card)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"oracle phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     set_cuda_precision()
     device, card = phase_card()
@@ -1964,7 +2098,8 @@ def main() -> int:
                         FORWARD_MIN_POINT_SHARE, FORWARD_MAX_ERR,
                         ("fused_pass_bidir",))
     phase_deep(rows)
-    shading = phase_shading()
+    shading_details = {}
+    shading = phase_shading(shading_details)
     shading_cli = phase_cli("cli -S", None, SHADING_CLI_MIN_POINT_SHARE,
                             SHADING_CLI_MAX_ERR,
                             ("fused_pass", "fused_pass_batch"), flags=("-S",))
@@ -1974,8 +2109,10 @@ def main() -> int:
     batch_cli = phase_cli_batch(captured)
     dist = phase_dist(captured)
     split = phase_split(main_details, captured)
-    del captured, main_details
+    del captured
     drivers = phase_drivers()
+    oracle = phase_oracle(main_details, shading_details, card)
+    del main_details, shading_details
     main_path = "bench_main.run_once(1440, 2): rectified SGM"
     path_launches = {  # (path, launches on it)
         "fused_pass": (main_path, main_launches["fused_pass"]),
@@ -2037,6 +2174,7 @@ def main() -> int:
     print(json.dumps({"dist": dist}, default=str), flush=True)
     print(json.dumps({"split": split}, default=str), flush=True)
     print(json.dumps({"drivers": drivers}, default=str), flush=True)
+    print(json.dumps({"oracle": oracle}), flush=True)
     print(card, flush=True)  # beside the numbers of the lines around it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -5,7 +5,9 @@ Scale space by Gaussian blur (not downsampling, reference
 curve of color views, the bilinear samplers of the SGM warps and the
 Gauss-Newton assembly, and the half-size rescales of the CLI's input and
 SGM scales. Functions take [..., H, W] tensors and run
-on whatever device the tensor lives on.
+on whatever device the tensor lives on. `sample_gradient` and
+`sample_gradient_packed` route their position derivative through the
+image Hessian under `torch.func`, for the Gauss-Newton autodiff oracle.
 """
 
 from __future__ import annotations
@@ -303,7 +305,99 @@ def sample_gh(gh: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return sample_window(gh, x, y, base)
 
 
+class _HessianRouted(torch.autograd.Function):
+    """Derivative rules of a sampled image gradient whose position
+    derivative is the sampled, smoothed image Hessian, not the piecewise
+    constant derivative of the bilinear blend (reference
+    `lib/gauss_newton_step.cc:195-207`; JAX's `custom_jvp` of
+    `sample_gradient` and `sample_gradient_packed`).
+
+    A subclass's ``forward`` returns the sampled gradient (..., 2) and the
+    Hessian (Ixx, Ixy, Iyy) (..., 3) from the same sample; the Hessian is
+    not differentiable and the public function drops it. ``XI`` is the
+    position of x among the inputs, y follows it. Tangents and cotangents
+    of the images are ignored, as in JAX.
+    """
+
+    generate_vmap_rule = True
+    XI = 0
+
+    @classmethod
+    def _setup(cls, ctx, output):
+        _, hess = output
+        ctx.mark_non_differentiable(hess)
+        ctx.save_for_forward(hess)
+        ctx.save_for_backward(hess)
+        ctx.xi = cls.XI
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        """(hxx dx + hxy dy, hxy dx + hyy dy)."""
+        (hess,) = ctx.saved_tensors
+        hxx, hxy, hyy = hess[..., 0], hess[..., 1], hess[..., 2]
+        dx, dy = tangents[ctx.xi], tangents[ctx.xi + 1]
+        dx = torch.zeros_like(hxx) if dx is None else dx
+        dy = torch.zeros_like(hxx) if dy is None else dy
+        return torch.stack([hxx * dx + hxy * dy, hxy * dx + hyy * dy],
+                           dim=-1), None
+
+    @staticmethod
+    def backward(ctx, grad_out, _):
+        """The transpose of ``jvp``, so that reverse mode (``jacrev``,
+        ``torch.autograd``) gets the derivative forward mode gets, as JAX
+        derives reverse mode from a `custom_jvp` by transposing it."""
+        (hess,) = ctx.saved_tensors
+        hxx, hxy, hyy = hess[..., 0], hess[..., 1], hess[..., 2]
+        g0, g1 = grad_out[..., 0], grad_out[..., 1]
+        grads = [None] * ctx.xi + [hxx * g0 + hxy * g1, hxy * g0 + hyy * g1]
+        return (*grads, *([None] * (len(ctx.needs_input_grad) - len(grads))))
+
+
+class _SampleGradient(_HessianRouted):
+    XI = 2
+
+    @staticmethod
+    def forward(grad_img, hess_img, x, y):
+        out = torch.stack([bilinear(grad_img[0], x, y),
+                           bilinear(grad_img[1], x, y)], dim=-1)
+        hess = torch.stack([bilinear(hess_img[i], x, y) for i in range(3)],
+                           dim=-1)
+        return out, hess
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _SampleGradient._setup(ctx, output)
+
+
+class _SampleGradientPacked(_HessianRouted):
+    XI = 1
+
+    @staticmethod
+    def forward(gh, x, y, base):
+        vals = sample_gh(gh, x, y, base)  # [..., 5]
+        return vals[..., :2], vals[..., 2:]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _SampleGradientPacked._setup(ctx, output)
+
+
+def sample_gradient(grad_img: torch.Tensor, hess_img: torch.Tensor,
+                    x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of a gradient field grad_img [2, H, W] at (x, y)
+    -> (..., 2), whose derivative in (x, y) is the bilinear sample of
+    hess_img [3, H, W] = (Ixx, Ixy, Iyy) (`_HessianRouted`), under
+    `torch.func.jvp`, `vmap`, `jacfwd` and `jacrev` alike."""
+    return _SampleGradient.apply(grad_img, hess_img, x, y)[0]
+
+
 def sample_gradient_packed(gh: torch.Tensor, x: torch.Tensor,
-                           y: torch.Tensor) -> torch.Tensor:
-    """Bilinear (Ix, Iy) from a packed image at (x, y) -> (..., 2)."""
-    return sample_gh(gh, x, y)[..., :2]
+                           y: torch.Tensor, base: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Bilinear (Ix, Iy) from a packed image at (x, y) -> (..., 2), bit for
+    bit ``sample_gh(gh, x, y, base)[..., :2]``, with the derivative of
+    :func:`sample_gradient` from the Hessian channels of the same sample.
+    Either packed format (:func:`sample_gh`); ``base`` as for
+    :func:`sample_window`. The autodiff oracle's sampler: a plain sample
+    (no derivative) is ``sample_gh`` itself."""
+    return _SampleGradientPacked.apply(gh, x, y, base)[0]

@@ -359,8 +359,8 @@ def patch_mse(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
         M, t = view.M[n], view.t[n]
         proj, _ = corr.warp(M, t, u, v, w)
         jac = corr.warp_jacobian(M, t, u, v, w, wdx, wdy)
-        gs = iops.sample_gradient_packed(view.sub_gh[n], proj[..., 0] - 0.5,
-                                         proj[..., 1] - 0.5)
+        gs = iops.sample_gh(view.sub_gh[n], proj[..., 0] - 0.5,
+                            proj[..., 1] - 0.5)[..., :2]
         jg = torch.einsum("...ij,...i->...j", jac, gs)
         errs.append(torch.linalg.vector_norm(gm - jg, dim=-1))  # [..., P]
     err = torch.stack(errs, dim=-1)  # [..., P, N]
