@@ -48,11 +48,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    `fused_pass` and `fused_pass(loop=True)` (one `sgm_path_kernel` launch
    per listed path), every entry point at D = 129, 192, 256 and 512
    (`sgm_path_kernel` with 8 or 16 depths per lane) and at D = 513, 1024
-   and 2048 (`sgm_deep_kernel`, a block of ceil(D / 512) warps per chain),
-   each bit-equal to plain on every timed run, with times, at
-   [640, 640, D], and each D's launches counted by row and by kernel;
-   every entry point at D = 16384 on a small volume (the deep kernel's
-   32-warp form), bit-equal; and D = 16385 raising before any launch;
+   and 2048 (`sgm_deep_sweep_kernel`, one launch per sweep: 4 per
+   `aggregate`), each bit-equal to plain on every timed run, with times,
+   at [640, 640, D], and each D's launches counted by row and by kernel
+   and held to `cuda_agg.plan_route`'s plan; at D = 513, 1024 and 2048
+   `aggregate` also on the per-path route (`cuda_agg.per_path_plan`: 8
+   `sgm_deep_kernel` launches) through `run_plan`, in turns with the plan's
+   route, both bit-equal to plain; every entry point at D = 16384 on a
+   small volume (straight sweeps on `sgm_deep_sweep_kernel`, diagonal
+   ones on `sgm_deep_kernel`'s 32-warp form, as planned), bit-equal; and
+   D = 16385 raising before any launch;
 10. the shading-aware flagship: `bench_main.run_shading_once(1440, 2)`
    once to warm up, once timed with the kernel's launch counts (rows 1-2
    > 0), and once with its stages synchronized for their split and its
@@ -172,13 +177,16 @@ dicts among them), one `{"oracle": {...}}` line with phase 18's, the
 card's name and power limit again, one `{"kernels": [...]}`
 line with the five TPU kernel rows, each naming the CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
 `sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
-5), and `sgm_deep_kernel`, which serves every row beyond 512 depths,
-timed on `aggregate` at D = 2048, then as the last line
+5), `sgm_deep_sweep_kernel`, which serves every sweep of distinct shifts
+beyond 512 depths, timed on `aggregate` at D = 2048, and
+`sgm_deep_kernel`, its one-path-per-launch fallback, timed on the
+per-path route there, then as the last line
 `{"ok": true, "device": {...}}`. It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -308,8 +316,6 @@ BATCH_MAX_ERR = 3.4e-4
 BATCH_MAX_COVERAGE_GAP = 0.005
 BATCH_DRIFT = 2e-4
 BATCH_MAX_DRIFT_SHARE = 0.10
-# Depth counts beyond the line and sweep kernels: sgm_path_kernel to 512,
-# sgm_deep_kernel beyond.
 # Phase 15: the sharded step's problems (dim, scale), the meshes (views,
 # patch) and the bars; every spawn's time limit.
 DIST_STEPS = ((116, 4), (1440, 2))
@@ -369,10 +375,14 @@ ORACLE_F64_BAR = 1e-9
 ORACLE_F32_RTOL = SHADING_F32_RTOL
 ORACLE_REPS = 5
 
+# Depth counts beyond the line and sweep kernels: sgm_path_kernel to 512,
+# the deep kernels beyond; at DEEP_ROUTES `aggregate` is also timed on
+# the per-path route.
 DEEP = (129, 192, 256, 512, 513, 1024, 2048)
+DEEP_ROUTES = (513, 1024, 2048)
 DEEP_HW = 640  # [640, 640, D] problems for them
-DEEP_MAX_SHAPE = (16, 24, cuda_agg.MAX_D)  # the deep kernel's 32-warp form
-DEEP_TIMED_D = 2048  # the sgm_deep_kernel entry of the kernels line
+DEEP_MAX_SHAPE = (16, 24, cuda_agg.MAX_D)  # sgm_deep_kernel's 32-warp form
+DEEP_TIMED_D = 2048  # the deep kernels' entries of the kernels line
 
 SOURCE = "smvs_tpu_torch/csrc/sgm_agg.cu"
 # Each row's `pl.pallas_call` and the TPU kernel it runs.
@@ -1158,7 +1168,7 @@ def phase_deep(rows: dict) -> None:
         deep_launches = check_deep_launches(D, cost, inten)
         cases = {
             "fused_pass": (
-                "aggregate_batch (8 path launches)",
+                "aggregate_batch (planned launches)",
                 lambda: cuda_agg.aggregate_batch(cost[None], inten[None],
                                                  P1, P2),
                 lambda: cuda_agg.plain_aggregate_batch(cost[None],
@@ -1170,7 +1180,7 @@ def phase_deep(rows: dict) -> None:
                 lambda: cuda_agg.plain_fused_pass_batch(*b2, False, (0,), P1,
                                                         P2), True, 2),
             "fused_pass_bidir": (
-                "aggregate (8 path launches)",
+                "aggregate (planned launches)",
                 lambda: cuda_agg.aggregate(cost, inten, P1, P2),
                 lambda: cuda_agg.plain_aggregate(cost, inten, P1, P2),
                 False, 2),
@@ -1206,6 +1216,9 @@ def phase_deep(rows: dict) -> None:
                 f"D = {D}: {name}", fn, plain, acc_in, elem)
         for row in ("fused_pass", "fused_pass_bidir"):
             rows[row]["deep"][D]["launches"] = deep_launches[row]
+        if D in DEEP_ROUTES:
+            rows["fused_pass_bidir"]["deep"][D]["routes"] = routes_in_turns(
+                D, cost, inten)
         cost32 = cost.to(torch.int32) * 300
         del cost, acc, b2
         rows["scan_direction"]["deep"][D] = {"sweep": compare(
@@ -1219,15 +1232,23 @@ def phase_deep(rows: dict) -> None:
 
 
 def check_deep_launches(D: int, cost, inten) -> dict:
-    """`aggregate_batch` and `aggregate` on one [640, 640, D] volume and
+    """`aggregate_batch` and `aggregate` on one [H, W, D] volume and
     `scan_direction` on its int32 costs, each with the launch counts set to
-    0 just before and read just after: 8 path launches (2 horizontal, 6
-    vertical) and 1, all of `sgm_path_kernel` up to 512 depths and of
-    `sgm_deep_kernel` beyond."""
-    kernel = cuda_agg.path_kernel(D)
-    want = {"fused_pass": ({"fused_pass_batch": 2, "fused_pass": 6}, 8),
-            "fused_pass_bidir": ({"fused_pass_bidir": 8}, 8),
-            "scan_direction": ({"scan_direction": 1}, 1)}
+    0 just before and read just after, held to the launches
+    `cuda_agg.plan_route` plans for the card (by row and by kernel): 8
+    `sgm_path_kernel` launches up to 512 depths; beyond, one
+    `sgm_deep_sweep_kernel` launch per sweep where the card holds a
+    problem's lines at once (4), otherwise one `sgm_deep_kernel` launch
+    per path of a diagonal sweep; and 1 for `scan_direction`."""
+    W = cost.shape[1]
+    geo = cuda_agg.plan_geometry(cost)
+    plans = {
+        "fused_pass": cuda_agg.plan_route("aggregate_batch", 1, W, **geo),
+        "fused_pass_bidir": cuda_agg.plan_route("aggregate", 1, W, **geo),
+        "scan_direction": [cuda_agg.Launch(
+            cuda_agg.path_kernel(D), 2, False, "write", (1,),
+            "scan_direction", 0, 1)],
+    }
     calls = {
         "fused_pass": lambda: cuda_agg.aggregate_batch(cost[None],
                                                        inten[None], P1, P2),
@@ -1237,19 +1258,61 @@ def check_deep_launches(D: int, cost, inten) -> dict:
     }
     out = {}
     for row, fn in calls.items():
+        want = (dict(collections.Counter(ln.row for ln in plans[row])),
+                dict(collections.Counter(ln.kernel for ln in plans[row])))
         cuda_agg.reset_launches()
         fn()
         torch.cuda.synchronize()
         by_row = {k: v for k, v in cuda_agg.launches.items() if v}
         by_kernel = {k: v for k, v in cuda_agg.kernel_launches.items() if v}
-        rows_want, n = want[row]
-        if by_row != rows_want or by_kernel != {kernel: n}:
+        if (by_row, by_kernel) != want:
             raise RuntimeError(f"D = {D}: {row}'s path launched {by_row} "
-                               f"by kernel {by_kernel}, not {rows_want} "
-                               f"of {cuda_agg.KERNELS[kernel]}")
+                               f"by kernel {by_kernel}, not the planned "
+                               f"{want}")
         out[row] = {"rows": by_row, "kernels": by_kernel}
     log(f"D = {D}: launches {out}")
     return out
+
+
+def routes_in_turns(D: int, cost, inten) -> dict:
+    """`aggregate` on [640, 640, D] through the plan's route and through
+    the per-path route (`cuda_agg.per_path_plan`: one `sgm_deep_kernel`
+    launch per path), in turns (plan, per path, per path, plan, ...), each
+    run held bit-equal to plain; medians, and each plan's bytes floor
+    (`cuda_agg.plan_bytes`)."""
+    cost4, inten3 = cost[None], inten[None]
+    plan = cuda_agg.plan_route("aggregate", 1, cost.shape[1],
+                               **cuda_agg.plan_geometry(cost))
+    plans = {"plan": plan, "per_path": cuda_agg.per_path_plan(plan, D)}
+    want = cuda_agg.plain_aggregate(cost, inten, P1, P2).to(torch.int16)
+    times = {k: [] for k in plans}
+    for rep in range(2 * REPS + 2):
+        k = ("plan", "per_path", "per_path", "plan")[rep % 4]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        got = cuda_agg.run_plan(
+            plans[k], cost4, inten3, None, P1, P2,
+            on_launch=lambda i, n=len(plans[k]): (
+                events[0].record() if i == 0 else
+                events[1].record() if i == n else None))
+        events[1].synchronize()
+        if not torch.equal(got[0], want):
+            raise RuntimeError(f"D = {D}: aggregate on the {k} route "
+                               "differs from the plain version")
+        if rep >= 2:  # the first of each is a warm-up
+            times[k].append(events[0].elapsed_time(events[1]))
+        del got
+    res = {f"{k}_ms": statistics.median(v) for k, v in times.items()}
+    for k, p in plans.items():
+        res[f"{k}_launches"] = len(p)
+        res[f"{k}_floor_ms"] = (cuda_agg.plan_bytes(p, tuple(cost4.shape))
+                                / PEAK_BYTES_PER_S * 1e3)
+    log(f"D = {D}: aggregate on [{cost.shape[0]}, {cost.shape[1]}, {D}]: "
+        f"plan {res['plan_ms']:.3f} ms ({len(plan)} launches, floor "
+        f"{res['plan_floor_ms']:.3f} ms), per path {res['per_path_ms']:.3f}"
+        f" ms ({res['per_path_launches']} launches, floor "
+        f"{res['per_path_floor_ms']:.3f} ms), in turns, bit-equal on every "
+        "run")
+    return res
 
 
 def phase_deepest() -> dict:
@@ -2082,6 +2145,55 @@ def phase_oracle(main_details: dict, shading_details: dict,
     return out
 
 
+def deep_kernel_entries(rows: dict) -> list:
+    """The kernels line's entries of the two deep kernels, from phase 9's
+    results in ``rows``. No user path sets more than 512 planes.
+    sgm_deep_sweep_kernel's launches are those of phase 9's `aggregate` at
+    the timed depth (its plan: one launch per sweep); sgm_deep_kernel's
+    those of `aggregate` at the plane limit, whose diagonal sweeps the card
+    cannot hold at once (one launch per path). Both are timed on
+    `aggregate` at the timed depth, sgm_deep_kernel through the per-path
+    route, in turns."""
+    entries = []
+    deep = rows["fused_pass_bidir"]["deep"][DEEP_TIMED_D]
+    routes = deep["routes"]
+    deepest = rows["fused_pass"]["deepest"]["launches"]["fused_pass_bidir"]
+    for name, launches, path, ms, extra in (
+            ("sgm_deep_sweep_kernel",
+             deep["launches"]["kernels"]["deep_sweep"],
+             f"aggregate on [{DEEP_HW}, {DEEP_HW}, {DEEP_TIMED_D}], "
+             f"{routes['plan_launches']} launches (tests only: no user "
+             "path sets more than 512 planes)", routes["plan_ms"],
+             {"bytes_floor_ms": routes["plan_floor_ms"],
+              "per_path_ms": routes["per_path_ms"]}),
+            ("sgm_deep_kernel", deepest["kernels"]["deep"],
+             f"aggregate on {list(DEEP_MAX_SHAPE)} (its diagonal sweeps, "
+             "one launch per path; tests only); timed on the per-path "
+             f"route of aggregate on [{DEEP_HW}, {DEEP_HW}, "
+             f"{DEEP_TIMED_D}], {routes['per_path_launches']} launches",
+             routes["per_path_ms"],
+             {"bytes_floor_ms": routes["per_path_floor_ms"]})):
+        entries.append({
+            "name": f"{name} via aggregate at D = {DEEP_TIMED_D}",
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES["fused_pass_bidir"][0],
+            "tpu_kernel": "every row at D > 512 (here row 3, "
+                          + REPLACES["fused_pass_bidir"][1] + ")",
+            "launches": launches,
+            "path": path,
+            "max_abs_err": deep["aggregate"]["max_abs_err"],
+            "ms": ms,
+            "plain_ms": deep["aggregate"]["plain_ms"],
+            "bound_ms": deep["aggregate"]["bound_ms"],
+            "bound_by": deep["aggregate"]["bound_by"],
+            "library_ms": None,
+            "shape": deep["aggregate"]["shape"],
+            **extra,
+        })
+    return entries
+
+
 def main() -> int:
     set_cuda_precision()
     device, card = phase_card()
@@ -2146,28 +2258,7 @@ def main() -> int:
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
         })
-    # sgm_deep_kernel serves every row beyond 512 depths; no user path sets
-    # that many planes, so its launches are those of the D > 512 phase's
-    # `aggregate` run at the timed depth.
-    deep = rows["fused_pass_bidir"]["deep"][DEEP_TIMED_D]
-    kernels.append({
-        "name": f"sgm_deep_kernel via aggregate at D = {DEEP_TIMED_D}",
-        "route": "cuda",
-        "source": SOURCE,
-        "replaces": REPLACES["fused_pass_bidir"][0],
-        "tpu_kernel": "every row at D > 512 (here row 3, "
-                      + REPLACES["fused_pass_bidir"][1] + ")",
-        "launches": deep["launches"]["kernels"]["deep"],
-        "path": f"aggregate on [{DEEP_HW}, {DEEP_HW}, {DEEP_TIMED_D}] "
-                "(tests only: no user path sets more than 512 planes)",
-        "max_abs_err": deep["aggregate"]["max_abs_err"],
-        "ms": deep["aggregate"]["ms"],
-        "plain_ms": deep["aggregate"]["plain_ms"],
-        "bound_ms": deep["aggregate"]["bound_ms"],
-        "bound_by": deep["aggregate"]["bound_by"],
-        "library_ms": None,
-        "shape": deep["aggregate"]["shape"],
-    })
+    kernels += deep_kernel_entries(rows)
     print(json.dumps({"flagship": shading}), flush=True)
     print(json.dumps({"cli_color": color_cli, "cli_mesh": mesh_cli,
                       "cli_batch": batch_cli}), flush=True)

@@ -1,5 +1,5 @@
 // SGM path-cost aggregation on Hopper (sm_90a), bound with ctypes from
-// smvs_tpu_torch/sgm/cuda_agg.py. Three kernels.
+// smvs_tpu_torch/sgm/cuda_agg.py. Five kernels.
 //
 // They replace the five TPU kernels of smvs_tpu/sgm/pallas_agg.py:
 //   1. _fused_kernel, reached through _fused_pass (pallas_agg.py:137-194,
@@ -28,8 +28,13 @@
 //   other two cannot take (a repeated shift, in any row; a problem wider
 //   than the resident blocks of sgm_sweep3_kernel; or more than 128
 //   depths, up to 512);
-// - sgm_deep_kernel: every sweep of every row at more than 512 depths (up
-//   to 16384), one launch per path, as sgm_path_kernel takes them below.
+// - sgm_deep_sweep_kernel: every sweep of distinct shifts at more than 512
+//   depths (up to 16384), one launch per sweep: a straight-only sweep over
+//   any number of problems, one with a diagonal per chunk of problems
+//   whose lines the card holds at once;
+// - sgm_deep_kernel: the rest beyond 512 depths, one launch per path, as
+//   sgm_path_kernel takes them below (a repeated shift, a problem whose
+//   lines the card cannot hold at once, row 5).
 //
 // Recurrence, per line and depth d (int32 arithmetic):
 //   new[d] = cost[d] + min(prev[d], prev[d-1] + P1, prev[d+1] + P1,
@@ -134,6 +139,59 @@
 // accumulator only after the recurrence (ptxas: no spills in any form). The
 // recurrence and its integer arithmetic are those of the other kernels,
 // bit for bit.
+//
+// sgm_deep_sweep_kernel: one launch per sweep beyond 512 depths carries
+// every distinct shift of the sweep, as the Pallas kernel's pass does, so
+// a sweep reads the cost and the accumulator once and writes once: 4
+// sweeps (11 volumes) for an 8-path sum instead of 8 launches (23). The
+// facts that bound it: a diagonal's line moves to the neighbouring line at
+// every step, so all lines of a problem must be resident at once, and at
+// [640, 640, 2048] the three paths' state is 15.7 MB, about 5 lines an SM.
+// - Threads. A line is walked by G = 32 W threads of K depths each (K
+//   even; deep_sweep_shape): K = ceil(D / 128) rounded up to even (6 to
+//   16) with a diagonal, so a line has about 4 warps and no warp a single
+//   depth (D = 513: 192 + 192 + 129); straight only, W = ceil(D / 512).
+//   Block (b, tile) owns `lines` consecutive lines of problem b, at most
+//   kDeepSweepDiagThreads threads with a diagonal (96 registers a thread).
+// - State. The straight line stays in registers (prev_s). The diagonal
+//   lines live in shared memory by step parity, [K][G] ints per line so
+//   consecutive threads touch consecutive words: row r reads row r - 1's
+//   +1 line and row r + 1's -1 line of step t - 1 and writes its own of
+//   step t, so one __syncthreads() a step is enough. Each warp's minimum
+//   of each path, and the straight line's first and last depth per warp,
+//   go to small parity buffers for the next step's min(prev) and the
+//   depths past a warp's ends.
+// - Loads. The cost comes through a ring in shared memory by cp.async (2
+//   stages with a diagonal, a step ahead; 4 straight only): 16-byte
+//   pieces where every depth run is 16-byte aligned, otherwise the 4-byte
+//   words that cover the run, starting one element early where the run
+//   starts on an odd element (the cost is read-only, so these copies may
+//   go through L1). Loading the cost into registers a step ahead instead
+//   was 2-3x slower, and 3 stages no faster. The accumulator is read at
+//   the step's start, in 16-, 8- or 4-byte pieces where aligned (2 bytes
+//   at odd D), and the result written in the same pieces.
+// - Across blocks. A launch with a diagonal is cooperative and holds at
+//   most one block per SM (cuda_agg.plan_route). The first row's +1 line
+//   and the last row's -1 line come from the neighbouring blocks, through
+//   tagged 64-bit words in device memory as sgm_sweep3_kernel's edges:
+//   [K][G] values then the W warps' minima, by step % 4. An edge row
+//   whose outgoing diagonal comes from another row of its block computes
+//   and publishes it first; every edge row then copies the incoming
+//   line's words it reads into shared memory with cp.async (no registers
+//   held; into the rows of the parity buffer that nobody in the block
+//   reads: the first row's -1 line and the last row's +1 line), and
+//   checks each word's tag as it uses it, reading a stale word again at
+//   device scope. Four slots make the early publish safe: before a block
+//   writes slot s + 4 it has read its neighbour's words of step s + 2,
+//   which the neighbour published after reading slot s. A wait that lasts
+//   seconds traps (kPollLimit), so a fault fails the launch.
+// - Straight only: no hand-off; any grid (one line a block), 4 stages.
+// Measured (PERF.md, tools/deep_pace.py): the straight sweeps reach
+// 60-80% of their bytes at D = 1024 and 2048; a sweep with a diagonal
+// takes 4.6-9.7 us a step at D = 513-2048, paced by the step's work
+// inside a block (a dependent chain per path and one barrier, 10-20 warps
+// an SM) and the edge rows' round trip, not by the bytes; ptxas gives it
+// 96 registers a thread and spills 70-210 bytes at 14-16 depths a lane.
 //
 // Bounds on the H100 (3.35 TB/s). A sweep must read the cost once, read
 // the accumulator once if there is one and write the result once, and
@@ -1078,6 +1136,702 @@ cudaError_t launch_line(const void* cost, const void* inten, const void* acc,
   return cudaGetLastError();
 }
 
+// sgm_deep_sweep_kernel's shared memory (byte offsets) for `lines` lines of
+// G = 32 * W threads and Dp = G * K depths each, S ring stages, with or
+// without the diagonals' buffers. The wrapper's plan mirrors this layout
+// (cuda_agg.deep_sweep_smem_bytes).
+struct DeepSweepLayout {
+  int diag;   // int32 [2 (+1, -1)][lines][2 parity][K][G]
+  int ring;   // int16 [S][lines][Dp + 8]: the cost
+  int inten;  // int32 [S][lines + 2]: lines l0 - 1 .. l0 + lines
+  int p2a;    // int32 [256]
+  int pmin;   // int32 [2 parity][3 paths][lines][W]: warps' minima
+  int lohi;   // int32 [2 parity][lines][W][2]: straight line's warp ends
+  int bytes;
+};
+
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+__host__ __device__ inline DeepSweepLayout deep_sweep_layout(
+    int lines, int W, int K, int S, bool diag) {
+  const int G = 32 * W, Dp = G * K;
+  DeepSweepLayout s;
+  int o = 0;
+  s.diag = o;
+  o += diag ? align16(2 * 2 * lines * Dp * 4) : 0;
+  s.ring = o;
+  o += align16(S * lines * (Dp + 8) * 2);
+  s.inten = o;
+  o += align16(S * (lines + 2) * 4);
+  s.p2a = o;
+  o += 256 * 4;
+  s.pmin = o;
+  o += align16(2 * 3 * lines * W * 4);
+  s.lohi = o;
+  o += align16(2 * lines * W * 2 * 4);
+  s.bytes = o;
+  return s;
+}
+
+// K depths of one position as K / 2 words of two int16 (K even), in pieces
+// of 16, 8 or 4 bytes as K allows (the widest whose lanes' runs stay
+// aligned), so that consecutive lanes read without bank conflicts.
+template <int K>
+struct Pairs {
+  static constexpr int kWords = K % 8 == 0 ? 4 : K % 4 == 0 ? 2 : 1;
+  static constexpr int kBytes = 4 * kWords;
+};
+
+// kW words (2 kW int16) at p, aligned to 4 kW bytes.
+template <int kW>
+__device__ __forceinline__ void load_piece(const int16_t* p,
+                                           uint32_t (&v)[kW]) {
+  if constexpr (kW == 4) {
+    const uint4 s = *reinterpret_cast<const uint4*>(p);
+    v[0] = s.x;
+    v[1] = s.y;
+    v[2] = s.z;
+    v[3] = s.w;
+  } else if constexpr (kW == 2) {
+    const uint2 s = *reinterpret_cast<const uint2*>(p);
+    v[0] = s.x;
+    v[1] = s.y;
+  } else {
+    v[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void load_pairs(const int16_t* p,
+                                           uint32_t (&v)[K / 2]) {
+  constexpr int kW = Pairs<K>::kWords;
+#pragma unroll
+  for (int c = 0; c < K / 2 / kW; ++c) {
+    uint32_t s[kW];
+    load_piece<kW>(p + 2 * kW * c, s);
+#pragma unroll
+    for (int j = 0; j < kW; ++j) v[kW * c + j] = s[j];
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_pairs(int16_t* p,
+                                            const uint32_t (&v)[K / 2]) {
+  constexpr int kW = Pairs<K>::kWords;
+#pragma unroll
+  for (int c = 0; c < K / 2 / kW; ++c) {
+    if constexpr (kW == 4) {
+      reinterpret_cast<uint4*>(p)[c] =
+          make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+    } else if constexpr (kW == 2) {
+      reinterpret_cast<uint2*>(p)[c] = make_uint2(v[2 * c], v[2 * c + 1]);
+    } else {
+      reinterpret_cast<uint32_t*>(p)[c] = v[c];
+    }
+  }
+}
+
+// Depths [d0, d0 + K) of a position in device memory; depths >= D read as
+// 0. vec: the pieces are aligned (Pairs<K>::kBytes).
+template <int K>
+__device__ __forceinline__ void load_pairs_global(const int16_t* p,
+                                                  uint32_t (&v)[K / 2],
+                                                  int d0, int D, bool vec) {
+  if (vec && d0 + K <= D) {
+    load_pairs<K>(p, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < K / 2; ++j) {
+    const int lo = d0 + 2 * j < D ? p[2 * j] : 0;
+    const int hi = d0 + 2 * j + 1 < D ? p[2 * j + 1] : 0;
+    v[j] = (static_cast<uint32_t>(lo) & 0xffffu) |
+           (static_cast<uint32_t>(hi) << 16);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_pairs_global(int16_t* p,
+                                                   const uint32_t (&v)[K / 2],
+                                                   int d0, int D, bool vec) {
+  if (vec && d0 + K <= D) {
+    store_pairs<K>(p, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < K / 2; ++j) {
+    if (d0 + 2 * j < D) p[2 * j] = static_cast<int16_t>(v[j] & 0xffffu);
+    if (d0 + 2 * j + 1 < D) p[2 * j + 1] = static_cast<int16_t>(v[j] >> 16);
+  }
+}
+
+// Element k of K / 2 pair words, sign-extended; and the word with element k
+// replaced by the low 16 bits of x.
+template <int K>
+__device__ __forceinline__ int pair_at(const uint32_t (&v)[K / 2], int k) {
+  const uint32_t w = v[k >> 1];
+  return (k & 1) ? static_cast<int>(w) >> 16
+                 : static_cast<int>(static_cast<int16_t>(w & 0xffffu));
+}
+
+template <int K>
+__device__ __forceinline__ void pair_set(uint32_t (&v)[K / 2], int k, int x) {
+  const uint32_t u = static_cast<uint32_t>(x) & 0xffffu;
+  v[k >> 1] = (k & 1) ? (v[k >> 1] & 0xffffu) | (u << 16)
+                      : (v[k >> 1] & 0xffff0000u) | u;
+}
+
+// One depth of the recurrence, c + min(prev, min(dn, up) + P1, m + P2a) - m
+// in int32 (mp = m + P2a); the adds and the minima fuse into Hopper's DPX
+// instructions, which are exact.
+__device__ __forceinline__ int sgm_step(int c, int prev, int dn, int up,
+                                        int p1, int mp, int m) {
+  return __vimin3_s32(prev, dn + p1, __viaddmin_s32(up, p1, mp)) + (c - m);
+}
+
+constexpr int kPollLimit = 1 << 24;
+
+// A tagged word read or written at device scope (around L1), without the
+// compiler barrier of load_relaxed / store_relaxed: the deep sweep kernel
+// needs no order between these and its other accesses beyond their data
+// dependences, and a barrier inside its per-depth loop would hold every
+// shared-memory access of the loop in place.
+__device__ __forceinline__ unsigned long long ld_tagged(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void st_tagged(unsigned long long* p,
+                                          unsigned long long v) {
+  asm volatile("st.relaxed.gpu.b64 [%0], %1;" ::"l"(p), "l"(v));
+}
+
+// An edge line as a neighbouring block publishes it: [K][G] words, word
+// k G + g holding depth g K + k, then the W warps' minima, every word
+// tagged with the scan step that wrote it. fetch_edge copies the words this
+// thread reads (its K depths and the depths just past its ends) into `raw`
+// (the same layout) with cp.async 16-byte pieces of two threads' words,
+// which read L2 and spend no registers, as one copy group (two threads
+// copy a piece each; the bytes are the same); tagged_value then takes a
+// word's value once it carries `step`, reading it again at device scope
+// until it does. The blocks are resident together, so a wait lasts
+// microseconds; after kPollLimit reads (seconds) the kernel traps, and
+// the launch fails rather than hangs.
+template <int K>
+__device__ __forceinline__ void fetch_edge(unsigned long long* raw,
+                                           const unsigned long long* src,
+                                           int g, int G) {
+  const int g2 = g & ~1;
+#pragma unroll
+  for (int k = 0; k < K; ++k) cp_async16(raw + k * G + g2, src + k * G + g2);
+  if (g > 0) {
+    const int i = (K - 1) * G + ((g - 1) & ~1);
+    cp_async16(raw + i, src + i);
+  }
+  if (g + 1 < G) {
+    const int i = (g + 1) & ~1;
+    cp_async16(raw + i, src + i);
+  }
+}
+
+__device__ __forceinline__ int tagged_value(unsigned long long e,
+                                            const unsigned long long* p,
+                                            unsigned step) {
+  for (int round = 0; static_cast<unsigned>(e >> 32) != step; ++round) {
+    if (round == kPollLimit) __trap();
+    e = ld_tagged(p);
+  }
+  return static_cast<int>(static_cast<unsigned>(e));
+}
+
+__device__ __forceinline__ unsigned long long tagged(unsigned step, int v) {
+  return static_cast<unsigned long long>(step) << 32 | static_cast<unsigned>(v);
+}
+
+// Cost K at this thread's depths from its ring row: the depth k one. With
+// kAligned the run starts on a piece, read a piece (kPiece depths, two to
+// a 32-bit word) at a time; otherwise it may start on an odd element and is
+// read a depth at a time.
+template <int K, bool kAligned>
+struct CostPieces {
+  static constexpr int kW = Pairs<K>::kWords, kPiece = 2 * kW;
+  uint32_t w[kW];
+  __device__ __forceinline__ int at(const int16_t* ring, int k) {
+    if constexpr (!kAligned) return ring[k];
+    if (k % kPiece == 0) load_piece<kW>(ring + k, w);
+    const uint32_t c = w[(k % kPiece) >> 1];
+    return (k & 1) ? static_cast<int>(c) >> 16
+                   : static_cast<int>(static_cast<int16_t>(c & 0xffffu));
+  }
+};
+
+// One diagonal's new line at this thread's depths d0 .. d0 + K - 1 from
+// its line of step t - 1 (restart: the cost itself): another row's, [K][G]
+// ints at `src` (kEdgeIn false), or the incoming edge line, [K][G] tagged
+// words at `raw` with `graw` the same words in device memory for a word
+// that does not carry step t - 1 yet (kEdgeIn). dn and up_last are prev
+// just past this thread's depths, mp = m + P2a. The line goes to `dst`
+// ([K][G], when not null), to `pub` tagged with t (kPub), and into the
+// pair sums `av` (kSum). Returns the minimum over these depths.
+template <int K, bool kAligned, bool kEdgeIn, bool kPub, bool kSum>
+__device__ __forceinline__ int diag_line(
+    const int16_t* ring, const int* src, const unsigned long long* raw,
+    const unsigned long long* graw, int* dst, unsigned long long* pub,
+    uint32_t (&av)[K / 2], bool restart, int dn, int up_last, int mp, int m,
+    int p1, int d0, int D, int g, int G, unsigned t) {
+  auto prev = [&](int k) {
+    if constexpr (kEdgeIn)
+      return tagged_value(raw[k * G + g], graw + k * G + g, t - 1);
+    else
+      return src[k * G + g];
+  };
+  CostPieces<K, kAligned> cost;
+  int a = restart ? 0 : prev(0);
+  int mn = kBig;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int nv = cost.at(ring, k);
+    if (!restart) {
+      const int up = k + 1 < K ? prev(k + 1) : up_last;
+      nv = sgm_step(nv, a, dn, up, p1, mp, m);
+      dn = a;
+      a = up;
+    }
+    if (d0 + k >= D) nv = kBig;
+    if (dst != nullptr) dst[k * G + g] = nv;
+    if constexpr (kPub) st_tagged(pub + k * G + g, tagged(t, nv));
+    if constexpr (kSum) pair_set<K>(av, k, pair_at<K>(av, k) + nv);
+    mn = min(mn, nv);
+  }
+  return mn;
+}
+
+// diag_line with the source kind and the publishing chosen at run time.
+template <int K, bool kAligned, bool kSum>
+__device__ __forceinline__ int diag_line_any(
+    bool edge_in, bool publish, const int16_t* ring, const int* src,
+    const unsigned long long* raw, const unsigned long long* graw, int* dst,
+    unsigned long long* pub, uint32_t (&av)[K / 2], bool restart, int dn,
+    int up_last, int mp, int m, int p1, int d0, int D, int g, int G,
+    unsigned t) {
+  if (edge_in && publish)
+    return diag_line<K, kAligned, true, true, kSum>(ring, src, raw, graw, dst, pub, av,
+                                          restart, dn, up_last, mp, m, p1, d0,
+                                          D, g, G, t);
+  if (edge_in)
+    return diag_line<K, kAligned, true, false, kSum>(ring, src, raw, graw, dst, pub, av,
+                                           restart, dn, up_last, mp, m, p1,
+                                           d0, D, g, G, t);
+  if (publish)
+    return diag_line<K, kAligned, false, true, kSum>(ring, src, raw, graw, dst, pub,
+                                           av, restart, dn, up_last, mp, m,
+                                           p1, d0, D, g, G, t);
+  return diag_line<K, kAligned, false, false, kSum>(ring, src, raw, graw, dst, pub, av,
+                                          restart, dn, up_last, mp, m, p1, d0,
+                                          D, g, G, t);
+}
+
+// A warp's minimum of an edge line, tagged with step t, into word `word`
+// of the published line (lane 0); the warp's minimum of `mn` first.
+__device__ __forceinline__ void publish_min(unsigned long long* pub, int mn,
+                                            unsigned t, int word, int lane) {
+  const int m = __reduce_min_sync(kFull, mn);
+  if (lane == 0) st_tagged(pub + word, tagged(t, m));
+}
+
+constexpr int kDeepSweepThreads = 1024;     // straight-only launches
+constexpr int kDeepSweepDiagThreads = 640;  // launches with a diagonal
+// Ring stages: with a diagonal 2 (a step ahead; 3 measured no faster,
+// PERF.md), straight only 4.
+constexpr int kDeepSweepStages = 2;
+constexpr int kDeepSweepLineStages = 4;
+
+// One sweep of the distinct shifts in `paths` (bit 0: straight, bit 1: +1,
+// bit 2: -1) over B int16 problems at up to kDeepMaxD depths: out = acc +
+// paths (acc == out adds in place; a null acc writes the paths alone).
+// Block (b, tile) owns `lines` consecutive lines of problem b, each walked
+// by G = 32 * W threads of K depths (the sweep's design is at the head of
+// this file). kDiag: the launch carries a diagonal and is cooperative;
+// edge: [B, tiles, 4 (step % 4), (+1, -1), K * G + 32] tagged words, all
+// -1 before the launch. The cost ring is filled by cp.async: kAligned,
+// every depth run is 16-byte aligned and D % 8 == 0, in 16-byte pieces;
+// otherwise in the 4-byte words that cover the run, which start one
+// element early (a row's shift) where the run starts on an odd element.
+// vec: acc and out may be read and written in Pairs<K>::kBytes pieces.
+template <int K, bool kDiag, bool kAligned>
+__global__ void __launch_bounds__(kDiag ? kDeepSweepDiagThreads
+                                        : kDeepSweepThreads, 1)
+    sgm_deep_sweep_kernel(const int16_t* __restrict__ cost,
+                          const int32_t* __restrict__ inten,
+                          const int16_t* acc, int16_t* out,
+                          unsigned long long* __restrict__ edge, int X, int L,
+                          int D, long long vb, long long vx, long long vl,
+                          long long ib, long long ix, long long il,
+                          int reverse, int paths, int p1, int p2, int lines,
+                          int W, bool vec) {
+  constexpr int S = kDiag ? kDeepSweepStages : kDeepSweepLineStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const DeepSweepLayout lay = deep_sweep_layout(lines, W, K, S, kDiag);
+  int* s_diag = reinterpret_cast<int*>(smem_raw + lay.diag);
+  int16_t* s_ring = reinterpret_cast<int16_t*>(smem_raw + lay.ring);
+  int* s_inten = reinterpret_cast<int*>(smem_raw + lay.inten);
+  int* s_p2a = reinterpret_cast<int*>(smem_raw + lay.p2a);
+  int* s_pmin = reinterpret_cast<int*>(smem_raw + lay.pmin);
+  int* s_lohi = reinterpret_cast<int*>(smem_raw + lay.lohi);
+  const int G = 32 * W;
+  const int Dp = G * K;
+  const int Rp = Dp + 8;  // a ring row: a run and the word past it
+  const int r = threadIdx.x / G;  // the block's line this thread walks
+  const int g = threadIdx.x - r * G;
+  const int w = g >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tiles = (L + lines - 1) / lines;
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const int l = tile * lines + r;
+  const bool active = l < L;
+  const int last = min(lines, L - tile * lines) - 1;  // the last line's row
+  const bool straight = paths & 1, plus = paths & 2, minus = paths & 4;
+  // The edge rows trade with the neighbouring blocks whenever a diagonal
+  // runs, in both directions even if one diagonal is absent (its minima
+  // words only), as sgm_sweep3_kernel's edge warps do.
+  const bool trade_l = kDiag && (plus || minus) && r == 0 && tile > 0;
+  const bool trade_r =
+      kDiag && (plus || minus) && r == last && tile + 1 < tiles;
+  // An edge row's outgoing diagonal (+1 of the last row, -1 of the first)
+  // is computed ahead of the row's other work and published first where
+  // its source is another row of the block; a block of one line computes
+  // it in its main pass, after reading its neighbours.
+  const bool early_p = trade_r && r > 0;
+  const bool early_m = trade_l && r + 1 < lines;
+  const int d0 = g * K;
+  const int p2min = p1 * 3 / 2;
+  const int16_t* cb = cost + b * vb;
+  const int16_t* ab = acc == nullptr ? nullptr : acc + b * vb;
+  int16_t* ob = out + b * vb;
+  const int32_t* ibase = inten + b * ib;
+  const int ew = K * G + 32;  // words of one edge line
+  // Edge line of block `tl` written at step s (slot s % 4), direction 0:
+  // +1 of its last line, 1: -1 of its first line.
+  auto edge_line = [&](int tl, int s, int dir) {
+    return edge + ((static_cast<long long>(b) * tiles + tl) * 8 +
+                   (s & 3) * 2 + dir) * ew;
+  };
+  auto pos = [&](int s) {
+    return static_cast<long long>(reverse ? X - 1 - s : s);
+  };
+  // [dir][row][par][K][G], [par][path][row][W], [par][row][W][2]
+  auto diag_row = [&](int par, int dir, int row) {
+    return s_diag + ((dir * lines + row) * 2 + par) * Dp;
+  };
+  auto pmin_at = [&](int par, int path, int row) {
+    return s_pmin + ((par * 3 + path) * lines + row) * W;
+  };
+  auto lohi_at = [&](int par, int row) {
+    return s_lohi + ((par * lines + row) * W) * 2;
+  };
+  // Nobody in the block reads the first row's -1 line or the last row's
+  // +1 line (they go to the neighbouring blocks), so both parities of each
+  // hold the edge line that comes in there: K G tagged words, [K][G].
+  unsigned long long* raw_p =
+      reinterpret_cast<unsigned long long*>(s_diag + (lines * 2) * Dp);
+  unsigned long long* raw_m = reinterpret_cast<unsigned long long*>(
+      s_diag + ((lines - 1) * 2) * Dp);
+
+  // A run's first element in its ring row: 1 where the words that cover
+  // it start one element early.
+  auto shift = [&](int s) {
+    if constexpr (kAligned) return 0;
+    return static_cast<int>(
+        (reinterpret_cast<uintptr_t>(cb + pos(s) * vx + l * vl) >> 1) & 1);
+  };
+  const int16_t* cend = cost + static_cast<long long>(gridDim.x / tiles) * vb;
+  // Ring stage of scan step s: the cost and the intensities, S - 1 steps
+  // ahead of its use; one copy group per step.
+  auto fill = [&](int s) {
+    if (s < X) {
+      const int q = s % S;
+      int16_t* dst = s_ring + (q * lines + r) * Rp;
+      const int16_t* src = cb + pos(s) * vx + l * vl;
+      if (active && kAligned) {
+        for (int c = g; c < D / 8; c += G)
+          cp_async16(dst + c * 8, src + c * 8);
+      } else if (active) {
+        src -= shift(s);
+        for (int c = g; 2 * c < D + shift(s); c += G) {
+          if (src + 2 * c + 2 <= cend)
+            cp_async4(dst + 2 * c, src + 2 * c);
+          else  // the volume's last element: its word would leave it
+            dst[2 * c] = src[2 * c];
+        }
+      }
+      const int li = tile * lines - 1 + static_cast<int>(threadIdx.x);
+      if (static_cast<int>(threadIdx.x) < lines + 2 && li >= 0 && li < L)
+        cp_async4(&s_inten[q * (lines + 2) + threadIdx.x],
+                  ibase + pos(s) * ix + li * il);
+    }
+    cp_async_commit();
+  };
+
+  for (int s = 0; s < S - 1; ++s) fill(s);
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    s_p2a[i] = max(p2min, p2 / (i + 1));
+  cp_async_wait<S - 2>();
+  __syncthreads();
+  auto p2a_of = [&](int i_cur, int i_prev) {
+    const int d = abs(i_cur - i_prev);
+    return d < 256 ? s_p2a[d] : max(p2min, p2 / (d + 1));
+  };
+
+  int prev_s[K];  // the straight path's line, at this thread's depths
+#pragma unroll
+  for (int k = 0; k < K; ++k) prev_s[k] = kBig;
+  // I at the previous position of lines l, l - 1 and l + 1.
+  int prev_i = 0, prev_il = 0, prev_ir = 0;
+  for (int t = 0; t < X; ++t) {
+    // The edge lines that come in at step t - 1: this thread's run by
+    // cp.async (its own copy group, issued first), the words just past it
+    // and the warps' minima read directly; all checked just before use.
+    const bool in_p = trade_l && t > 0;  // into row 0, +1 from the left
+    const bool in_m = trade_r && t > 0;  // into the last row, -1 from the right
+    const unsigned long long* gp = in_p ? edge_line(tile - 1, t - 1, 0)
+                                        : nullptr;
+    const unsigned long long* gm = in_m ? edge_line(tile + 1, t - 1, 1)
+                                        : nullptr;
+    unsigned long long e_mp = 0, e_mm = 0;
+    if constexpr (kDiag) {
+      if (in_p && plus) fetch_edge<K>(raw_p, gp, g, G);
+      if (in_m && minus) fetch_edge<K>(raw_m, gm, g, G);
+      if (in_p && lane < W) e_mp = ld_tagged(gp + K * G + lane);
+      if (in_m && lane < W) e_mm = ld_tagged(gm + K * G + lane);
+      cp_async_commit();
+    }
+    fill(t + S - 1);  // into the stage read at step t - 1
+    const int q = t % S;
+    const int par = t & 1;
+    const int pp = par ^ 1;
+    if (active) {
+      const int it = s_inten[q * (lines + 2) + r + 1];
+      uint32_t av[K / 2];  // acc + paths, two int16 to a word
+      if (ab != nullptr) {
+        load_pairs_global<K>(ab + pos(t) * vx + l * vl + d0, av, d0, D, vec);
+      } else {
+#pragma unroll
+        for (int j = 0; j < K / 2; ++j) av[j] = 0;
+      }
+      // Each path's min(prev), min(prev) + P2a, and prev just past this
+      // thread's depths, from step t - 1.
+      int m_s = 0, mp_s = 0, dn_s = kBig, up_s = kBig;
+      if (straight && t > 0) {
+        m_s = __reduce_min_sync(kFull,
+                                lane < W ? pmin_at(pp, 0, r)[lane] : kBig);
+        mp_s = m_s + p2a_of(it, prev_i);
+        dn_s = __shfl_up_sync(kFull, prev_s[K - 1], 1);
+        up_s = __shfl_down_sync(kFull, prev_s[0], 1);
+        if (lane == 0) dn_s = w > 0 ? lohi_at(pp, r)[(w - 1) * 2 + 1] : kBig;
+        if (lane == 31) up_s = w + 1 < W ? lohi_at(pp, r)[(w + 1) * 2] : kBig;
+      }
+      // A path restarts from the cost at the scan's start and where it
+      // enters through the border line; otherwise line l continues line
+      // l - 1 (+1) or l + 1 (-1) of step t - 1: another row of this block,
+      // or (the first and the last row) the neighbouring block's edge line.
+      const bool restart_p = !plus || t == 0 || l == 0;
+      const bool restart_m = !minus || t == 0 || l == L - 1;
+      const int* src_p = diag_row(pp, 0, r - 1);
+      const int* src_m = diag_row(pp, 1, r + 1);
+      int m_p = 0, dn_p = kBig, up_p = kBig;
+      int m_m = 0, dn_m = kBig, up_m = kBig;
+      if constexpr (kDiag) {
+        if (!restart_p && !in_p) {
+          m_p = __reduce_min_sync(
+              kFull, lane < W ? pmin_at(pp, 1, r - 1)[lane] : kBig);
+          dn_p = g > 0 ? src_p[(K - 1) * G + g - 1] : kBig;
+          up_p = g + 1 < G ? src_p[g + 1] : kBig;
+        }
+        if (!restart_m && !in_m) {
+          m_m = __reduce_min_sync(
+              kFull, lane < W ? pmin_at(pp, 2, r + 1)[lane] : kBig);
+          dn_m = g > 0 ? src_m[(K - 1) * G + g - 1] : kBig;
+          up_m = g + 1 < G ? src_m[g + 1] : kBig;
+        }
+        const int16_t* ring = s_ring + (q * lines + r) * Rp + shift(t) + d0;
+        if (early_p) {  // an absent path publishes its minima words only
+          int mn = kBig;
+          if (plus)
+            mn = diag_line<K, kAligned, false, true, false>(
+                ring, src_p, nullptr, nullptr, nullptr, edge_line(tile, t, 0),
+                av, restart_p, dn_p, up_p, m_p + p2a_of(it, prev_il), m_p, p1,
+                d0, D, g, G, t);
+          publish_min(edge_line(tile, t, 0), mn, t, K * G + w, lane);
+        }
+        if (early_m) {
+          int mn = kBig;
+          if (minus)
+            mn = diag_line<K, kAligned, false, true, false>(
+                ring, src_m, nullptr, nullptr, nullptr, edge_line(tile, t, 1),
+                av, restart_m, dn_m, up_m, m_m + p2a_of(it, prev_ir), m_m, p1,
+                d0, D, g, G, t);
+          publish_min(edge_line(tile, t, 1), mn, t, K * G + w, lane);
+        }
+        // The incoming edge lines: this thread's copies have landed.
+        if (in_p || in_m) cp_async_wait<1>();
+        if (in_p) {
+          if (plus) {
+            const int i = (K - 1) * G + g - 1;
+            if (g > 0) dn_p = tagged_value(raw_p[i], gp + i, t - 1);
+            if (g + 1 < G) up_p = tagged_value(raw_p[g + 1], gp + g + 1, t - 1);
+          }
+          m_p = __reduce_min_sync(
+              kFull, lane < W ? tagged_value(e_mp, gp + K * G + lane, t - 1)
+                              : kBig);
+        }
+        if (in_m) {
+          if (minus) {
+            const int i = (K - 1) * G + g - 1;
+            if (g > 0) dn_m = tagged_value(raw_m[i], gm + i, t - 1);
+            if (g + 1 < G) up_m = tagged_value(raw_m[g + 1], gm + g + 1, t - 1);
+          }
+          m_m = __reduce_min_sync(
+              kFull, lane < W ? tagged_value(e_mm, gm + K * G + lane, t - 1)
+                              : kBig);
+        }
+      }
+      const int16_t* ring = s_ring + (q * lines + r) * Rp + shift(t) + d0;
+      // The straight path, in registers.
+      int mn_s = kBig, mn_p = kBig, mn_m = kBig;
+      if (straight) {
+        CostPieces<K, kAligned> cost;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int c = cost.at(ring, k);
+          const int a = prev_s[k];
+          const int up = k + 1 < K ? prev_s[k + 1] : up_s;
+          int nv = t == 0 ? c : sgm_step(c, a, dn_s, up, p1, mp_s, m_s);
+          if (d0 + k >= D) nv = kBig;
+          dn_s = a;
+          prev_s[k] = nv;
+          mn_s = min(mn_s, nv);
+          pair_set<K>(av, k, pair_at<K>(av, k) + nv);
+        }
+      }
+      // The diagonals. Rows of the block read a row's +1 line from the next
+      // row and its -1 line from the one before; the edge rows' outgoing
+      // lines go out through the edge words only (the early ones are
+      // published above, and computed again here for the sum).
+      if constexpr (kDiag) {
+        if (plus)
+          mn_p = diag_line_any<K, kAligned, true>(
+              in_p, trade_r && !early_p, ring, src_p, raw_p, gp,
+              r + 1 < lines ? diag_row(par, 0, r) : nullptr,
+              edge_line(tile, t, 0), av, restart_p, dn_p, up_p,
+              m_p + p2a_of(it, prev_il), m_p, p1, d0, D, g, G, t);
+        if (minus)
+          mn_m = diag_line_any<K, kAligned, true>(
+              in_m, trade_l && !early_m, ring, src_m, raw_m, gm,
+              r > 0 ? diag_row(par, 1, r) : nullptr, edge_line(tile, t, 1),
+              av, restart_m, dn_m, up_m, m_m + p2a_of(it, prev_ir), m_m, p1,
+              d0, D, g, G, t);
+      }
+      store_pairs_global<K>(ob + pos(t) * vx + l * vl + d0, av, d0, D, vec);
+      // Each path's minimum (and the straight line's warp ends) for step
+      // t + 1; the edge lines' minima go out with their values.
+      if (straight) {
+        const int m = __reduce_min_sync(kFull, mn_s);
+        if (lane == 0) {
+          pmin_at(par, 0, r)[w] = m;
+          lohi_at(par, r)[w * 2] = prev_s[0];
+        }
+        if (lane == 31) lohi_at(par, r)[w * 2 + 1] = prev_s[K - 1];
+      }
+      if constexpr (kDiag) {
+        const int m_pn = __reduce_min_sync(kFull, mn_p);
+        const int m_mn = __reduce_min_sync(kFull, mn_m);
+        if (lane == 0) {
+          if (plus) pmin_at(par, 1, r)[w] = m_pn;
+          if (minus) pmin_at(par, 2, r)[w] = m_mn;
+        }
+        if (trade_r && !early_p)
+          publish_min(edge_line(tile, t, 0), m_pn, t, K * G + w, lane);
+        if (trade_l && !early_m)
+          publish_min(edge_line(tile, t, 1), m_mn, t, K * G + w, lane);
+      }
+      prev_i = it;
+      prev_il = s_inten[q * (lines + 2) + r];
+      prev_ir = s_inten[q * (lines + 2) + r + 2];
+    }
+    cp_async_wait<S - 2>();  // this thread's copies for step t + 1
+    __syncthreads();
+  }
+}
+
+// The kernel for K depths a lane; the launch is cooperative with a
+// diagonal (kDiag).
+template <int K, bool kDiag>
+cudaError_t launch_deep_sweep(const void* cost, const void* inten,
+                              const void* acc, void* out, void* edge, int B,
+                              int X, int L, int D, long long vb, long long vx,
+                              long long vl, long long ib, long long ix,
+                              long long il, int reverse, int paths, int p1,
+                              int p2, int lines, int W, cudaStream_t stream) {
+  constexpr bool diag = kDiag;
+  const int vw = Pairs<K>::kBytes;
+  bool vec = (2 * D) % vw == 0 && (2 * vb) % vw == 0 && (2 * vx) % vw == 0 &&
+             (2 * vl) % vw == 0 &&
+             reinterpret_cast<uintptr_t>(out) % vw == 0 &&
+             reinterpret_cast<uintptr_t>(acc) % vw == 0;
+  const bool aligned =
+      D % 8 == 0 && vb % 8 == 0 && vx % 8 == 0 && vl % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(cost) % 16 == 0;
+  const int S = diag ? kDeepSweepStages : kDeepSweepLineStages;
+  const int smem = deep_sweep_layout(lines, W, K, S, diag).bytes;
+  const int tiles = (L + lines - 1) / lines;
+  const long long blocks = static_cast<long long>(B) * tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const dim3 block(static_cast<unsigned>(lines * 32 * W));
+  const int16_t* c = static_cast<const int16_t*>(cost);
+  const int32_t* i = static_cast<const int32_t*>(inten);
+  const int16_t* a = static_cast<const int16_t*>(acc);
+  int16_t* o = static_cast<int16_t*>(out);
+  unsigned long long* ed = static_cast<unsigned long long*>(edge);
+  void* args[] = {&c,  &i,  &a,  &o,       &ed,    &X,  &L,  &D,
+                  &vb, &vx, &vl, &ib,      &ix,    &il, &reverse,
+                  &paths, &p1, &p2, &lines, &W, &vec};
+  const void* fn = aligned
+                       ? (const void*)sgm_deep_sweep_kernel<K, kDiag, true>
+                       : (const void*)sgm_deep_sweep_kernel<K, kDiag, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  if (diag)
+    return cudaLaunchCooperativeKernel(fn, grid, block, args, smem, stream);
+  e = cudaLaunchKernel(fn, grid, block, args, smem, stream);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// Warps per line and depths per lane of sgm_deep_sweep_kernel at D depths,
+// so that the depths spread evenly over the warps and no warp holds a
+// single one. Straight only: W = ceil(D / 512) warps, K = ceil(D / (32 W))
+// rounded up to even (10 to 16 for 512 < D <= kDeepMaxD). With a diagonal
+// a block holds one SM's lines and each step waits on its slowest warp, so
+// a line takes about 4 warps: K = ceil(D / 128) rounded up to even, at
+// most 16 (6 to 16), and W = ceil(D / (32 K)).
+inline void deep_sweep_shape(int D, bool diag, int* W, int* K) {
+  if (diag) {
+    int k = (D + 127) / 128;
+    k += k & 1;
+    if (k > 16) k = 16;
+    *K = k;
+    *W = (D + 32 * k - 1) / (32 * k);
+    return;
+  }
+  *W = (D + kPathMaxD - 1) / kPathMaxD;
+  const int k = (D + 32 * *W - 1) / (32 * *W);
+  *K = k + (k & 1);
+}
+
 }  // namespace
 
 // One path of B problems in one direction. elem_bytes = 2: int16
@@ -1209,5 +1963,100 @@ extern "C" int sgm_agg_sweep3(const void* cost, const void* inten, void* out,
     case 2: return static_cast<int>(launch_sweep3<2>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
     case 3: return static_cast<int>(launch_sweep3<3>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
     default: return static_cast<int>(launch_sweep3<4>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
+  }
+}
+
+// The deep sweep kernel's geometry for kPathMaxD < D <= kDeepMaxD on the
+// current device: the most lines a block of a sweep with a diagonal holds
+// (at most kDeepSweepDiagThreads threads and the device's shared memory
+// per block, one block resident per SM; 0 where one line does not fit),
+// the edge-buffer words per block, and the device's SM count. A launch
+// with a diagonal holds at most one block per SM (cuda_agg.plan_route).
+extern "C" int sgm_deep_sweep_geometry(int D, int* max_lines,
+                                       int* edge_words, int* sms) {
+  if (D <= kPathMaxD || D > kDeepMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, coop = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  int W = 0, K = 0;
+  deep_sweep_shape(D, true, &W, &K);
+  *edge_words = 8 * (K * 32 * W + 32);
+  *max_lines = 0;
+  for (int n = kDeepSweepDiagThreads / (32 * W); n >= 1; --n) {
+    const int smem =
+        deep_sweep_layout(n, W, K, kDeepSweepStages, true).bytes;
+    if (smem > optin) continue;
+    const void* fn = nullptr;
+    switch (K) {
+      case 6: fn = (const void*)sgm_deep_sweep_kernel<6, true, true>; break;
+      case 8: fn = (const void*)sgm_deep_sweep_kernel<8, true, true>; break;
+      case 10: fn = (const void*)sgm_deep_sweep_kernel<10, true, true>; break;
+      case 12: fn = (const void*)sgm_deep_sweep_kernel<12, true, true>; break;
+      case 14: fn = (const void*)sgm_deep_sweep_kernel<14, true, true>; break;
+      default: fn = (const void*)sgm_deep_sweep_kernel<16, true, true>; break;
+    }
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    int per_sm = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                        n * 32 * W, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm >= 1) {
+      *max_lines = n;
+      break;
+    }
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// One sweep of the distinct shifts in `paths` (bit 0: 0, bit 1: +1, bit 2:
+// -1) over B int16 problems at kPathMaxD < D <= kDeepMaxD depths: out =
+// acc + path costs, in place where acc == out, or out = path costs where
+// acc is null (rows 1-4). `lines` lines of a problem per block. With a
+// diagonal the launch is cooperative: at most one block per SM, `lines` at
+// most sgm_deep_sweep_geometry's, and edge as sgm_deep_sweep_kernel
+// describes it (all -1); straight only, any grid and a null edge. Strides
+// as for sgm_agg_path. Returns the cudaError_t of the launch.
+extern "C" int sgm_agg_deep_sweep(const void* cost, const void* inten,
+                                  const void* acc, void* out, void* edge,
+                                  int B, int X, int L, int D, long long vb,
+                                  long long vx, long long vl, long long ib,
+                                  long long ix, long long il, int reverse,
+                                  int paths, int p1, int p2, int lines,
+                                  void* stream) {
+  const bool diag = (paths & 6) != 0;
+  int W = 0, K = 0;
+  deep_sweep_shape(D, diag, &W, &K);
+  if (B < 1 || X < 1 || L < 1 || D <= kPathMaxD || D > kDeepMaxD ||
+      paths < 1 || paths > 7 || lines < 1 ||
+      lines * 32 * W > (diag ? kDeepSweepDiagThreads : kDeepSweepThreads) ||
+      (diag && edge == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (diag) {
+    switch (K) {
+      case 6: return static_cast<int>(launch_deep_sweep<6, true>(cost, inten, acc, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, W, s));
+      case 8: return static_cast<int>(launch_deep_sweep<8, true>(cost, inten, acc, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, W, s));
+      case 10: return static_cast<int>(launch_deep_sweep<10, true>(cost, inten, acc, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, W, s));
+      case 12: return static_cast<int>(launch_deep_sweep<12, true>(cost, inten, acc, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, W, s));
+      case 14: return static_cast<int>(launch_deep_sweep<14, true>(cost, inten, acc, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, W, s));
+      default: return static_cast<int>(launch_deep_sweep<16, true>(cost, inten, acc, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, W, s));
+    }
+  }
+  switch (K) {
+    case 10: return static_cast<int>(launch_deep_sweep<10, false>(cost, inten, acc, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, W, s));
+    case 12: return static_cast<int>(launch_deep_sweep<12, false>(cost, inten, acc, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, W, s));
+    case 14: return static_cast<int>(launch_deep_sweep<14, false>(cost, inten, acc, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, W, s));
+    default: return static_cast<int>(launch_deep_sweep<16, false>(cost, inten, acc, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, W, s));
   }
 }

@@ -25,13 +25,18 @@ rows 2-3 with shifts (0,)), one launch writing or adding the path costs;
 its paths in one cooperative launch, where one problem fits the blocks
 the card keeps resident; `sgm_path_kernel`, one launch per path, for the
 rest (a repeated shift, a problem wider than the resident blocks, 129 to
-512 depths) and for row 5; `sgm_deep_kernel`, one launch per path, for
-every sweep of every row at more than 512 depths, where one chain's depths
-are split across the warps of a block. `aggregate_batch` makes 2 line launches
-(row 2) and 2 sweep launches (row 1); `aggregate` the same 4, counted as
-row 3; `fused_pass_bidir` 2. The sweeps of one call add into one int16
-accumulator in place: int16 sums wrap modulo 2^16, so their order does
-not change the bits, and no second volume or copy is needed.
+512 depths) and for row 5. At more than 512 depths `sgm_deep_sweep_kernel`
+takes every sweep of distinct shifts in one launch (a straight-only sweep
+over any number of lines; one with a diagonal cooperatively, in chunks of
+problems whose lines the card holds at once), and `sgm_deep_kernel`, one
+launch per path with one chain's depths split across the warps of a
+block, the rest (a repeated shift, a problem too wide, row 5).
+`aggregate_batch` makes 2 line launches (row 2) and 2 sweep launches (row
+1); `aggregate` the same 4, counted as row 3; `fused_pass_bidir` 2; so do
+they at 513 to 2048 depths on [640, 640, D]. The sweeps of one call add
+into one int16 accumulator in place: int16 sums wrap modulo 2^16, so
+their order does not change the bits, and no second volume or copy is
+needed.
 
 For a CUDA tensor the entry points launch those kernels or raise. For a
 CPU tensor they run the same plan through the plain sweep below, the
@@ -42,8 +47,8 @@ kernels take any H and W. The line and sweep kernels hold up to 128 depths
 (4 per lane), the plane count of both SGM paths by default;
 `sgm_path_kernel` is built for 4, 8 and 16 depths per lane, so a call with
 128 < D <= 512 planes (`SGMOptions.num_steps`) takes it for every sweep,
-and `sgm_deep_kernel` takes 512 < D <= 16384 (``MAX_D``), 512 depths a
-warp. More depths raise on the card; the plain sweep takes any D.
+and the two deep kernels take 512 < D <= 16384 (``MAX_D``), up to 512
+depths a warp. More depths raise on the card; the plain sweep takes any D.
 
 ``launches`` counts kernel launches by TPU kernel row, and
 ``kernel_launches`` the same launches by CUDA kernel (and nothing else),
@@ -75,10 +80,12 @@ ROWS = ("fused_pass", "fused_pass_batch", "fused_pass_bidir",
 launches = dict.fromkeys(ROWS, 0)  # kernel launches per row
 # The CUDA kernels of `csrc/sgm_agg.cu` by their name in a plan (`Launch`).
 KERNELS = {"line": "sgm_line_kernel", "sweep3": "sgm_sweep3_kernel",
-           "path": "sgm_path_kernel", "deep": "sgm_deep_kernel"}
+           "path": "sgm_path_kernel", "deep": "sgm_deep_kernel",
+           "deep_sweep": "sgm_deep_sweep_kernel"}
 kernel_launches = dict.fromkeys(KERNELS, 0)  # launches per CUDA kernel
 _lib = None
 _sweep_geometry_cache = {}  # (device, D) -> (tile, edge_words, resident)
+_deep_geometry_cache = {}  # (device, D) -> (max_lines, edge_words, sms)
 
 TILE = 16  # lines per block of sgm_sweep3_kernel (kTile in the source)
 # Depths the line and sweep kernels hold (32 lanes x 4), the most that
@@ -90,18 +97,26 @@ MAX_D = 16384
 # Blocks of sgm_sweep3_kernel the H100 keeps resident at once (two per SM,
 # `sweep_geometry` at D = 128). CPU tensors are planned as for that card.
 CPU_RESIDENT = 264
+# The H100's SMs, shared memory a block may take, and sgm_deep_sweep_kernel's
+# threads a block with a diagonal (kDeepSweepDiagThreads): the stand-in for
+# `deep_sweep_geometry` that CPU tensors are planned with.
+H100_SMS = 132
+H100_SMEM_PER_BLOCK = 232448
+DEEP_SWEEP_DIAG_THREADS = 640
 # The plain run's stand-in for the card's uninitialised output before the
 # first write, so that a plan which adds into it first gives other sums.
 UNSET = 0x2AAA
 
 # One kernel launch of a plan (`plan_route`). kernel: "line", "sweep3",
-# "path" or "deep"; scan: the axis of the [B, A, C, D] volume it scans (1 or 2; its
-# lines run along the other); reverse: the direction; mode: "write" (out =
-# path costs), "into" (out = acc + path costs) or "add" (out += path costs
-# in place); shifts: its paths; row: the TPU kernel row it counts under;
-# b0, nb: the problems it takes.
+# "path", "deep" or "deep_sweep"; scan: the axis of the [B, A, C, D] volume
+# it scans (1 or 2; its lines run along the other); reverse: the
+# direction; mode: "write" (out = path costs), "into" (out = acc + path
+# costs) or "add" (out += path costs in place); shifts: its paths; row: the
+# TPU kernel row it counts under; b0, nb: the problems it takes; lines:
+# lines per block of "deep_sweep" (0 where the kernel fixes its own).
 Launch = collections.namedtuple(
-    "Launch", "kernel scan reverse mode shifts row b0 nb")
+    "Launch", "kernel scan reverse mode shifts row b0 nb lines",
+    defaults=(0,))
 
 
 def reset_launches() -> None:
@@ -175,8 +190,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sgm_agg_sweep3.argtypes = ([ptr] * 4 + [i32] * 4 + [i64] * 6
                                    + [i32] * 4 + [ptr])
     lib.sgm_sweep3_geometry.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+    lib.sgm_agg_deep_sweep.argtypes = ([ptr] * 5 + [i32] * 4 + [i64] * 6
+                                       + [i32] * 5 + [ptr])
+    lib.sgm_deep_sweep_geometry.argtypes = lib.sgm_sweep3_geometry.argtypes
     for fn in (lib.sgm_agg_path, lib.sgm_agg_deep, lib.sgm_agg_line,
-               lib.sgm_agg_sweep3, lib.sgm_sweep3_geometry):
+               lib.sgm_agg_sweep3, lib.sgm_sweep3_geometry,
+               lib.sgm_agg_deep_sweep, lib.sgm_deep_sweep_geometry):
         fn.restype = i32
     return lib
 
@@ -204,15 +223,79 @@ def sweep_geometry(device: torch.device, D: int) -> tuple:
     return _sweep_geometry_cache[key]
 
 
-def _geometry(cost: torch.Tensor) -> dict:
-    """``plan_route``'s ``resident``, ``tile`` and ``D`` for ``cost``'s
-    device and depth count."""
+def deep_sweep_shape(D: int, diag: bool = False) -> tuple:
+    """(warps per line W, depths per lane K) of `sgm_deep_sweep_kernel` at
+    D > ``PATH_MAX_D`` depths (``deep_sweep_shape`` in the source). Straight
+    only: W = ceil(D / 512), K = ceil(D / (32 W)) rounded up to even. With
+    a diagonal (``diag``), about 4 warps a line: K = ceil(D / 128) rounded
+    up to even, at most 16, and W = ceil(D / (32 K))."""
+    if diag:
+        k = -(-D // 128)
+        k = min(k + (k & 1), 16)
+        return -(-D // (32 * k)), k
+    W = -(-D // PATH_MAX_D)
+    k = -(-D // (32 * W))
+    return W, k + (k & 1)
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def deep_sweep_smem_bytes(lines: int, D: int) -> int:
+    """Shared memory of a `sgm_deep_sweep_kernel` block of ``lines`` lines
+    with a diagonal (``deep_sweep_layout`` in the source: both diagonals'
+    lines by step parity, a 2-stage cost ring of rows of Dp + 8, the
+    intensities, the P2a table, the warps' minima and ends)."""
+    W, K = deep_sweep_shape(D, diag=True)
+    Dp, S = 32 * W * K, 2
+    return (_align16(16 * lines * Dp) + _align16(2 * S * lines * (Dp + 8))
+            + _align16(4 * S * (lines + 2))
+            + 4 * 256 + _align16(24 * lines * W) + _align16(16 * lines * W))
+
+
+def deep_sweep_stand_in(D: int) -> tuple:
+    """`deep_sweep_geometry` as the H100 gives it, computed: (most lines a
+    block with a diagonal holds, edge words per block, SMs). CPU tensors
+    are planned with it."""
+    W, K = deep_sweep_shape(D, diag=True)
+    lines = DEEP_SWEEP_DIAG_THREADS // (32 * W)
+    while lines and deep_sweep_smem_bytes(lines, D) > H100_SMEM_PER_BLOCK:
+        lines -= 1
+    return lines, 8 * (32 * W * K + 32), H100_SMS
+
+
+def deep_sweep_geometry(device: torch.device, D: int) -> tuple:
+    """(most lines a block of `sgm_deep_sweep_kernel` with a diagonal
+    holds, edge-buffer words per block, SMs) on ``device`` at D depths
+    (512 < D <= ``MAX_D``); 0 lines where one line does not fit."""
+    key = (device, D)
+    if key not in _deep_geometry_cache:
+        vals = [ctypes.c_int() for _ in range(3)]
+        with torch.cuda.device(device):
+            err = _library().sgm_deep_sweep_geometry(
+                D, *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"sgm_deep_sweep_geometry failed: CUDA error "
+                               f"{err}")
+        _deep_geometry_cache[key] = tuple(v.value for v in vals)
+    return _deep_geometry_cache[key]
+
+
+def plan_geometry(cost: torch.Tensor) -> dict:
+    """``plan_route``'s ``resident``, ``tile``, ``D`` and ``deep`` for
+    ``cost``'s device and depth count."""
     D = cost.shape[-1]
-    if cost.device.type == "cpu" or D > SWEEP_MAX_D:
-        # Beyond SWEEP_MAX_D no sweep kernel runs, so none is asked.
-        return {"resident": CPU_RESIDENT, "tile": TILE, "D": D}
-    tile, _, resident = sweep_geometry(cost.device, D)
-    return {"resident": resident, "tile": tile, "D": D}
+    geo = {"resident": CPU_RESIDENT, "tile": TILE, "D": D}
+    if D > PATH_MAX_D:
+        # Beyond PATH_MAX_D only the deep kernels run, so only theirs is
+        # asked.
+        lines, _, sms = (deep_sweep_stand_in(D) if cost.device.type == "cpu"
+                         else deep_sweep_geometry(cost.device, D))
+        geo["deep"] = (lines, sms)
+    elif cost.device.type != "cpu" and D <= SWEEP_MAX_D:
+        geo["tile"], _, geo["resident"] = sweep_geometry(cost.device, D)
+    return geo
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +307,20 @@ def path_kernel(D: int) -> str:
     (`sgm_path_kernel`, one warp per chain) up to ``PATH_MAX_D``, "deep"
     (`sgm_deep_kernel`, a block of ceil(D / 512) warps per chain) above."""
     return "path" if D <= PATH_MAX_D else "deep"
+
+
+def deep_sweep_chunks(B: int, L: int, max_lines: int, sms: int):
+    """``(first problem, problem count, lines per block)`` of each
+    `sgm_deep_sweep_kernel` launch of a sweep with a diagonal over B
+    problems of L lines, or None where one problem does not fit. Its blocks
+    wait on their neighbours, so a launch holds at most one block (of at
+    most ``max_lines`` lines) per SM; a problem is never split, and its
+    lines spread evenly over the SMs its launch leaves it."""
+    if max_lines < 1 or -(-L // max_lines) > sms:
+        return None
+    per = sms // -(-L // max_lines)
+    return [(b0, min(per, B - b0), -(-L // (sms // min(per, B - b0))))
+            for b0 in range(0, B, per)]
 
 
 def plan_chunks(B: int, tiles: int, resident: int) -> list:
@@ -241,7 +338,8 @@ def plan_chunks(B: int, tiles: int, resident: int) -> list:
 
 def plan_route(entry: str, B: int, L: int, resident: int,
                shifts: tuple | None = None, reverse: bool = False,
-               tile: int = TILE, D: int = SWEEP_MAX_D) -> list:
+               tile: int = TILE, D: int = SWEEP_MAX_D,
+               deep: tuple | None = None) -> list:
     """The kernel launches (`Launch`) of one call of the entry point
     ``entry``, in order, chosen from the shape alone.
 
@@ -249,22 +347,39 @@ def plan_route(entry: str, B: int, L: int, resident: int,
     and `aggregate`, whose horizontal sweeps scan axis 2 with shifts (0,)
     and vertical ones axis 1 with (0, 1, -1)); ``shifts`` and ``reverse``
     as the other entry points take them; ``resident`` blocks of ``tile``
-    lines of `sgm_sweep3_kernel` fit the card at once; D depths.
+    lines of `sgm_sweep3_kernel` fit the card at once; D depths; ``deep``
+    = (most lines a block of `sgm_deep_sweep_kernel` with a diagonal
+    holds, SMs), by default the H100's (`deep_sweep_stand_in`).
 
     A straight-only sweep takes `sgm_line_kernel` (row 1 keeps its sweep
     kernel); distinct shifts take `sgm_sweep3_kernel` where one problem
     fits the resident blocks (in chunks of problems, `plan_chunks`);
     anything else one `sgm_path_kernel` launch per path, and so does every
-    sweep at D > ``SWEEP_MAX_D``; at D > ``PATH_MAX_D`` every sweep takes
-    one `sgm_deep_kernel` launch per path instead. Only the first launch
-    may write ("write" or "into"); a first "add" adds into a copy of acc,
-    and every later launch adds in place.
+    sweep at D > ``SWEEP_MAX_D``. At D > ``PATH_MAX_D`` a sweep of
+    distinct shifts takes one `sgm_deep_sweep_kernel` launch (straight
+    only: every problem; with a diagonal: per chunk of problems whose lines
+    the card holds at once, `deep_sweep_chunks`), and anything else one
+    `sgm_deep_kernel` launch per path. The first launch on a problem may
+    write ("write" or "into"), or add into a copy of acc ("add"); every
+    later one adds in place. The sgm_path and sgm_deep kernels and
+    `sgm_sweep3_kernel` only add, so where they take a sweep that starts
+    with "into", they add into a copy.
     """
     tiles = -(-L // tile)
     small = D <= SWEEP_MAX_D
     per_path = path_kernel(D)
+    if D > PATH_MAX_D and deep is None:
+        deep = deep_sweep_stand_in(D)[::2]
 
     def sweep(row, scan, rev, paths, first, line=True):
+        if D > PATH_MAX_D and len(set(paths)) == len(paths):
+            if paths == (0,):
+                return [Launch("deep_sweep", scan, rev, first, paths, row, 0,
+                               B, 1)]
+            chunks = deep_sweep_chunks(B, L, *deep)
+            if chunks is not None:
+                return [Launch("deep_sweep", scan, rev, first, paths, row,
+                               b0, nb, n) for b0, nb, n in chunks]
         if paths == (0,) and line and small:
             return [Launch("line", scan, rev, first, paths, row, 0, B)]
         if len(set(paths)) == len(paths) and tiles <= resident and small:
@@ -288,13 +403,38 @@ def plan_route(entry: str, B: int, L: int, resident: int,
         raise ValueError(f"the kernels take one or more shifts from 0, 1 "
                          f"and -1, got {shifts}")
     if entry in ("fused_pass", "fused_pass_loop"):
-        return sweep(entry, 1, reverse, shifts, "add", line=False)
+        return sweep(entry, 1, reverse, shifts, "into", line=False)
     if entry == "fused_pass_batch":
         return sweep(entry, 1, reverse, shifts, "into")
     if entry == "fused_pass_bidir":
         return (sweep(entry, 1, False, shifts, "into")
                 + sweep(entry, 1, True, shifts, "add"))
     raise ValueError(f"no route for the entry point {entry!r}")
+
+
+def per_path_plan(plan: list, D: int) -> list:
+    """``plan`` with every launch of several paths split into one launch
+    per path of the path kernel for D depths (`path_kernel`): the route
+    that one-path-per-launch kernels take, for timing against the plan. A
+    first "into" becomes an "add" into a copy of acc."""
+    out = []
+    for ln in plan:
+        for i, s in enumerate(ln.shifts):
+            mode = ln.mode if ln.mode == "write" and i == 0 else "add"
+            out.append(Launch(path_kernel(D), ln.scan, ln.reverse, mode, (s,),
+                              ln.row, ln.b0, ln.nb))
+    return out
+
+
+def plan_bytes(plan: list, shape: tuple, elem: int = 2) -> int:
+    """Bytes the launches of ``plan`` over a [B, A, C, D] volume of
+    ``elem``-byte elements must move: each launch reads its problems' cost
+    and int32 intensities once, its accumulator once unless it writes, and
+    writes its result once."""
+    B, A, C, D = shape
+    per = A * C * D
+    return sum(ln.nb * (per * elem * (2 + (ln.mode != "write"))
+                        + 4 * A * C) for ln in plan)
 
 
 def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
@@ -306,10 +446,17 @@ def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
     given) is called just before launch i and once after the last (i =
     ``len(plan)``), where a caller can record CUDA events.
     """
+    covered = set()  # problems an earlier launch has written
     for i, ln in enumerate(plan):
-        if (ln.mode != "add" and i > 0) or (ln.mode == "into" and acc is None):
+        probs = set(range(ln.b0, ln.b0 + ln.nb))
+        if ((ln.mode != "add" and probs & covered)
+                or (ln.mode == "add" and not probs <= covered
+                    and plan[0].mode != "add")
+                or (ln.mode == "into" and acc is None)):
             raise ValueError(f"launch {i} cannot {ln.mode}: only the first "
-                             "launch writes, and 'into' reads acc")
+                             "launch on a problem writes, every first launch "
+                             "writes or none does, and 'into' reads acc")
+        covered |= probs
     if acc is None and plan[0].mode == "add":
         raise ValueError("the plan adds into an accumulator; none given")
     if cost.device.type == "cpu":
@@ -336,6 +483,22 @@ def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
                 err = lib.sgm_agg_line(
                     *ptrs, None if src is None else src.data_ptr() + voff,
                     out.data_ptr() + voff, *dims, int(p1), int(p2), stream)
+            elif ln.kernel == "deep_sweep":
+                src = {"write": None, "into": acc, "add": out}[ln.mode]
+                paths = sum({0: 1, 1: 2, -1: 4}[s] for s in ln.shifts)
+                edge = None
+                if paths & 6:
+                    _, edge_words, _ = deep_sweep_geometry(cost.device, D)
+                    # Each word carries the scan step that wrote it; -1 is
+                    # none.
+                    edge = torch.full(
+                        (ln.nb * -(-L // ln.lines) * edge_words,), -1,
+                        dtype=torch.int64, device=cost.device)
+                err = lib.sgm_agg_deep_sweep(
+                    *ptrs, None if src is None else src.data_ptr() + voff,
+                    out.data_ptr() + voff,
+                    None if edge is None else edge.data_ptr(), *dims, paths,
+                    int(p1), int(p2), ln.lines, stream)
             elif ln.kernel == "sweep3":
                 tile, edge_words, _ = sweep_geometry(cost.device, D)
                 # Each word carries the scan step that wrote it; -1 is none.
@@ -525,12 +688,15 @@ def fused_pass_batch(cost: torch.Tensor, inten: torch.Tensor,
     Returns ``acc`` plus the path costs as a new int16 tensor. On the card
     (`plan_route`): shifts (0,) is one `sgm_line_kernel` launch writing
     acc + path into the result; distinct shifts with a diagonal one
-    `sgm_sweep3_kernel` launch; anything else one launch per path.
+    `sgm_sweep3_kernel` launch; anything else one launch per path. Beyond
+    512 depths distinct shifts take one `sgm_deep_sweep_kernel` launch
+    writing acc + paths into the result (per chunk of problems with a
+    diagonal).
     """
     _check(cost, inten, acc, 4)
     B, X, L, D = cost.shape
     plan = plan_route("fused_pass_batch", B, L, shifts=shifts,
-                      reverse=reverse, **_geometry(cost))
+                      reverse=reverse, **plan_geometry(cost))
     return run_plan(plan, cost, inten, acc, p1, p2)
 
 
@@ -545,15 +711,17 @@ def fused_pass(cost: torch.Tensor, inten: torch.Tensor, acc: torch.Tensor,
     sweep kernel for distinct shifts, counted as row 4 when ``loop`` is set
     (one `sgm_path_kernel` launch per path, as the JAX kernel keeps one
     scratch line per listed shift, for a repeated shift, a problem wider
-    than the resident blocks, or D > 128; one `sgm_deep_kernel` launch per
-    path at D > 512). ``xb``, that
+    than the resident blocks, or D > 128). At D > 512 distinct shifts take
+    one `sgm_deep_sweep_kernel` launch writing acc + paths into the result
+    where the card holds the problem's lines at once, and anything else
+    one `sgm_deep_kernel` launch per path. ``xb``, that
     kernel's scan-block size on the TPU, is taken for the JAX signature and
     not read: the card has no counterpart.
     """
     _check(cost, inten, acc, 3)
     X, L, D = cost.shape
     plan = plan_route("fused_pass_loop" if loop else "fused_pass", 1, L,
-                      shifts=shifts, reverse=reverse, **_geometry(cost))
+                      shifts=shifts, reverse=reverse, **plan_geometry(cost))
     return run_plan(plan, cost[None], inten[None], acc[None], p1, p2)[0]
 
 
@@ -566,12 +734,13 @@ def fused_pass_bidir(cost: torch.Tensor, inten: torch.Tensor,
 
     On the card: the forward sweep, then the backward one adding into the
     same result in place (2 launches for (0,) or distinct shifts with a
-    diagonal; one launch per path and direction otherwise).
+    diagonal, at D > 512 where the card holds the problem's lines at once;
+    one launch per path and direction otherwise).
     """
     _check(cost, inten, acc, 3)
     X, L, D = cost.shape
     plan = plan_route("fused_pass_bidir", 1, L, shifts=shifts,
-                      **_geometry(cost))
+                      **plan_geometry(cost))
     return run_plan(plan, cost[None], inten[None], acc[None], p1, p2)[0]
 
 
@@ -582,13 +751,15 @@ def aggregate(cost: torch.Tensor, intensity: torch.Tensor, p1: int, p2: int
 
     Casts like the JAX entry point (cost to int16, intensity to int32).
     On the card: `aggregate_batch`'s 4 launches for one problem, counted
-    as row 3.
+    as row 3 (at D > 512 all four `sgm_deep_sweep_kernel`, where the card
+    holds the W lines at once; else the vertical sweeps take one
+    `sgm_deep_kernel` launch per path).
     """
     cost = cost.to(torch.int16).contiguous()
     intensity = intensity.to(torch.int32).contiguous()
     _check(cost, intensity, None, 3)
     H, W, D = cost.shape
-    plan = plan_route("aggregate", 1, W, **_geometry(cost))
+    plan = plan_route("aggregate", 1, W, **plan_geometry(cost))
     return run_plan(plan, cost[None], intensity[None], None, p1, p2)[0]
 
 
@@ -601,11 +772,13 @@ def aggregate_batch(cost: torch.Tensor, intensity: torch.Tensor, p1: int,
     no transposed copy; the first writes the path cost, so nothing is
     zeroed), counted as row 2, and one `sgm_sweep3_kernel` launch per
     vertical direction carrying the straight path and both diagonals,
-    counted as row 1, all into one accumulator.
+    counted as row 1, all into one accumulator. At D > 512 the same four
+    sweeps take `sgm_deep_sweep_kernel` (the vertical ones per chunk of
+    problems whose W lines the card holds at once).
     """
     _check(cost, intensity, None, 4)
     B, H, W, D = cost.shape
-    plan = plan_route("aggregate_batch", B, W, **_geometry(cost))
+    plan = plan_route("aggregate_batch", B, W, **plan_geometry(cost))
     return run_plan(plan, cost, intensity, None, p1, p2)
 
 

@@ -8,7 +8,12 @@ line, and B = 3, and one test repeats a sweep to catch a rare race. The
 line kernel (the straight sweeps of rows 2 and 3) is held in both layouts
 the entry points give it and in its three modes (write, add in place,
 acc + path elsewhere), at depth counts that do and do not allow 16-byte
-copies, one scan step, fewer lines than a block, and B = 3.
+copies, one scan step, fewer lines than a block, and B = 3. Beyond 512
+depths every entry point is held to its plan's launches and bit-equal to
+plain on `sgm_deep_sweep_kernel` (several lines a block, many blocks, a
+ragged last block, odd and aligned D) and on `sgm_deep_kernel` where a
+problem does not fit, and a repeated 3-path sweep catches a race in the
+hand-off between blocks.
 
 These tests need a CUDA device and skip without one. This file imports
 neither JAX nor the JAX package, so on the GPU machine it runs without
@@ -16,6 +21,8 @@ the JAX test configuration:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q -p no:cacheprovider
 """
+
+import collections
 
 import pytest
 import torch
@@ -30,6 +37,21 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run this file on the GPU machine")
     return torch.device("cuda")
+
+
+def _planned(entry, cost, B, L, **kw):
+    """Launches by row and by kernel that `plan_route` plans for ``cost``
+    on its device."""
+    plan = cuda_agg.plan_route(entry, B, L, **cuda_agg.plan_geometry(cost),
+                               **kw)
+    return (dict(collections.Counter(ln.row for ln in plan)),
+            dict(collections.Counter(ln.kernel for ln in plan)))
+
+
+def _launched():
+    """The launch counts by row and by kernel that are not 0."""
+    return ({k: v for k, v in cuda_agg.launches.items() if v},
+            {k: v for k, v in cuda_agg.kernel_launches.items() if v})
 
 
 def _volume(shape, seed, device, hi=127):
@@ -233,26 +255,31 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 
 
 # 129-512: sgm_path_kernel with 8 or 16 depths a lane; 513-16384:
-# sgm_deep_kernel, one block of ceil(D / 512) warps a chain, loading one
-# step ahead up to 8 warps (4096 depths) and at each step beyond.
+# sgm_deep_sweep_kernel for a sweep of distinct shifts that fits, else
+# sgm_deep_kernel, one block of ceil(D / 512) warps a chain per path.
 DEEP = [129, 192, 256, 512, 513, 1024, 2048, 4608, 16384]
 
 
 @pytest.mark.parametrize("D", DEEP)
 def test_deep_aggregate_batch_and_aggregate_equal_plain(cuda, D):
     """More than 128 depths: every sweep takes `sgm_path_kernel` with 8 or
-    16 depths per lane, or `sgm_deep_kernel` beyond 512 (3 + 3 vertical,
-    1 + 1 horizontal launches)."""
+    16 depths per lane (1 + 1 horizontal, 3 + 3 vertical launches), and
+    beyond 512 the deep kernels, with the launches `plan_route` plans (4
+    where the vertical sweeps fit at once)."""
     cost, inten = _volume((2, 9, 13, D), seed=D, device=cuda)
     cuda_agg.reset_launches()
     got = cuda_agg.aggregate_batch(cost, inten, 6, 96)
-    assert (cuda_agg.launches["fused_pass_batch"],
-            cuda_agg.launches["fused_pass"]) == (2, 6)
+    assert _launched() == _planned("aggregate_batch", cost, 2, 13)
+    if D <= 512:
+        assert (cuda_agg.launches["fused_pass_batch"],
+                cuda_agg.launches["fused_pass"]) == (2, 6)
     assert torch.equal(got.to(torch.int32),
                        cuda_agg.plain_aggregate_batch(cost, inten, 6, 96))
     cuda_agg.reset_launches()
     got = cuda_agg.aggregate(cost[0], inten[0], 6, 96)
-    assert cuda_agg.launches["fused_pass_bidir"] == 8
+    assert _launched() == _planned("aggregate", cost, 1, 13)
+    assert cuda_agg.launches["fused_pass_bidir"] == (
+        8 if D <= 512 or D > 8192 else 4)
     assert torch.equal(got.to(torch.int32),
                        cuda_agg.plain_aggregate(cost[0], inten[0], 6, 96))
 
@@ -260,13 +287,18 @@ def test_deep_aggregate_batch_and_aggregate_equal_plain(cuda, D):
 @pytest.mark.parametrize("D", DEEP)
 def test_deep_sweeps_equal_plain(cuda, D):
     """`fused_pass` (rows 1 and 4), `fused_pass_batch`, `fused_pass_bidir`
-    and `scan_direction` at D > 128, one path (or deep) launch per path."""
+    and `scan_direction` at D > 128, one path (or deep) launch per path, or
+    one `sgm_deep_sweep_kernel` launch per sweep, as planned."""
     cost, inten = _volume((11, 14, D), seed=D + 1, device=cuda)
     acc, _ = _volume((11, 14, D), seed=D + 2, device=cuda, hi=500)
     for reverse in (False, True):
         for loop in (False, True):
+            cuda_agg.reset_launches()
             got = cuda_agg.fused_pass(cost, inten, acc, reverse, (0, 1, -1),
                                       6, 96, loop=loop)
+            assert _launched() == _planned(
+                "fused_pass_loop" if loop else "fused_pass", cost, 1, 14,
+                shifts=(0, 1, -1), reverse=reverse)
             want = cuda_agg.plain_fused_pass_batch(
                 cost[None], inten[None], acc[None], reverse, (0, 1, -1), 6,
                 96)[0]
@@ -341,3 +373,115 @@ def test_scan_direction_equals_plain(cuda, shift, shape):
     want = cuda_agg.plain_scan_direction(cost, inten, shift, 6, 96)
     assert got.dtype == torch.int32
     assert torch.equal(got, want)
+
+
+# sgm_deep_sweep_kernel at D depths on [X, L, D]: L > 132 lines, so a
+# sweep with a diagonal takes several lines a block (in-block hand-off)
+# and many blocks (hand-off through the edge words), with a ragged last
+# block. D = 513 and 770 take neither the cp.async ring nor aligned
+# pieces; D = 16384 takes the kernel for its straight sweeps only.
+DEEP_SWEEP = {513: (9, 301), 520: (9, 301), 770: (7, 281), 1024: (9, 301),
+              4608: (6, 201), 16384: (5, 40)}
+
+
+@pytest.mark.parametrize("D", list(DEEP_SWEEP))
+def test_deep_sweep_kernel_equals_plain(cuda, D):
+    """Every entry point, both directions and every mode (write, into,
+    add), bit-equal to the plain version, with the launches planned; every
+    call but the per-path fallback's goes through `sgm_deep_sweep_kernel`."""
+    X, L = DEEP_SWEEP[D]
+    cost, inten = _volume((X, L, D), seed=D + 3, device=cuda)
+    acc, _ = _volume((X, L, D), seed=D + 4, device=cuda, hi=500)
+    b = (cost[None], inten[None], acc[None])
+    calls = []
+    for reverse in (False, True):
+        for shifts in ((0, 1, -1), (1,), (-1, 0), (0,)):
+            calls.append((
+                ("fused_pass", 1, L, dict(shifts=shifts, reverse=reverse)),
+                lambda r=reverse, s=shifts: cuda_agg.fused_pass(
+                    cost, inten, acc, r, s, 6, 96),
+                lambda r=reverse, s=shifts: cuda_agg.plain_fused_pass_batch(
+                    *b, r, s, 6, 96)[0]))
+        calls.append((
+            ("fused_pass_loop", 1, L, dict(shifts=(0, 1, -1),
+                                           reverse=reverse)),
+            lambda r=reverse: cuda_agg.fused_pass(cost, inten, acc, r,
+                                                  (0, 1, -1), 6, 96,
+                                                  loop=True),
+            lambda r=reverse: cuda_agg.plain_fused_pass_batch(
+                *b, r, (0, 1, -1), 6, 96)[0]))
+        for shifts in ((0,), (0, 1, -1)):
+            calls.append((
+                ("fused_pass_batch", 1, L, dict(shifts=shifts,
+                                                reverse=reverse)),
+                lambda r=reverse, s=shifts: cuda_agg.fused_pass_batch(
+                    *b, r, s, 6, 96)[0],
+                lambda r=reverse, s=shifts: cuda_agg.plain_fused_pass_batch(
+                    *b, r, s, 6, 96)[0]))
+    for shifts in ((0,), (0, 1, -1)):
+        calls.append((
+            ("fused_pass_bidir", 1, L, dict(shifts=shifts)),
+            lambda s=shifts: cuda_agg.fused_pass_bidir(cost, inten, acc, s,
+                                                       6, 96),
+            lambda s=shifts: cuda_agg.plain_fused_pass_bidir(cost, inten, acc,
+                                                             s, 6, 96)))
+    calls.append((("aggregate", 1, L, {}),
+                  lambda: cuda_agg.aggregate(cost, inten, 6, 96),
+                  lambda: cuda_agg.plain_aggregate(cost, inten, 6, 96)))
+    two = torch.stack([cost, cost.flip(0)]), torch.stack([inten, inten])
+    calls.append((("aggregate_batch", 2, L, {}),
+                  lambda: cuda_agg.aggregate_batch(*two, 6, 96),
+                  lambda: cuda_agg.plain_aggregate_batch(*two, 6, 96)))
+    fits = cuda_agg.deep_sweep_geometry(cuda, D)[0] > 0
+    for (entry, B, lines, kw), fn, plain in calls:
+        cuda_agg.reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        planned = _planned(entry, cost, B, lines, **kw)
+        assert _launched() == planned, (entry, kw)
+        straight = kw.get("shifts") == (0,) or entry.startswith("aggregate")
+        assert "deep_sweep" in planned[1] or not (fits or straight), \
+            (entry, kw)
+        assert torch.equal(got.to(torch.int32), plain()), (entry, kw)
+    assert torch.equal(acc, _volume((X, L, D), seed=D + 4, device=cuda,
+                                    hi=500)[0])  # input left untouched
+
+
+def test_deep_sweep_beyond_the_resident_lines_takes_the_deep_kernel(cuda):
+    """One line more than the card holds at once with a diagonal: the
+    sweep keeps one `sgm_deep_kernel` launch per path, bit-equal."""
+    D = 1024
+    lines, _, sms = cuda_agg.deep_sweep_geometry(cuda, D)
+    cost, inten = _volume((3, lines * sms + 1, D), seed=31, device=cuda)
+    acc, _ = _volume(cost.shape, seed=32, device=cuda, hi=500)
+    cuda_agg.reset_launches()
+    got = cuda_agg.fused_pass(cost, inten, acc, True, (0, 1, -1), 6, 96)
+    assert _launched() == ({"fused_pass": 3}, {"deep": 3})
+    want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None], acc[None],
+                                           True, (0, 1, -1), 6, 96)[0]
+    assert torch.equal(got.to(torch.int32), want)
+
+
+def test_deep_sweep_geometry_matches_the_stand_in(cuda):
+    """The card's geometry is the one CPU tensors are planned with (on an
+    H100 SXM: 132 SMs, 227 KB of shared memory a block)."""
+    if cuda_agg.deep_sweep_geometry(cuda, 2048)[2] != cuda_agg.H100_SMS:
+        pytest.skip("not an H100 SXM")
+    for D in (513, 1024, 2048, 4608, 8192, 10240, 10241, 16384):
+        assert cuda_agg.deep_sweep_geometry(cuda, D) == \
+            cuda_agg.deep_sweep_stand_in(D), D
+
+
+def test_deep_sweep_repeats_bit_equal(cuda):
+    """A race in the blocks' hand-off shows as a rare mismatch: the 3-path
+    sweep at [64, 640, 1024] 20 times, each bit-equal to the plain
+    version."""
+    cost, inten = _volume((64, 640, 1024), seed=33, device=cuda)
+    acc, _ = _volume(cost.shape, seed=34, device=cuda, hi=500)
+    want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None], acc[None],
+                                           False, (0, 1, -1), 6, 96)[0]
+    for rep in range(20):
+        cuda_agg.reset_launches()
+        got = cuda_agg.fused_pass(cost, inten, acc, False, (0, 1, -1), 6, 96)
+        assert cuda_agg.kernel_launches["deep_sweep"] == 1
+        assert torch.equal(got.to(torch.int32), want), f"repetition {rep}"
