@@ -28,11 +28,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
 5. the rectified main path: `bench_main.run_once(1440, 2)` once to warm up
    and once timed, with the kernel's launch counts; coverage >= 0.84 and
    median relative error <= 1e-4 against the analytic depth;
-6. the general-warp path: `stereo.reconstruct` at dim 1440 (128 planes,
-   range (4.0, 8.5)) on the two-view scene of tests/test_sgm.py, its plane's
-   slope per pixel scaled by 160/1440; row-3 launches > 0, coverage and
-   median relative error within the limits set from the JAX package's
-   result (`tools/jax_cpu_reference.py general`);
+6. the general-warp path: `stereo.reconstruct` at dim 1440 (range (4.0,
+   8.5)) on the two-view scene of tests/test_sgm.py, its plane's slope per
+   pixel scaled by 160/1440, with 128 planes and then with
+   `SGMOptions(num_steps=256)` (the 129-512 route: `sgm_line_kernel` and
+   `sgm_sweep3_kernel` at 8 depths a lane, no `sgm_path_kernel`
+   launch); row-3 launches > 0, coverage and median relative error within
+   the limits set from the JAX package's result at each plane count
+   (`tools/jax_cpu_reference.py general [--planes 256]`);
 7. the `smvsrecon` CLI (`smvs_tpu_torch.cli.main`) with its defaults on a
    4-view 1280 x 1280 plane scene written as an MVE scene, whose pairs
    rectify: exit 0, an `smvs-B0` embedding per view, the PLY, row 1-2
@@ -47,15 +50,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
 9. the SGM kernels beyond their first reach: a repeated shift through
    `fused_pass` and `fused_pass(loop=True)` (one `sgm_path_kernel` launch
    per listed path), every entry point at D = 129, 192, 256 and 512
-   (`sgm_path_kernel` with 8 or 16 depths per lane) and at D = 513, 1024
-   and 2048 (`sgm_deep_sweep_kernel`, one launch per sweep: 4 per
-   `aggregate`), each bit-equal to plain on every timed run, with times,
-   at [640, 640, D], and each D's launches counted by row and by kernel
-   and held to `cuda_agg.plan_route`'s plan; at D = 513, 1024 and 2048
-   `aggregate` also on the per-path route (`cuda_agg.per_path_plan`: 8
-   `sgm_deep_kernel` launches) through `run_plan`, in turns with the plan's
-   route, both bit-equal to plain; every entry point at D = 16384 on a
-   small volume (straight sweeps on `sgm_deep_sweep_kernel`, diagonal
+   (`sgm_line_kernel` and `sgm_sweep3_kernel` with 8 or 16 depths per
+   lane) and at D = 513, 1024 and 2048 (`sgm_deep_sweep_kernel`), one
+   launch per sweep (4 per `aggregate` and `aggregate_batch`, none of
+   them a one-path-per-launch kernel's), each bit-equal to plain on every
+   timed run, with times, at [640, 640, D], and each D's launches counted
+   by row and by kernel and held to `cuda_agg.plan_route`'s plan;
+   `aggregate` at every D also on the per-path route
+   (`cuda_agg.per_path_plan`: 8 `sgm_path_kernel` launches to 512,
+   `sgm_deep_kernel` beyond) through `run_plan`, in turns with the plan's
+   route, both bit-equal to plain; the same at the general path's
+   per-direction volume with 256 planes, [1440, 1440, 256] (one launch
+   per sweep with 1440 lines resident); every entry point at D = 16384 on
+   a small volume (straight sweeps on `sgm_deep_sweep_kernel`, diagonal
    ones on `sgm_deep_kernel`'s 32-warp form, as planned), bit-equal; and
    D = 16385 raising before any launch;
 10. the shading-aware flagship: `bench_main.run_shading_once(1440, 2)`
@@ -167,18 +174,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    beside the card's name and power limit. No kernel launches there.
 
 The launch counts of each path are set to 0 just before it runs and read
-just after; the `launches` of each kernel row come from the path named in
-its `path` key (rows 4 and 5 have no user path), and rows 1 and 2 also
-list their launches on the flagship and the CLI with `-S`. It prints one
+just after (each phase's seconds are logged as it ends); the `launches`
+of each kernel row come from the path named in its `path` key (rows 4
+and 5 have no user path), and rows 1 and 2 also list their launches on
+the flagship and the CLI with `-S`. It prints one
 `{"flagship": {...}}` line with the flagship's numbers, one `{"dist":
 {...}}` line with phase 15's, one `{"split": {...}}` line with phase
 16's, one `{"drivers": {...}}` line with phase 17's (the three drivers'
-dicts among them), one `{"oracle": {...}}` line with phase 18's, the
-card's name and power limit again, one `{"kernels": [...]}`
-line with the five TPU kernel rows, each naming the CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
+dicts among them), one `{"oracle": {...}}` line with phase 18's, one
+`{"general": {...}, "phase_seconds": {...}}` line with phase 6's runs and
+every phase's seconds, the card's name and power limit again, one
+`{"kernels": [...]}` line with the five TPU kernel rows, each naming the
+CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
 `sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
-5), `sgm_deep_sweep_kernel`, which serves every sweep of distinct shifts
-beyond 512 depths, timed on `aggregate` at D = 2048, and
+5), the 129-512 route (`sgm_line_kernel` + `sgm_sweep3_kernel` at 8 and
+16 depths a lane), timed on `aggregate` at D = 256 with its launches
+from phase 6's run at 256 planes, `sgm_deep_sweep_kernel`, which serves
+every sweep of distinct shifts beyond 512 depths, timed on `aggregate`
+at D = 2048, and
 `sgm_deep_kernel`, its one-path-per-launch fallback, timed on the
 per-path route there, then as the last line
 `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -246,6 +259,14 @@ GEN_SHAPE = (1440, 1440, 128)  # one direction of the general-warp path
 # relative error 1.519e-3; PERF.md): 90% of its coverage, twice its error.
 GENERAL_MIN_COVERAGE = 0.78
 GENERAL_MAX_ERR = 3.0e-3
+# The same path with 256 planes (`SGMOptions(num_steps=256)`, the 129-512
+# route of the kernels: [1440, 1440, 256] volumes), set the same way from
+# the JAX package's result at dim 720 on the CPU
+# (`tools/jax_cpu_reference.py general --dim 720 --planes 256`: coverage
+# 0.8681, median relative error 7.661e-4; PERF.md).
+GENERAL_PLANES = (128, 256)
+GENERAL_LIMITS = {128: (GENERAL_MIN_COVERAGE, GENERAL_MAX_ERR),
+                  256: (0.78, 1.5e-3)}
 # Limits of the CLI on 4 x 1280^2, from the JAX package's CLI on the same
 # configuration at dim 640 on the CPU (1,424,149 points of 4 x 640^2
 # pixels, 0.8692; median fused error 1.372e-4; PERF.md): 80% of its
@@ -375,14 +396,18 @@ ORACLE_F64_BAR = 1e-9
 ORACLE_F32_RTOL = SHADING_F32_RTOL
 ORACLE_REPS = 5
 
-# Depth counts beyond the line and sweep kernels: sgm_path_kernel to 512,
-# the deep kernels beyond; at DEEP_ROUTES `aggregate` is also timed on
-# the per-path route.
+# Depth counts beyond 128: the line and sweep kernels at 8 and 16 depths a
+# lane to 512, the deep kernels beyond; at every one `aggregate` is also
+# timed on the per-path route (sgm_path_kernel to 512, sgm_deep_kernel
+# beyond).
 DEEP = (129, 192, 256, 512, 513, 1024, 2048)
-DEEP_ROUTES = (513, 1024, 2048)
 DEEP_HW = 640  # [640, 640, D] problems for them
 DEEP_MAX_SHAPE = (16, 24, cuda_agg.MAX_D)  # sgm_deep_kernel's 32-warp form
 DEEP_TIMED_D = 2048  # the deep kernels' entries of the kernels line
+WIDE_TIMED_D = 256  # the 129-512 route's entry of the kernels line
+# The general path's per-direction volume at 256 planes, timed on both
+# routes: 1440 lines, one launch per vertical sweep.
+WIDE_GEN_SHAPE = (1440, 1440, 256)
 
 SOURCE = "smvs_tpu_torch/csrc/sgm_agg.cu"
 # Each row's `pl.pallas_call` and the TPU kernel it runs.
@@ -752,8 +777,12 @@ def phase_main(details: dict) -> dict:
     return launches
 
 
-def phase_general() -> None:
+def phase_general(planes: int) -> dict:
+    """`stereo.reconstruct` at dim 1440 with ``planes`` depth planes: row-3
+    launches > 0 (at 256 planes none of them `sgm_path_kernel`), coverage
+    and median relative error within ``GENERAL_LIMITS``."""
     dim = 1440
+    min_cov, max_err = GENERAL_LIMITS[planes]
     slope = 0.005 * 160.0 / dim
     scene = syn.make_two_view_scene(
         dim=dim, rotate=False, baseline=0.25, texture="noise",
@@ -764,7 +793,7 @@ def phase_general() -> None:
              *cn.fill_reprojection(cm, dim, dim, dim, dim))]
     main = torch.as_tensor(scene.images[1], device="cuda") * 255.0
     nbr = torch.as_tensor(scene.images[0], device="cuda") * 255.0
-    opts = stereo.SGMOptions(num_steps=128)
+    opts = stereo.SGMOptions(num_steps=planes)
 
     def run():
         depth = stereo.reconstruct(main, nbr, *mats, (4.0, 8.5), (4.0, 8.5),
@@ -774,28 +803,38 @@ def phase_general() -> None:
 
     t0 = time.perf_counter()
     run()
-    log(f"warm-up reconstruct({dim}): {time.perf_counter() - t0:.1f} s")
+    log(f"warm-up reconstruct({dim}, {planes} planes): "
+        f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     cuda_agg.reset_launches()
     t0 = time.perf_counter()
     depth = run()
     seconds = time.perf_counter() - t0
     launches = dict(cuda_agg.launches)
+    kernels = {k: v for k, v in cuda_agg.kernel_launches.items() if v}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     depth = depth.cpu().numpy()
     gt = scene.depths[1]
     mask = depth > 0
     cov = float(mask.mean())
     err = float(np.median(np.abs(depth[mask] - gt[mask]) / gt[mask]))
-    log(f"general-warp reconstruct({dim}): {seconds:.3f} s, peak "
-        f"{peak_gb:.2f} GB, coverage {cov:.4f}, median_rel_err {err:.3e}, "
-        f"kernel launches {launches}")
+    log(f"general-warp reconstruct({dim}, {planes} planes): {seconds:.3f} "
+        f"s, peak {peak_gb:.2f} GB, coverage {cov:.4f}, median_rel_err "
+        f"{err:.3e}, kernel launches {launches} by kernel {kernels}")
     if launches["fused_pass_bidir"] <= 0:
         raise RuntimeError("the general path did not launch the kernel")
-    if not cov >= GENERAL_MIN_COVERAGE:
-        raise RuntimeError(f"coverage {cov:.4f} < {GENERAL_MIN_COVERAGE}")
-    if not err <= GENERAL_MAX_ERR:
-        raise RuntimeError(f"median_rel_err {err:.3e} > {GENERAL_MAX_ERR}")
+    if planes > cuda_agg.SWEEP_MAX_D and (
+            "path" in kernels or not kernels.get("line")
+            or not kernels.get("sweep3")):
+        raise RuntimeError(f"{planes} planes did not take sgm_line_kernel "
+                           f"and sgm_sweep3_kernel alone: {kernels}")
+    if not cov >= min_cov:
+        raise RuntimeError(f"coverage {cov:.4f} < {min_cov}")
+    if not err <= max_err:
+        raise RuntimeError(f"median_rel_err {err:.3e} > {max_err}")
+    return {"planes": planes, "seconds": seconds, "coverage": cov,
+            "median_rel_err": err, "launches": launches, "kernels": kernels,
+            "peak_gb": peak_gb}
 
 
 def fused_error(vertices: np.ndarray, scene, view: int = 1) -> float:
@@ -1165,7 +1204,8 @@ def phase_deep(rows: dict) -> None:
         acc = torch.randint(0, 500, cost.shape, generator=g, device="cuda",
                             dtype=torch.int16)
         b2 = (cost[None], inten[None], acc[None])
-        deep_launches = check_deep_launches(D, cost, inten)
+        deep_launches = check_deep_launches(D, cost, inten,
+                                            one_per_sweep=True)
         cases = {
             "fused_pass": (
                 "aggregate_batch (planned launches)",
@@ -1216,9 +1256,8 @@ def phase_deep(rows: dict) -> None:
                 f"D = {D}: {name}", fn, plain, acc_in, elem)
         for row in ("fused_pass", "fused_pass_bidir"):
             rows[row]["deep"][D]["launches"] = deep_launches[row]
-        if D in DEEP_ROUTES:
-            rows["fused_pass_bidir"]["deep"][D]["routes"] = routes_in_turns(
-                D, cost, inten)
+        rows["fused_pass_bidir"]["deep"][D]["routes"] = routes_in_turns(
+            D, cost, inten)
         cost32 = cost.to(torch.int32) * 300
         del cost, acc, b2
         rows["scan_direction"]["deep"][D] = {"sweep": compare(
@@ -1228,18 +1267,37 @@ def phase_deep(rows: dict) -> None:
             False, 4)}
         del cost32, inten
     torch.cuda.empty_cache()
+    rows["fused_pass_bidir"]["wide_general"] = phase_wide_general()
     rows["fused_pass"]["deepest"] = phase_deepest()
 
 
-def check_deep_launches(D: int, cost, inten) -> dict:
+def phase_wide_general() -> dict:
+    """`aggregate` at the general path's per-direction volume with 256
+    planes, [1440, 1440, 256]: its launches held to the plan (one per
+    sweep, 4, none of them `sgm_path_kernel`), and both routes in turns,
+    bit-equal to plain on every run."""
+    cost, inten = _seeded(WIDE_GEN_SHAPE, 1256)
+    D = WIDE_GEN_SHAPE[2]
+    res = {"shape": list(WIDE_GEN_SHAPE)}
+    res["launches"] = check_deep_launches(D, cost, inten, one_per_sweep=True)
+    res["routes"] = routes_in_turns(D, cost, inten)
+    del cost, inten
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_deep_launches(D: int, cost, inten,
+                        one_per_sweep: bool = False) -> dict:
     """`aggregate_batch` and `aggregate` on one [H, W, D] volume and
     `scan_direction` on its int32 costs, each with the launch counts set to
     0 just before and read just after, held to the launches
-    `cuda_agg.plan_route` plans for the card (by row and by kernel): 8
-    `sgm_path_kernel` launches up to 512 depths; beyond, one
-    `sgm_deep_sweep_kernel` launch per sweep where the card holds a
-    problem's lines at once (4), otherwise one `sgm_deep_kernel` launch
-    per path of a diagonal sweep; and 1 for `scan_direction`."""
+    `cuda_agg.plan_route` plans for the card (by row and by kernel): one
+    launch per sweep where the card holds a problem's lines at once (4:
+    `sgm_line_kernel` and `sgm_sweep3_kernel` up to 512 depths,
+    `sgm_deep_sweep_kernel` beyond), otherwise one `sgm_path_kernel` or
+    `sgm_deep_kernel` launch per path of a diagonal sweep; and 1 for
+    `scan_direction`. ``one_per_sweep``: the two 8-path sums must also
+    make exactly 4 launches, none of them a one-path-per-launch kernel's."""
     W = cost.shape[1]
     geo = cuda_agg.plan_geometry(cost)
     plans = {
@@ -1269,17 +1327,22 @@ def check_deep_launches(D: int, cost, inten) -> dict:
             raise RuntimeError(f"D = {D}: {row}'s path launched {by_row} "
                                f"by kernel {by_kernel}, not the planned "
                                f"{want}")
+        if one_per_sweep and row != "scan_direction" and (
+                sum(by_kernel.values()) != 4
+                or {"path", "deep"} & set(by_kernel)):
+            raise RuntimeError(f"D = {D}: {row}'s path launched "
+                               f"{by_kernel}, not one launch per sweep")
         out[row] = {"rows": by_row, "kernels": by_kernel}
     log(f"D = {D}: launches {out}")
     return out
 
 
 def routes_in_turns(D: int, cost, inten) -> dict:
-    """`aggregate` on [640, 640, D] through the plan's route and through
-    the per-path route (`cuda_agg.per_path_plan`: one `sgm_deep_kernel`
-    launch per path), in turns (plan, per path, per path, plan, ...), each
-    run held bit-equal to plain; medians, and each plan's bytes floor
-    (`cuda_agg.plan_bytes`)."""
+    """`aggregate` on [H, W, D] through the plan's route and through the
+    per-path route (`cuda_agg.per_path_plan`: one `sgm_path_kernel`, or
+    beyond 512 depths `sgm_deep_kernel`, launch per path), in turns (plan,
+    per path, per path, plan, ...), each run held bit-equal to plain;
+    medians, and each plan's bytes floor (`cuda_agg.plan_bytes`)."""
     cost4, inten3 = cost[None], inten[None]
     plan = cuda_agg.plan_route("aggregate", 1, cost.shape[1],
                                **cuda_agg.plan_geometry(cost))
@@ -2145,6 +2208,50 @@ def phase_oracle(main_details: dict, shading_details: dict,
     return out
 
 
+def wide_kernel_entry(rows: dict, general: dict) -> dict:
+    """The kernels line's entry of the 129-512 route (`sgm_line_kernel`
+    and `sgm_sweep3_kernel` at 8 and 16 depths a lane), timed on phase 9's
+    `aggregate` at [640, 640, 256] against the per-path route in turns;
+    its launches are those of phase 6's general-warp `reconstruct` with
+    256 planes (counts reset just before, read just after)."""
+    deep = rows["fused_pass_bidir"]["deep"][WIDE_TIMED_D]
+    routes = deep["routes"]
+    wide_general = rows["fused_pass_bidir"]["wide_general"]
+    run = general[WIDE_TIMED_D]
+    return {
+        "name": "sgm_line_kernel + sgm_sweep3_kernel via aggregate at "
+                f"D = {WIDE_TIMED_D}",
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": REPLACES["fused_pass_bidir"][0],
+        "tpu_kernel": "every row at 129 <= D <= 512 (here row 3, "
+                      + REPLACES["fused_pass_bidir"][1] + ")",
+        "launches": run["kernels"].get("line", 0)
+        + run["kernels"].get("sweep3", 0),
+        "path": f"stereo.reconstruct(1440) with SGMOptions(num_steps="
+                f"{WIDE_TIMED_D}): general-warp SGM; timed on aggregate on "
+                f"[{DEEP_HW}, {DEEP_HW}, {WIDE_TIMED_D}], "
+                f"{routes['plan_launches']} launches",
+        "max_abs_err": deep["aggregate"]["max_abs_err"],
+        "ms": routes["plan_ms"],
+        "plain_ms": deep["aggregate"]["plain_ms"],
+        "bound_ms": deep["aggregate"]["bound_ms"],
+        "bound_by": deep["aggregate"]["bound_by"],
+        "library_ms": None,
+        "shape": deep["aggregate"]["shape"],
+        "bytes_floor_ms": routes["plan_floor_ms"],
+        "per_path_ms": routes["per_path_ms"],
+        "per_path_floor_ms": routes["per_path_floor_ms"],
+        "by_depth": {D: {k: rows["fused_pass_bidir"]["deep"][D]["routes"][k]
+                         for k in ("plan_ms", "per_path_ms")}
+                     for D in DEEP if D <= cuda_agg.PATH_MAX_D},
+        "general_1440": {k: wide_general["routes"][k]
+                         for k in ("plan_ms", "per_path_ms", "plan_launches",
+                                   "per_path_launches")},
+        "reconstruct": run,
+    }
+
+
 def deep_kernel_entries(rows: dict) -> list:
     """The kernels line's entries of the two deep kernels, from phase 9's
     results in ``rows``. No user path sets more than 512 planes.
@@ -2196,34 +2303,61 @@ def deep_kernel_entries(rows: dict) -> list:
 
 def main() -> int:
     set_cuda_precision()
+    start = last = time.perf_counter()
+    phase_seconds = {}
+
+    def lap(name: str) -> None:
+        """Logs the seconds of the phase that just ended, and the run's."""
+        nonlocal last
+        now = time.perf_counter()
+        phase_seconds[name] = now - last
+        log(f"phase {name}: {now - last:.1f} s (run {now - start:.1f} s)")
+        last = now
+
     device, card = phase_card()
     phase_build()
+    lap("1-2 card, build")
     rows = phase_kernel_rectified()
     rows.update(phase_kernel_general())
     rows["fused_pass"]["wide_problem"] = phase_wide()
+    lap("3-4 kernel rows")
     main_details = {}
     main_launches = phase_main(main_details)
-    phase_general()
+    lap("5 run_once")
+    general = {p: phase_general(p) for p in GENERAL_PLANES}
+    lap("6 general-warp SGM")
     phase_cli("cli", None, CLI_MIN_POINT_SHARE, CLI_MAX_ERR,
               ("fused_pass", "fused_pass_batch"))
+    lap("7 cli")
     forward = phase_cli("cli forward", syn.forward_cameras(),
                         FORWARD_MIN_POINT_SHARE, FORWARD_MAX_ERR,
                         ("fused_pass_bidir",))
+    lap("8 cli forward")
     phase_deep(rows)
+    lap("9 kernels beyond 128 planes")
     shading_details = {}
     shading = phase_shading(shading_details)
+    lap("10 flagship")
     shading_cli = phase_cli("cli -S", None, SHADING_CLI_MIN_POINT_SHARE,
                             SHADING_CLI_MAX_ERR,
                             ("fused_pass", "fused_pass_batch"), flags=("-S",))
+    lap("11 cli -S")
     color_cli = phase_cli_color()
+    lap("12 cli color")
     mesh_cli = phase_cli_mesh()
+    lap("13 cli mesh")
     captured = []
     batch_cli = phase_cli_batch(captured)
+    lap("14 view batching")
     dist = phase_dist(captured)
+    lap("15 multi-device")
     split = phase_split(main_details, captured)
+    lap("16 row split")
     del captured
     drivers = phase_drivers()
+    lap("17 drivers")
     oracle = phase_oracle(main_details, shading_details, card)
+    lap("18 oracle")
     del main_details, shading_details
     main_path = "bench_main.run_once(1440, 2): rectified SGM"
     path_launches = {  # (path, launches on it)
@@ -2258,6 +2392,7 @@ def main() -> int:
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
         })
+    kernels.append(wide_kernel_entry(rows, general))
     kernels += deep_kernel_entries(rows)
     print(json.dumps({"flagship": shading}), flush=True)
     print(json.dumps({"cli_color": color_cli, "cli_mesh": mesh_cli,
@@ -2266,6 +2401,8 @@ def main() -> int:
     print(json.dumps({"split": split}, default=str), flush=True)
     print(json.dumps({"drivers": drivers}, default=str), flush=True)
     print(json.dumps({"oracle": oracle}), flush=True)
+    print(json.dumps({"general": general,
+                      "phase_seconds": phase_seconds}), flush=True)
     print(card, flush=True)  # beside the numbers of the lines around it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

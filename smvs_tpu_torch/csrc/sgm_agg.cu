@@ -18,16 +18,17 @@
 //      volume scanned along axis 1, written out (not accumulated).
 // Which kernel serves a call is chosen from its shape by
 // cuda_agg.plan_route:
-// - sgm_line_kernel: every straight-only sweep of rows 2 and 3 (the
-//   horizontal sweeps of aggregate_batch and aggregate, and
+// - sgm_line_kernel: every straight-only sweep of rows 2 and 3 up to 512
+//   depths (the horizontal sweeps of aggregate_batch and aggregate, and
 //   fused_pass_batch / fused_pass_bidir with shifts (0,));
 // - sgm_sweep3_kernel: rows 1 and 4, and every sweep of rows 2 and 3
-//   with distinct shifts that include a diagonal, whose problem fits the
-//   resident blocks (the vertical sweeps of aggregate_batch and aggregate);
+//   with distinct shifts that include a diagonal, up to 512 depths, whose
+//   problem fits the resident blocks (the vertical sweeps of
+//   aggregate_batch and aggregate);
 // - sgm_path_kernel: row 5, and one launch per path of a sweep that the
-//   other two cannot take (a repeated shift, in any row; a problem wider
-//   than the resident blocks of sgm_sweep3_kernel; or more than 128
-//   depths, up to 512);
+//   other two cannot take (a repeated shift, in any row; or a problem
+//   wider than the resident blocks of sgm_sweep3_kernel), up to 512
+//   depths;
 // - sgm_deep_sweep_kernel: every sweep of distinct shifts at more than 512
 //   depths (up to 16384), one launch per sweep: a straight-only sweep over
 //   any number of problems, one with a diagonal per chunk of problems
@@ -44,9 +45,9 @@
 // diagonal, where it enters through the border line.
 //
 // Every kernel holds the D depths of a line in registers across the 32
-// lanes of a warp (K = ceil(D/32) per lane, 4 at D = 128). The line and
-// sweep kernels take K <= 4; sgm_path_kernel also K = 8 and 16 (D <= 256
-// and <= 512), whose lanes hold 2 and 4 times the state. prev[d +- 1]
+// lanes of a warp (K = ceil(D/32) per lane, 4 at D = 128). The line,
+// sweep and path kernels are built for K = 1-4, 8 and 16 (D <= 128, 256
+// and 512); at K = 8 and 16 a lane holds 2 and 4 times the state. prev[d +- 1]
 // across lanes come from __shfl_up/down_sync. Depths d >= D hold BIG and
 // take no part in a neighbour; costs stay below BIG - P2, so they never
 // win a min either. P2a is computed in the kernel from the int32
@@ -75,7 +76,13 @@
 // handed out by a shuffle; min(prev) is one redux.sync instruction and
 // P2a comes from a table of its 256 values for |dI| < 256 (a division
 // above). Depth runs that are not 16-byte aligned (D % 8 != 0, or an odd
-// stride) fill the ring with plain loads.
+// stride) fill the ring with plain loads at K <= 4, and at K = 8 and 16
+// with the 4-byte words that cover each run (copy_words), which stay in
+// flight as the pieces do. At K = 8 and 16 (129-512 depths) the ring's
+// rows hold 32 K depths and it keeps fewer positions, 8 and 4
+// (LineRing), so a warp has the same 7-8 KB in flight and a block the
+// same 33 KB of shared memory; the step is the same, each depth in DPX
+// instructions (sgm_step).
 //
 // sgm_sweep3_kernel: one cooperative launch per sweep carries the
 // straight path and both diagonals at once, so each position's cost and
@@ -110,14 +117,31 @@
 //   and sends a problem that alone does not fit to sgm_path_kernel.
 //   A ragged last tile's idle warps stay in the loop and reach every
 //   barrier.
+// - At K = 8 and 16 (129-512 depths; Sweep3). A block takes the lines the
+//   wrapper plans from L, at most kTile (16 warps, 128 registers a
+//   thread): one block an SM and a problem's lines spread over all of
+//   them (640 lines: 128 blocks of 5), so every block of a problem is
+//   resident and each SM holds the fewest lines. A diagonal line and an
+//   edge line are [K][32] words (line_word), so a warp's access of one
+//   depth per lane touches 32 consecutive words: no bank conflicts in
+//   shared memory, coalesced in device memory. The ring keeps 4 positions
+//   at K = 8 and 3 at K = 16, so 16 and 14 lines fit a block (137 and 213
+//   KB); 1440 lines (the general path's [1440, 1440, 256]) take 11 a
+//   block on 131 SMs. Unaligned runs fill the ring with copy_words, as
+//   the line kernel does; each depth's step is sgm_step. The K <= 4
+//   instantiations keep kTile lines a block, two blocks an SM and their
+//   layout, byte for byte.
 //
 // sgm_path_kernel: one warp walks one chain of one path (a straight chain
 // is a line; a diagonal chain walks (x, l0 + s*k) from x = 0 or from the
 // border line), so no two warps share a carried line and no
 // synchronisation is needed; one launch per path and direction. Storage
 // is a template parameter: int16 adding into `out` in place (rows 1-3 on
-// the wide-problem route), or int32 writing the path cost (row 5, whose
-// costs exceed int16). The next position is loaded one step ahead.
+// the wide-problem route and for a repeated shift), or int32 writing the
+// path cost (row 5, whose costs exceed int16). The next position is
+// loaded one step ahead, one position in flight per warp: at 129-512
+// depths, where it took every sweep until the line and sweep kernels took
+// K = 8 and 16, that is latency-bound, about 1.3 us a step.
 //
 // sgm_deep_kernel: sgm_path_kernel's walk for D > 512, where one warp
 // would need more than 16 depths a lane (127 registers a thread at 16; 32
@@ -219,11 +243,13 @@ namespace {
 
 constexpr int kBig = 1 << 24;
 constexpr int kWarpsPerBlock = 8;   // sgm_path_kernel
-constexpr int kTile = 16;           // lines (one warp each) per sweep block
-constexpr int kEdge = 128;          // words per edge line (32 lanes x K <= 4)
-// Depths sgm_path_kernel takes (32 lanes x K <= 16); the line and sweep
-// kernels take D <= 128 (K <= 4).
+// Lines (one warp each) per sweep block: every block's at K <= 4, the most
+// a block holds at K = 8 and 16 (Sweep3).
+constexpr int kTile = 16;
+constexpr int kEdge = 128;          // words per edge line at K <= 4
+// Depths the line, sweep and path kernels take (32 lanes x K <= 16).
 constexpr int kPathMaxD = 512;
+constexpr int kSweepMaxD = 128;     // K <= 4: the main path's instantiations
 // sgm_deep_kernel: kPathMaxD depths per warp (16 a lane), at most
 // kDeepMaxWarps warps a block, and at most kDeepPrefetchWarps warps where
 // it loads one step ahead.
@@ -231,7 +257,6 @@ constexpr int kDeepK = kPathMaxD / 32;
 constexpr int kDeepMaxWarps = 32;
 constexpr int kDeepMaxD = kPathMaxD * kDeepMaxWarps;
 constexpr int kDeepPrefetchWarps = 8;
-constexpr int kStages = 4;          // scan positions in a sweep block's ring
 // sgm_line_kernel: warps per block and scan positions in a warp's ring.
 // Small blocks of one line per warp balance the SMs: the main path's
 // horizontal sweep (B = 2 x 1440 lines) is 720 blocks, at most 6 per SM
@@ -248,6 +273,42 @@ constexpr int kLineWarps = 4;
 #endif
 constexpr int kLineStages = SGM_LINE_STAGES;
 constexpr unsigned kFull = 0xffffffffu;
+
+// sgm_line_kernel's ring by depths a lane: rows of 128 depths and
+// kLineStages positions at K <= 4; beyond, rows of 32 K depths and
+// kLineStages * 4 / K positions (8 at K = 8, 4 at K = 16), so that a warp
+// keeps the same bytes in flight (8 KB of cost and accumulator) and a
+// block the same 33 KB of shared memory at every D.
+template <int K>
+struct LineRing {
+  static constexpr int kRow = K <= 4 ? 128 : 32 * K;
+  static constexpr int kStages =
+      K <= 4 ? kLineStages
+             : (kLineStages * 4 / K > 2 ? kLineStages * 4 / K : 2);
+};
+
+// sgm_sweep3_kernel by depths a lane. K <= 4 (the main path): every block
+// holds kTile lines, two blocks an SM, a ring of 4 positions. K = 8 and 16:
+// a block holds up to kTile lines, as many as the wrapper plans from L
+// (cuda_agg.deep_sweep_chunks: one block an SM, a problem's lines spread
+// over all SMs), and the ring 4 or 3 positions, so that 16 lines at K = 8
+// (137 KB) and 14 at K = 16 (213 KB) fit a block's shared memory.
+template <int K>
+struct Sweep3 {
+  static constexpr bool kFixed = K <= 4;
+  static constexpr int kStages = K <= 8 ? 4 : 3;
+  static constexpr int kMinBlocks = kFixed ? 2 : 1;
+  // Words of one edge line in device memory: 128 at K <= 4, 32 K beyond.
+  static constexpr int kEdgeWords = kFixed ? kEdge : 32 * K;
+};
+
+// One depth of the recurrence, c + min(prev, min(dn, up) + P1, m + P2a) - m
+// in int32 (mp = m + P2a); the adds and the minima fuse into Hopper's DPX
+// instructions, which are exact.
+__device__ __forceinline__ int sgm_step(int c, int prev, int dn, int up,
+                                        int p1, int mp, int m) {
+  return __vimin3_s32(prev, dn + p1, __viaddmin_s32(up, p1, mp)) + (c - m);
+}
 
 // Loads depths [d0, d0 + K) of one position; depths >= D read as 0.
 // vec: the whole run is aligned to sizeof(T) * K bytes (at most 16 bytes
@@ -343,7 +404,8 @@ __device__ __forceinline__ void store_k(T* p, const int (&v)[K], int d0, int D,
 // One step of the recurrence for depths [d0, d0 + K) of a line:
 // nv = cur + min(prev, prev[d+-1] + P1, min(prev) + P2a) - min(prev).
 // kRedux: min(prev) across the warp in one redux.sync instruction instead
-// of a shuffle butterfly.
+// of a shuffle butterfly (the line and sweep kernels), and at K >= 8 each
+// depth in DPX instructions (sgm_step), the same int32 result.
 template <int K, bool kRedux = false>
 __device__ __forceinline__ void min_plus(const int (&prev)[K],
                                          const int (&cur)[K], int lane,
@@ -366,8 +428,12 @@ __device__ __forceinline__ void min_plus(const int (&prev)[K],
   for (int k = 0; k < K; ++k) {
     const int dn = k == 0 ? left : prev[k - 1];
     const int up = k == K - 1 ? right : prev[k + 1];
-    const int upd = min(min(prev[k], min(up, dn) + p1), mp);
-    nv[k] = cur[k] + upd - m;
+    if constexpr (kRedux && K >= 8) {
+      nv[k] = sgm_step(cur[k], prev[k], dn, up, p1, mp, m);
+    } else {
+      const int upd = min(min(prev[k], min(up, dn) + p1), mp);
+      nv[k] = cur[k] + upd - m;
+    }
   }
 }
 
@@ -402,6 +468,38 @@ __device__ __forceinline__ void store_line(int* p, const int (&v)[K]) {
   }
 }
 
+// Word k of `lane`'s depths in a line of 32 K words: a lane's run of K
+// (K <= 4: one vector access a lane), or [K][32] (K >= 8: one warp access
+// per k touches 32 consecutive words, free of bank conflicts in shared
+// memory and coalesced in device memory).
+template <int K>
+__device__ __forceinline__ int line_word(int lane, int k) {
+  return K >= 8 ? k * 32 + lane : lane * K + k;
+}
+
+// A carried line of a sweep block's shared memory, at row `row`.
+template <int K>
+__device__ __forceinline__ void get_line(const int* row, int lane,
+                                         int (&v)[K]) {
+  if constexpr (K >= 8) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = row[line_word<K>(lane, k)];
+  } else {
+    load_line<K>(row + lane * K, v);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void put_line(int* row, int lane,
+                                         const int (&v)[K]) {
+  if constexpr (K >= 8) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) row[line_word<K>(lane, k)] = v[k];
+  } else {
+    store_line<K>(row + lane * K, v);
+  }
+}
+
 // An edge line in device memory holds each depth's value with the scan
 // step that wrote it in one 64-bit word (step << 32 | value), written and
 // read whole at device scope, so a reader that sees the step it waits for
@@ -418,27 +516,30 @@ __device__ __forceinline__ void store_relaxed(unsigned long long* p,
   asm volatile("st.relaxed.gpu.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
+// This lane's depths of the edge line at `p`, tagged with `step`.
 template <int K>
-__device__ __forceinline__ void publish_edge(unsigned long long* p,
+__device__ __forceinline__ void publish_edge(unsigned long long* p, int lane,
                                              unsigned step,
                                              const int (&v)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    store_relaxed(p + k, static_cast<unsigned long long>(step) << 32 |
-                             static_cast<unsigned>(v[k]));
+    store_relaxed(p + line_word<K>(lane, k),
+                  static_cast<unsigned long long>(step) << 32 |
+                      static_cast<unsigned>(v[k]));
 }
 
-// Reads this lane's depths of an edge line until the whole warp sees them
-// all tagged with `step`.
+// Reads this lane's depths of the edge line at `p` until the whole warp
+// sees them all tagged with `step`.
 template <int K>
 __device__ __forceinline__ void poll_edge(const unsigned long long* p,
-                                          unsigned step, int (&v)[K]) {
+                                          int lane, unsigned step,
+                                          int (&v)[K]) {
   bool ok;
   do {
     ok = true;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const unsigned long long e = load_relaxed(p + k);
+      const unsigned long long e = load_relaxed(p + line_word<K>(lane, k));
       v[k] = static_cast<int>(static_cast<unsigned>(e));
       ok = ok && static_cast<unsigned>(e >> 32) == step;
     }
@@ -446,7 +547,8 @@ __device__ __forceinline__ void poll_edge(const unsigned long long* p,
 }
 
 // kAdd: out += path (int16); otherwise out = path (int32 for row 5, int16
-// for the first launch of an 8-path sum at D > 128).
+// for the first launch of an 8-path sum on the per-path route,
+// cuda_agg.per_path_plan).
 template <typename T, int K, bool kAdd>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     sgm_path_kernel(const T* __restrict__ cost,
@@ -749,19 +851,6 @@ cudaError_t launch_deep(const void* cost, const void* inten, void* out,
   return cudaGetLastError();
 }
 
-// Shared memory of a sweep block: the new diagonal lines by step parity,
-// and a ring of kStages scan positions (each line's cost and accumulator,
-// and the intensities of the tile's lines and the one line past each end).
-// Row w + 1 of `diag` is warp w's line; rows 0 and kTile + 1 hold the
-// neighbouring blocks' edge lines, which the edge warps copy in.
-template <int K>
-struct SweepSmem {
-  int diag[2][2][kTile + 2][32 * K];          // [parity][+1, -1][row][d]
-  int16_t line[kStages][kTile][2][32 * K];    // [stage][warp][cost, acc][d]
-  int inten[kStages][kTile + 2];              // lines l0 - 1 .. l0 + kTile
-  int p2a[256];                               // P2a by |dI| below 256
-};
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem)
@@ -784,32 +873,97 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
+// 1 where an int16 run starts on the odd element of a 4-byte word.
+__device__ __forceinline__ int odd_start(const int16_t* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 1) & 1);
+}
+
+// A depth run that is not 16-byte aligned, into a ring row at K >= 8: the
+// 4-byte words that cover its n = D + odd_start elements from src, the
+// word-aligned address one element before an odd start, by cp.async
+// (lanes take words in turn), so that the loads stay in flight as the
+// aligned runs' 16-byte pieces do; the row then holds the run from
+// element odd_start. A word that would pass `end`, the end of the launch's
+// volume, is copied as its first element alone.
+__device__ __forceinline__ void copy_words(int16_t* dst, const int16_t* src,
+                                           int n, const int16_t* end,
+                                           int lane) {
+  for (int c = lane; 2 * c < n; c += 32) {
+    if (src + 2 * c + 2 <= end)
+      cp_async4(dst + 2 * c, src + 2 * c);
+    else
+      dst[2 * c] = src[2 * c];
+  }
+}
+
+// Shared memory of a sweep block of `lines` lines (byte offsets), K depths
+// a lane and S ring stages: the new diagonal lines by step parity, int32
+// [parity][+1, -1][lines + 2][32 K] (row w + 1 is warp w's line; rows 0
+// and lines + 1 hold the neighbouring blocks' edge lines, which the edge
+// warps copy in); a ring of S scan positions, int16 [S][lines][cost,
+// acc][32 K]; the intensities of the block's lines and the one line past
+// each end, int32 [S][lines + 2]; P2a by |dI| below 256. At K <= 4 and
+// kTile lines this is the main path's layout, byte for byte. The plan
+// mirrors it (cuda_agg.sweep_smem_bytes).
+struct Sweep3Layout {
+  int diag, line, inten, p2a, bytes;
+};
+
+__host__ __device__ inline Sweep3Layout sweep3_layout(int lines, int K,
+                                                      int S) {
+  const int row = 32 * K;
+  Sweep3Layout s;
+  s.diag = 0;
+  s.line = 2 * 2 * (lines + 2) * row * 4;
+  s.inten = s.line + S * lines * 2 * row * 2;
+  s.p2a = s.inten + S * (lines + 2) * 4;
+  s.bytes = s.p2a + 256 * 4;
+  return s;
+}
+
 // One sweep of the paths selected by `paths` (bit 0: straight, bit 1: +1,
 // bit 2: -1) over B int16 problems, out += paths in place. Block
-// (b, tile) owns lines [tile * kTile, tile * kTile + kTile) of problem b,
-// warp w line tile * kTile + w. edge: [B, tiles, parity, (+1, -1), kEdge]
-// tagged words, all -1 before the launch. async16: every line's depth run
-// is 16-byte aligned and D % 8 == 0, so the ring is filled by cp.async in
-// 16-byte pieces; otherwise by plain loads.
+// (b, tile) owns lines [tile * lines, tile * lines + lines) of problem b,
+// warp w line tile * lines + w, where lines is kTile at K <= 4 and
+// `lines_arg` (<= kTile) beyond. edge: [B, tiles, parity, (+1, -1),
+// Sweep3<K>::kEdgeWords] tagged words, all -1 before the launch. async16:
+// every line's depth run is 16-byte aligned and D % 8 == 0, so the ring is
+// filled by cp.async in 16-byte pieces; otherwise by plain loads.
 template <int K>
-__global__ void __launch_bounds__(kTile * 32, 2)
+__global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
     sgm_sweep3_kernel(const int16_t* __restrict__ cost,
                       const int32_t* __restrict__ inten,
                       int16_t* __restrict__ out,
                       unsigned long long* __restrict__ edge, int X, int L,
                       int D, long long vb, long long vx, long long vl,
                       long long ib, long long ix, long long il, int reverse,
-                      int paths, int p1, int p2, bool vec, bool async16) {
+                      int paths, int p1, int p2, bool vec, bool async16,
+                      int lines_arg) {
+  constexpr int S = Sweep3<K>::kStages;
+  constexpr int kRow = 32 * K;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SweepSmem<K>& sm = *reinterpret_cast<SweepSmem<K>*>(smem_raw);
+  const int lines = Sweep3<K>::kFixed ? kTile : lines_arg;
+  const Sweep3Layout lay = sweep3_layout(lines, K, S);
+  int* s_diag = reinterpret_cast<int*>(smem_raw + lay.diag);
+  int16_t* s_line = reinterpret_cast<int16_t*>(smem_raw + lay.line);
+  int* s_inten = reinterpret_cast<int*>(smem_raw + lay.inten);
+  int* s_p2a = reinterpret_cast<int*>(smem_raw + lay.p2a);
+  // [parity][+1, -1][row][d], [stage][warp][cost, acc][d], [stage][line]
+  auto diag_row = [&](int par, int dir, int row) {
+    return s_diag + ((par * 2 + dir) * (lines + 2) + row) * kRow;
+  };
+  auto ring = [&](int q, int warp, int which) {
+    return s_line + ((q * lines + warp) * 2 + which) * kRow;
+  };
+  auto inten_at = [&](int q, int i) { return s_inten + q * (lines + 2) + i; };
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const int tiles = (L + kTile - 1) / kTile;
+  const int tiles = (L + lines - 1) / lines;
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
-  const int l = tile * kTile + w;
+  const int l = tile * lines + w;
   const bool active = l < L;
-  const int last = min(kTile, L - tile * kTile) - 1;  // warp of the last line
+  const int last = min(lines, L - tile * lines) - 1;  // warp of the last line
   const bool straight = paths & 1, plus = paths & 2, minus = paths & 4;
   const bool diag = plus || minus;
   // The edge warps trade with the neighbouring blocks whenever a diagonal
@@ -824,23 +978,26 @@ __global__ void __launch_bounds__(kTile * 32, 2)
   const int16_t* cb = cost + b * vb;
   int16_t* ob = out + b * vb;
   const int32_t* ibase = inten + b * ib;
+  const long long vend = static_cast<long long>(gridDim.x / tiles) * vb;
+  const int16_t* cend = cost + vend;  // the launch's volumes' ends
+  const int16_t* oend = out + vend;
   // Edge line (tile, parity, direction 0: +1 of the last line, 1: -1 of
-  // the first line), this lane's depths.
+  // the first line).
   auto edge_line = [&](int tl, int par, int dir) {
     return edge + ((static_cast<long long>(b) * tiles + tl) * 4 + par * 2 +
-                   dir) * kEdge + d0;
+                   dir) * Sweep3<K>::kEdgeWords;
   };
 
-  // Fill the ring stage of scan step s, kStages - 1 steps ahead of its
-  // use; one copy group per step, empty past the end.
+  // Fill the ring stage of scan step s, S - 1 steps ahead of its use; one
+  // copy group per step, empty past the end.
   auto fill = [&](int s) {
     if (s < X) {
-      const int q = s % kStages;
+      const int q = s % S;
       const int xs = reverse ? X - 1 - s : s;
       if (active) {
         const long long go = xs * vx + l * vl;
-        int16_t* rc = sm.line[q][w][0];
-        int16_t* ra = sm.line[q][w][1];
+        int16_t* rc = ring(q, w, 0);
+        int16_t* ra = ring(q, w, 1);
         if (async16) {
           const int chunks = D / 8;
           for (int c = lane; c < 2 * chunks; c += 32) {
@@ -849,6 +1006,10 @@ __global__ void __launch_bounds__(kTile * 32, 2)
             else
               cp_async16(ra + (c - chunks) * 8, ob + go + (c - chunks) * 8);
           }
+        } else if constexpr (K >= 8) {
+          const int sc = odd_start(cb + go), sa = odd_start(ob + go);
+          copy_words(rc, cb + go - sc, D + sc, cend, lane);
+          copy_words(ra, ob + go - sa, D + sa, oend, lane);
         } else {
           for (int d = lane; d < D; d += 32) {
             rc[d] = cb[go + d];
@@ -856,47 +1017,57 @@ __global__ void __launch_bounds__(kTile * 32, 2)
           }
         }
       }
-      const int li = tile * kTile - 1 + lane;
-      if (w == 0 && lane < kTile + 2 && li >= 0 && li < L)
-        cp_async4(&sm.inten[q][lane], ibase + xs * ix + li * il);
+      const int li = tile * lines - 1 + lane;
+      if (w == 0 && lane < lines + 2 && li >= 0 && li < L)
+        cp_async4(inten_at(q, lane), ibase + xs * ix + li * il);
     }
     cp_async_commit();
   };
 
-  for (int s = 0; s < kStages - 1; ++s) fill(s);
+  for (int s = 0; s < S - 1; ++s) fill(s);
   for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    sm.p2a[i] = max(p2min, p2 / (i + 1));
-  cp_async_wait<kStages - 2>();
+    s_p2a[i] = max(p2min, p2 / (i + 1));
+  cp_async_wait<S - 2>();
   __syncthreads();
   // P2a of an intensity step; |dI| is the same across the warp.
   auto p2a_of = [&](int i_cur, int i_prev) {
     const int d = abs(i_cur - i_prev);
-    return d < 256 ? sm.p2a[d] : max(p2min, p2 / (d + 1));
+    return d < 256 ? s_p2a[d] : max(p2min, p2 / (d + 1));
   };
 
   int prev[K];  // the straight path's line
   // I at the previous position of lines l, l - 1 and l + 1.
   int prev_i = 0, prev_il = 0, prev_ir = 0;
   for (int t = 0; t < X; ++t) {
-    fill(t + kStages - 1);  // into the stage read at step t - 1
-    const int q = t % kStages;
+    fill(t + S - 1);  // into the stage read at step t - 1
+    const int q = t % S;
     const int par = t & 1;
     const int pp = par ^ 1;
     if (active) {
       int cur[K], av[K], nv[K], nb[K];
       if (t > 0) {  // the neighbours' edge lines of step t - 1
         if (left) {
-          poll_edge<K>(edge_line(tile - 1, pp, 0), t - 1, nb);
-          store_line<K>(&sm.diag[pp][0][0][d0], nb);
+          poll_edge<K>(edge_line(tile - 1, pp, 0), lane, t - 1, nb);
+          put_line<K>(diag_row(pp, 0, 0), lane, nb);
         }
         if (right) {
-          poll_edge<K>(edge_line(tile + 1, pp, 1), t - 1, nb);
-          store_line<K>(&sm.diag[pp][1][kTile + 1][d0], nb);
+          poll_edge<K>(edge_line(tile + 1, pp, 1), lane, t - 1, nb);
+          put_line<K>(diag_row(pp, 1, lines + 1), lane, nb);
         }
       }
-      load_k<int16_t, K>(sm.line[q][w][0] + d0, cur, d0, D, true);
-      load_k<int16_t, K>(sm.line[q][w][1] + d0, av, d0, D, true);
-      const int it = sm.inten[q][w + 1];
+      // Where the ring rows hold the run from (copy_words), and whether
+      // this lane's depths there may be read as 16-byte pieces.
+      int sc = 0, sa = 0;
+      if constexpr (K >= 8) {
+        if (!async16) {
+          const long long go = (reverse ? X - 1 - t : t) * vx + l * vl;
+          sc = odd_start(cb + go);
+          sa = odd_start(ob + go);
+        }
+      }
+      load_k<int16_t, K>(ring(q, w, 0) + sc + d0, cur, d0, D, sc == 0);
+      load_k<int16_t, K>(ring(q, w, 1) + sa + d0, av, d0, D, sa == 0);
+      const int it = *inten_at(q, w + 1);
       if (straight) {
         if (t == 0) {
 #pragma unroll
@@ -916,7 +1087,7 @@ __global__ void __launch_bounds__(kTile * 32, 2)
 #pragma unroll
           for (int k = 0; k < K; ++k) nv[k] = cur[k];
         } else {
-          load_line<K>(&sm.diag[pp][0][w][d0], nb);  // line l - 1
+          get_line<K>(diag_row(pp, 0, w), lane, nb);  // line l - 1
           min_plus<K, true>(nb, cur, lane, p1, p2a_of(it, prev_il), nv);
         }
 #pragma unroll
@@ -924,17 +1095,17 @@ __global__ void __launch_bounds__(kTile * 32, 2)
           if (d0 + k >= D) nv[k] = kBig;
           av[k] += nv[k];
         }
-        store_line<K>(&sm.diag[par][0][w + 1][d0], nv);
-        if (right) publish_edge<K>(edge_line(tile, par, 0), t, nv);
+        put_line<K>(diag_row(par, 0, w + 1), lane, nv);
+        if (right) publish_edge<K>(edge_line(tile, par, 0), lane, t, nv);
       } else if (right) {
-        publish_edge<K>(edge_line(tile, par, 0), t, cur);  // no +1 path
+        publish_edge<K>(edge_line(tile, par, 0), lane, t, cur);  // no +1
       }
       if (minus) {  // line l continues line l + 1
         if (t == 0 || l == L - 1) {
 #pragma unroll
           for (int k = 0; k < K; ++k) nv[k] = cur[k];
         } else {
-          load_line<K>(&sm.diag[pp][1][w + 2][d0], nb);  // line l + 1
+          get_line<K>(diag_row(pp, 1, w + 2), lane, nb);  // line l + 1
           min_plus<K, true>(nb, cur, lane, p1, p2a_of(it, prev_ir), nv);
         }
 #pragma unroll
@@ -942,28 +1113,43 @@ __global__ void __launch_bounds__(kTile * 32, 2)
           if (d0 + k >= D) nv[k] = kBig;
           av[k] += nv[k];
         }
-        store_line<K>(&sm.diag[par][1][w + 1][d0], nv);
-        if (left) publish_edge<K>(edge_line(tile, par, 1), t, nv);
+        put_line<K>(diag_row(par, 1, w + 1), lane, nv);
+        if (left) publish_edge<K>(edge_line(tile, par, 1), lane, t, nv);
       } else if (left) {
-        publish_edge<K>(edge_line(tile, par, 1), t, cur);  // no -1 path
+        publish_edge<K>(edge_line(tile, par, 1), lane, t, cur);  // no -1
       }
       const int xt = reverse ? X - 1 - t : t;
       store_k<int16_t, K>(ob + xt * vx + l * vl + d0, av, d0, D, vec);
       prev_i = it;
-      prev_il = sm.inten[q][w];
-      prev_ir = sm.inten[q][w + 2];
+      prev_il = *inten_at(q, w);
+      prev_ir = *inten_at(q, w + 2);
     }
-    cp_async_wait<kStages - 2>();  // this thread's copies for step t + 1
+    cp_async_wait<S - 2>();  // this thread's copies for step t + 1
     __syncthreads();
   }
 }
 
+// The sweep kernel's shared memory for `lines` lines a block (kTile at
+// K <= 4), allowed to the kernel.
 template <int K>
-cudaError_t sweep3_smem(int* bytes) {
-  *bytes = static_cast<int>(sizeof(SweepSmem<K>));
+cudaError_t sweep3_smem(int lines, int* bytes) {
+  *bytes = sweep3_layout(lines, K, Sweep3<K>::kStages).bytes;
   return cudaFuncSetAttribute(sgm_sweep3_kernel<K>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               *bytes);
+}
+
+// vec: every lane's depth run of `out` may be written whole (K elements at
+// K = 2 and 4, 16-byte pieces at K >= 8).
+template <int K>
+bool sweep_vec(const void* out, int D, long long vb, long long vx,
+               long long vl) {
+  if constexpr (K >= 8)
+    return D % 8 == 0 && vb % 8 == 0 && vx % 8 == 0 && vl % 8 == 0 &&
+           reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const uintptr_t align = sizeof(int16_t) * K;
+  return (K == 2 || K == 4) && D % K == 0 && vb % K == 0 && vx % K == 0 &&
+         vl % K == 0 && reinterpret_cast<uintptr_t>(out) % align == 0;
 }
 
 template <int K>
@@ -971,38 +1157,38 @@ cudaError_t launch_sweep3(const void* cost, const void* inten, void* out,
                           void* edge, int B, int X, int L,
                           int D, long long vb, long long vx, long long vl,
                           long long ib, long long ix, long long il,
-                          int reverse, int paths, int p1, int p2,
+                          int reverse, int paths, int p1, int p2, int lines,
                           cudaStream_t stream) {
-  const uintptr_t align = sizeof(int16_t) * K;
-  bool vec = (K == 2 || K == 4) && D % K == 0 && vb % K == 0 &&
-             vx % K == 0 && vl % K == 0 &&
-             reinterpret_cast<uintptr_t>(out) % align == 0;
+  bool vec = sweep_vec<K>(out, D, vb, vx, vl);
   bool async16 = D % 8 == 0 && vb % 8 == 0 && vx % 8 == 0 && vl % 8 == 0 &&
                  reinterpret_cast<uintptr_t>(cost) % 16 == 0 &&
                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (Sweep3<K>::kFixed) lines = kTile;
   int smem = 0;
-  const cudaError_t e = sweep3_smem<K>(&smem);
+  const cudaError_t e = sweep3_smem<K>(lines, &smem);
   if (e != cudaSuccess) return e;
   const int16_t* c = static_cast<const int16_t*>(cost);
   const int32_t* i = static_cast<const int32_t*>(inten);
   int16_t* o = static_cast<int16_t*>(out);
   unsigned long long* ed = static_cast<unsigned long long*>(edge);
-  void* args[] = {&c,  &i,  &o,       &ed,    &X,  &L,  &D,   &vb, &vx, &vl,
-                  &ib, &ix, &il, &reverse, &paths, &p1, &p2, &vec, &async16};
-  const int tiles = (L + kTile - 1) / kTile;
+  void* args[] = {&c,  &i,  &o,       &ed,    &X,  &L,  &D,   &vb,
+                  &vx, &vl, &ib,      &ix,    &il, &reverse, &paths, &p1,
+                  &p2, &vec, &async16, &lines};
+  const int tiles = (L + lines - 1) / lines;
   return cudaLaunchCooperativeKernel(
       (const void*)sgm_sweep3_kernel<K>,
-      dim3(static_cast<unsigned>(B) * tiles), dim3(kTile * 32), args, smem,
+      dim3(static_cast<unsigned>(B) * tiles), dim3(lines * 32), args, smem,
       stream);
 }
 
+// Blocks of `lines` lines an SM holds at once.
 template <int K>
-cudaError_t sweep3_per_sm(int* per_sm) {
+cudaError_t sweep3_per_sm(int lines, int* per_sm) {
   int smem = 0;
-  const cudaError_t e = sweep3_smem<K>(&smem);
+  const cudaError_t e = sweep3_smem<K>(lines, &smem);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, sgm_sweep3_kernel<K>, kTile * 32, smem);
+      per_sm, sgm_sweep3_kernel<K>, lines * 32, smem);
 }
 
 // One straight sweep of B int16 problems: out = acc + path, or out = path
@@ -1018,8 +1204,9 @@ __global__ void __launch_bounds__(kLineWarps * 32)
                     long long vx, long long vl, long long ib, long long ix,
                     long long il, int reverse, int p1, int p2, bool vec,
                     bool async16) {
+  constexpr int S = LineRing<K>::kStages;
   // [warp][stage][cost, acc][d]
-  __shared__ __align__(16) int16_t ring[kLineWarps][kLineStages][2][128];
+  __shared__ __align__(16) int16_t ring[kLineWarps][S][2][LineRing<K>::kRow];
   __shared__ int p2a_tab[256];  // P2a by |dI| below 256
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -1034,6 +1221,8 @@ __global__ void __launch_bounds__(kLineWarps * 32)
   const long long l = line - b * L;
   const int16_t* cl = cost + b * vb + l * vl;
   const int16_t* al = acc == nullptr ? nullptr : acc + b * vb + l * vl;
+  const int16_t* cend = cost + B * vb;  // the launch's volumes' ends
+  const int16_t* aend = acc == nullptr ? nullptr : acc + B * vb;
   int16_t* ol = out + b * vb + l * vl;
   const int32_t* il0 = inten + b * ib + l * il;
   const int d0 = lane * K;
@@ -1041,12 +1230,12 @@ __global__ void __launch_bounds__(kLineWarps * 32)
     return static_cast<long long>(reverse ? X - 1 - t : t);
   };
 
-  // Ring stage of scan step s, kLineStages - 1 steps ahead of its use; one
-  // copy group per step, empty past the end.
+  // Ring stage of scan step s, S - 1 steps ahead of its use; one copy
+  // group per step, empty past the end.
   auto fill = [&](int s) {
     if (s < X) {
-      int16_t* rc = ring[w][s % kLineStages][0];
-      int16_t* ra = ring[w][s % kLineStages][1];
+      int16_t* rc = ring[w][s % S][0];
+      int16_t* ra = ring[w][s % S][1];
       const long long go = pos(s) * vx;
       if (async16) {
         const int chunks = D / 8;
@@ -1056,6 +1245,13 @@ __global__ void __launch_bounds__(kLineWarps * 32)
             cp_async16(rc + c * 8, cl + go + c * 8);
           else
             cp_async16(ra + (c - chunks) * 8, al + go + (c - chunks) * 8);
+        }
+      } else if constexpr (K >= 8) {
+        const int sc = odd_start(cl + go);
+        copy_words(rc, cl + go - sc, D + sc, cend, lane);
+        if (al != nullptr) {
+          const int sa = odd_start(al + go);
+          copy_words(ra, al + go - sa, D + sa, aend, lane);
         }
       } else {
         for (int d = lane; d < D; d += 32) {
@@ -1076,24 +1272,34 @@ __global__ void __launch_bounds__(kLineWarps * 32)
     return d < 256 ? p2a_tab[d] : max(p2min, p2 / (d + 1));
   };
 
-  for (int s = 0; s < kLineStages - 1; ++s) fill(s);
+  for (int s = 0; s < S - 1; ++s) fill(s);
   int run = inten_run(0), next_run = inten_run(1);
   int prev[K];
   int prev_i = 0;
   for (int t = 0; t < X; ++t) {
     __syncwarp();  // every lane has read the stage of step t - 1
-    fill(t + kLineStages - 1);  // into that stage
-    cp_async_wait<kLineStages - 1>();  // this lane's copies for step t
+    fill(t + S - 1);  // into that stage
+    cp_async_wait<S - 1>();  // this lane's copies for step t
     __syncwarp();  // and every other lane's
-    const int q = t % kLineStages;
+    const int q = t % S;
     if (t > 0 && (t & 31) == 0) {
       run = next_run;
       next_run = inten_run((t >> 5) + 1);
     }
     const int it = __shfl_sync(kFull, run, t & 31);
+    // Where the ring rows hold the run from (copy_words), and whether
+    // this lane's depths there may be read as 16-byte pieces.
+    int sc = 0, sa = 0;
+    if constexpr (K >= 8) {
+      if (!async16) {
+        sc = odd_start(cl + pos(t) * vx);
+        sa = al == nullptr ? 0 : odd_start(al + pos(t) * vx);
+      }
+    }
     int cur[K], av[K], nv[K];
-    load_k<int16_t, K>(ring[w][q][0] + d0, cur, d0, D, true);
-    if (al != nullptr) load_k<int16_t, K>(ring[w][q][1] + d0, av, d0, D, true);
+    load_k<int16_t, K>(ring[w][q][0] + sc + d0, cur, d0, D, sc == 0);
+    if (al != nullptr)
+      load_k<int16_t, K>(ring[w][q][1] + sa + d0, av, d0, D, sa == 0);
     if (t == 0) {
 #pragma unroll
       for (int k = 0; k < K; ++k) nv[k] = cur[k];
@@ -1117,10 +1323,7 @@ cudaError_t launch_line(const void* cost, const void* inten, const void* acc,
                         long long vx, long long vl, long long ib,
                         long long ix, long long il, int reverse, int p1,
                         int p2, cudaStream_t stream) {
-  const uintptr_t align = sizeof(int16_t) * K;
-  const bool vec = (K == 2 || K == 4) && D % K == 0 && vb % K == 0 &&
-                   vx % K == 0 && vl % K == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % align == 0;
+  const bool vec = sweep_vec<K>(out, D, vb, vx, vl);
   const bool async16 =
       D % 8 == 0 && vb % 8 == 0 && vx % 8 == 0 && vl % 8 == 0 &&
       reinterpret_cast<uintptr_t>(cost) % 16 == 0 &&
@@ -1279,14 +1482,6 @@ __device__ __forceinline__ void pair_set(uint32_t (&v)[K / 2], int k, int x) {
   const uint32_t u = static_cast<uint32_t>(x) & 0xffffu;
   v[k >> 1] = (k & 1) ? (v[k >> 1] & 0xffffu) | (u << 16)
                       : (v[k >> 1] & 0xffff0000u) | u;
-}
-
-// One depth of the recurrence, c + min(prev, min(dn, up) + P1, m + P2a) - m
-// in int32 (mp = m + P2a); the adds and the minima fuse into Hopper's DPX
-// instructions, which are exact.
-__device__ __forceinline__ int sgm_step(int c, int prev, int dn, int up,
-                                        int p1, int mp, int m) {
-  return __vimin3_s32(prev, dn + p1, __viaddmin_s32(up, p1, mp)) + (c - m);
 }
 
 constexpr int kPollLimit = 1 << 24;
@@ -1837,9 +2032,10 @@ inline void deep_sweep_shape(int D, bool diag, int* W, int* K) {
 // One path of B problems in one direction. elem_bytes = 2: int16
 // volumes, out += path costs in place (add = 1; rows 1-3 beyond the other
 // kernels' reach), or out = path costs (add = 0; the first launch of an
-// 8-path sum at D > 128). elem_bytes = 4 with add = 0: int32 volumes, out
-// = path costs (row 5). 1 <= D <= kPathMaxD: the depths per lane K =
-// ceil(D / 32) is a template parameter, instantiated for 1-4, 8 and 16.
+// 8-path sum on the per-path route). elem_bytes = 4 with add = 0: int32
+// volumes, out = path costs (row 5). 1 <= D <= kPathMaxD: the depths per
+// lane K = ceil(D / 32) is a template parameter, instantiated for 1-4, 8
+// and 16.
 // cost/out: depth stride 1 and element strides (vb, vx, vl) for problem,
 // scan position and line; inten: int32 with strides (ib, ix, il). shift is
 // 0 (straight) or +-1 (diagonal: the line index moves by shift per scan
@@ -1906,36 +2102,63 @@ extern "C" int sgm_agg_line(const void* cost, const void* inten,
                             int D, long long vb, long long vx, long long vl,
                             long long ib, long long ix, long long il,
                             int reverse, int p1, int p2, void* stream) {
-  if (B < 1 || X < 1 || L < 1 || D < 1 || D > 128)
+  if (B < 1 || X < 1 || L < 1 || D < 1 || D > kPathMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((D + 31) / 32) {
     case 1: return static_cast<int>(launch_line<1>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
     case 2: return static_cast<int>(launch_line<2>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
     case 3: return static_cast<int>(launch_line<3>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
-    default: return static_cast<int>(launch_line<4>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
+    case 4: return static_cast<int>(launch_line<4>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
+    case 5: case 6: case 7: case 8:
+      return static_cast<int>(launch_line<8>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
+    default: return static_cast<int>(launch_line<16>(cost, inten, acc, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, s));
   }
 }
 
-// The vertical sweep kernel's geometry for D depths on the current device:
-// lines per block, edge-buffer words per block, and the most blocks the
-// device keeps resident at once (the largest cooperative grid).
+// The vertical sweep kernel's geometry for D <= kPathMaxD depths on the
+// current device: lines per block (at D > 128 the most a block holds: at
+// most kTile, within the device's shared memory per block; 0 where one
+// line does not fit), edge-buffer words per block, and the most blocks the
+// device keeps resident at once (the largest cooperative grid; at D > 128
+// one block an SM, as the wrapper plans them: the SM count).
 extern "C" int sgm_sweep3_geometry(int D, int* tile, int* edge_words,
                                    int* resident) {
-  if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if (D < 1 || D > kPathMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  if (D > kSweepMaxD) {
+    const int K = D <= 256 ? 8 : 16;
+    const int S = K == 8 ? Sweep3<8>::kStages : Sweep3<16>::kStages;
+    *tile = 0;
+    for (int n = kTile; n >= 1; --n) {
+      if (sweep3_layout(n, K, S).bytes > optin) continue;
+      e = K == 8 ? sweep3_per_sm<8>(n, &per_sm)
+                 : sweep3_per_sm<16>(n, &per_sm);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (per_sm >= 1) {
+        *tile = n;
+        break;
+      }
+    }
+    *edge_words = 2 * 2 * 32 * K;
+    *resident = sms;
+    return static_cast<int>(cudaSuccess);
+  }
   switch ((D + 31) / 32) {
-    case 1: e = sweep3_per_sm<1>(&per_sm); break;
-    case 2: e = sweep3_per_sm<2>(&per_sm); break;
-    case 3: e = sweep3_per_sm<3>(&per_sm); break;
-    default: e = sweep3_per_sm<4>(&per_sm); break;
+    case 1: e = sweep3_per_sm<1>(kTile, &per_sm); break;
+    case 2: e = sweep3_per_sm<2>(kTile, &per_sm); break;
+    case 3: e = sweep3_per_sm<3>(kTile, &per_sm); break;
+    default: e = sweep3_per_sm<4>(kTile, &per_sm); break;
   }
   *tile = kTile;
   *edge_words = 2 * 2 * kEdge;
@@ -1944,25 +2167,31 @@ extern "C" int sgm_sweep3_geometry(int D, int* tile, int* edge_words,
 }
 
 // One sweep of the distinct shifts in `paths` (bit 0: 0, bit 1: +1,
-// bit 2: -1) over B int16 problems, out += path costs in place (rows 1
-// and 4), as one cooperative launch of B * ceil(L / tile) blocks, which
-// must all be resident (sgm_sweep3_geometry). Strides as for sgm_agg_path;
-// edge as sgm_sweep3_kernel describes it (all -1). Returns the
-// cudaError_t of the launch.
+// bit 2: -1) over B int16 problems, out += path costs in place (rows 1-4),
+// as one cooperative launch of B * ceil(L / lines) blocks, which must all
+// be resident (sgm_sweep3_geometry). `lines` lines a block at D > 128 (at
+// most the geometry's tile); at D <= 128 every block holds kTile and
+// `lines` is not read. Strides as for sgm_agg_path; edge as
+// sgm_sweep3_kernel describes it (all -1). Returns the cudaError_t of the
+// launch.
 extern "C" int sgm_agg_sweep3(const void* cost, const void* inten, void* out,
                               void* edge, int B, int X, int L,
                               int D, long long vb, long long vx, long long vl,
                               long long ib, long long ix, long long il,
                               int reverse, int paths, int p1, int p2,
-                              void* stream) {
-  if (B < 1 || X < 1 || L < 1 || D < 1 || D > 128 || paths < 1 || paths > 7)
+                              int lines, void* stream) {
+  if (B < 1 || X < 1 || L < 1 || D < 1 || D > kPathMaxD || paths < 1 ||
+      paths > 7 || (D > kSweepMaxD && (lines < 1 || lines > kTile)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((D + 31) / 32) {
-    case 1: return static_cast<int>(launch_sweep3<1>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
-    case 2: return static_cast<int>(launch_sweep3<2>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
-    case 3: return static_cast<int>(launch_sweep3<3>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
-    default: return static_cast<int>(launch_sweep3<4>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, s));
+    case 1: return static_cast<int>(launch_sweep3<1>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, s));
+    case 2: return static_cast<int>(launch_sweep3<2>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, s));
+    case 3: return static_cast<int>(launch_sweep3<3>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, s));
+    case 4: return static_cast<int>(launch_sweep3<4>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, s));
+    case 5: case 6: case 7: case 8:
+      return static_cast<int>(launch_sweep3<8>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, s));
+    default: return static_cast<int>(launch_sweep3<16>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, s));
   }
 }
 

@@ -18,22 +18,24 @@ rows 1-2, the rectified SGM) and `aggregate` (one problem, row 3, the
 general-warp SGM).
 
 `plan_route` chooses from the shape which hand-written kernel of
-`csrc/sgm_agg.cu` runs each sweep of a call, before anything launches:
-`sgm_line_kernel` for a straight-only sweep (the horizontal sweeps, and
-rows 2-3 with shifts (0,)), one launch writing or adding the path costs;
-`sgm_sweep3_kernel` for a sweep of distinct shifts with a diagonal, all
-its paths in one cooperative launch, where one problem fits the blocks
-the card keeps resident; `sgm_path_kernel`, one launch per path, for the
-rest (a repeated shift, a problem wider than the resident blocks, 129 to
-512 depths) and for row 5. At more than 512 depths `sgm_deep_sweep_kernel`
-takes every sweep of distinct shifts in one launch (a straight-only sweep
-over any number of lines; one with a diagonal cooperatively, in chunks of
-problems whose lines the card holds at once), and `sgm_deep_kernel`, one
-launch per path with one chain's depths split across the warps of a
-block, the rest (a repeated shift, a problem too wide, row 5).
-`aggregate_batch` makes 2 line launches (row 2) and 2 sweep launches (row
-1); `aggregate` the same 4, counted as row 3; `fused_pass_bidir` 2; so do
-they at 513 to 2048 depths on [640, 640, D]. The sweeps of one call add
+`csrc/sgm_agg.cu` runs each sweep of a call, before anything launches. Up
+to 512 depths: `sgm_line_kernel` for a straight-only sweep (the
+horizontal sweeps, and rows 2-3 with shifts (0,)), one launch writing or
+adding the path costs; `sgm_sweep3_kernel` for a sweep of distinct shifts
+with a diagonal, all its paths in one cooperative launch, where one
+problem fits the blocks the card keeps resident (at 129 to 512 depths in
+chunks of problems, one block an SM, a problem's lines spread over the
+SMs); `sgm_path_kernel`, one launch per path, for the rest (a repeated
+shift, a problem wider than the resident blocks) and for row 5. At more
+than 512 depths `sgm_deep_sweep_kernel` takes every sweep of distinct
+shifts in one launch (a straight-only sweep over any number of lines; one
+with a diagonal cooperatively, in chunks of problems whose lines the card
+holds at once), and `sgm_deep_kernel`, one launch per path with one
+chain's depths split across the warps of a block, the rest (a repeated
+shift, a problem too wide, row 5). `aggregate_batch` makes 2 line
+launches (row 2) and 2 sweep launches (row 1); `aggregate` the same 4,
+counted as row 3; `fused_pass_bidir` 2; so do they at 129 to 2048 depths
+on [640, 640, D]. The sweeps of one call add
 into one int16 accumulator in place: int16 sums wrap modulo 2^16, so
 their order does not change the bits, and no second volume or copy is
 needed.
@@ -43,12 +45,12 @@ CPU tensor they run the same plan through the plain sweep below, the
 `lax.scan` recurrence of `smvs_tpu/sgm/stereo.py:aggregate` as a Python
 loop over the scan axis. The TPU's pad to multiples of 8, its VMEM
 dispatch models and the ``xb`` blocking of row 4 are not needed: the
-kernels take any H and W. The line and sweep kernels hold up to 128 depths
-(4 per lane), the plane count of both SGM paths by default;
-`sgm_path_kernel` is built for 4, 8 and 16 depths per lane, so a call with
-128 < D <= 512 planes (`SGMOptions.num_steps`) takes it for every sweep,
-and the two deep kernels take 512 < D <= 16384 (``MAX_D``), up to 512
-depths a warp. More depths raise on the card; the plain sweep takes any D.
+kernels take any H and W. The line, sweep and path kernels hold a line in
+one warp, built for 1-4, 8 and 16 depths per lane (D <= 128, the plane
+count of both SGM paths by default, 256 and 512: more planes through
+`SGMOptions.num_steps`), and the two deep kernels take 512 < D <= 16384
+(``MAX_D``), up to 512 depths a warp. More depths raise on the card; the
+plain sweep takes any D.
 
 ``launches`` counts kernel launches by TPU kernel row, and
 ``kernel_launches`` the same launches by CUDA kernel (and nothing else),
@@ -87,10 +89,13 @@ _lib = None
 _sweep_geometry_cache = {}  # (device, D) -> (tile, edge_words, resident)
 _deep_geometry_cache = {}  # (device, D) -> (max_lines, edge_words, sms)
 
-TILE = 16  # lines per block of sgm_sweep3_kernel (kTile in the source)
-# Depths the line and sweep kernels hold (32 lanes x 4), the most that
-# sgm_path_kernel holds (32 lanes x 16; kPathMaxD in the source), and the
-# most that sgm_deep_kernel holds (32 warps of 512; kDeepMaxD).
+# Lines per block of sgm_sweep3_kernel (kTile in the source): every
+# block's at D <= 128, the most a block holds beyond.
+TILE = 16
+# Depths of the sweep kernel's fixed tile of 16 lines (32 lanes x 4; the
+# main path's), the most that the line, sweep and path kernels hold (32
+# lanes x 16; kPathMaxD in the source), and the most that sgm_deep_kernel
+# holds (32 warps of 512; kDeepMaxD).
 SWEEP_MAX_D = 128
 PATH_MAX_D = 512
 MAX_D = 16384
@@ -103,6 +108,9 @@ CPU_RESIDENT = 264
 H100_SMS = 132
 H100_SMEM_PER_BLOCK = 232448
 DEEP_SWEEP_DIAG_THREADS = 640
+# sgm_sweep3_kernel's ring stages by depths a lane beyond 128 depths
+# (Sweep3<K>::kStages in the source).
+WIDE_SWEEP_STAGES = {8: 4, 16: 3}
 # The plain run's stand-in for the card's uninitialised output before the
 # first write, so that a plan which adds into it first gives other sums.
 UNSET = 0x2AAA
@@ -113,7 +121,8 @@ UNSET = 0x2AAA
 # direction; mode: "write" (out = path costs), "into" (out = acc + path
 # costs) or "add" (out += path costs in place); shifts: its paths; row: the
 # TPU kernel row it counts under; b0, nb: the problems it takes; lines:
-# lines per block of "deep_sweep" (0 where the kernel fixes its own).
+# lines per block of "deep_sweep", and of "sweep3" beyond 128 depths (0
+# where the kernel fixes its own).
 Launch = collections.namedtuple(
     "Launch", "kernel scan reverse mode shifts row b0 nb lines",
     defaults=(0,))
@@ -188,7 +197,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sgm_agg_line.argtypes = ([ptr] * 4 + [i32] * 4 + [i64] * 6
                                  + [i32] * 3 + [ptr])
     lib.sgm_agg_sweep3.argtypes = ([ptr] * 4 + [i32] * 4 + [i64] * 6
-                                   + [i32] * 4 + [ptr])
+                                   + [i32] * 5 + [ptr])
     lib.sgm_sweep3_geometry.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
     lib.sgm_agg_deep_sweep.argtypes = ([ptr] * 5 + [i32] * 4 + [i64] * 6
                                        + [i32] * 5 + [ptr])
@@ -209,7 +218,10 @@ def _library() -> ctypes.CDLL:
 
 def sweep_geometry(device: torch.device, D: int) -> tuple:
     """(lines per block, edge-buffer words per block, most blocks resident
-    at once) of the vertical sweep kernel for D depths on ``device``."""
+    at once) of the vertical sweep kernel for D <= ``PATH_MAX_D`` depths
+    on ``device``. Beyond ``SWEEP_MAX_D`` the lines are the most a block
+    holds (0 where one line does not fit) and the blocks one per SM, as
+    `plan_route` plans them (`sweep_stand_in` on the H100)."""
     key = (device, D)
     if key not in _sweep_geometry_cache:
         vals = [ctypes.c_int() for _ in range(3)]
@@ -221,6 +233,36 @@ def sweep_geometry(device: torch.device, D: int) -> tuple:
                                f"{err}")
         _sweep_geometry_cache[key] = tuple(v.value for v in vals)
     return _sweep_geometry_cache[key]
+
+
+def wide_sweep_k(D: int) -> int:
+    """Depths a lane of the line and sweep kernels at ``SWEEP_MAX_D`` < D
+    <= ``PATH_MAX_D``: 8 to 256 depths, 16 beyond."""
+    return 8 if D <= 256 else 16
+
+
+def sweep_smem_bytes(lines: int, D: int) -> int:
+    """Shared memory of a `sgm_sweep3_kernel` block of ``lines`` lines at
+    ``SWEEP_MAX_D`` < D <= ``PATH_MAX_D`` (``sweep3_layout`` in the
+    source: both diagonals' lines by step parity in rows of 32 K ints, a
+    ring of each line's cost and accumulator, the intensities, the P2a
+    table)."""
+    K = wide_sweep_k(D)
+    S, row = WIDE_SWEEP_STAGES[K], 32 * K
+    return (16 * (lines + 2) * row + 4 * S * lines * row
+            + 4 * S * (lines + 2) + 4 * 256)
+
+
+def sweep_stand_in(D: int) -> tuple:
+    """`sweep_geometry` as the H100 gives it at ``SWEEP_MAX_D`` < D <=
+    ``PATH_MAX_D``, computed: (most lines a block holds, at most ``TILE``
+    and within 227 KB of shared memory; edge words per block, 2 slots of
+    2 lines of 32 K; blocks resident, one per SM). CPU tensors are planned
+    with it."""
+    lines = TILE
+    while lines and sweep_smem_bytes(lines, D) > H100_SMEM_PER_BLOCK:
+        lines -= 1
+    return lines, 4 * 32 * wide_sweep_k(D), H100_SMS
 
 
 def deep_sweep_shape(D: int, diag: bool = False) -> tuple:
@@ -283,17 +325,22 @@ def deep_sweep_geometry(device: torch.device, D: int) -> tuple:
 
 
 def plan_geometry(cost: torch.Tensor) -> dict:
-    """``plan_route``'s ``resident``, ``tile``, ``D`` and ``deep`` for
-    ``cost``'s device and depth count."""
+    """``plan_route``'s ``resident``, ``tile``, ``D``, ``wide`` and
+    ``deep`` for ``cost``'s device and depth count."""
     D = cost.shape[-1]
+    cpu = cost.device.type == "cpu"
     geo = {"resident": CPU_RESIDENT, "tile": TILE, "D": D}
     if D > PATH_MAX_D:
         # Beyond PATH_MAX_D only the deep kernels run, so only theirs is
         # asked.
-        lines, _, sms = (deep_sweep_stand_in(D) if cost.device.type == "cpu"
+        lines, _, sms = (deep_sweep_stand_in(D) if cpu
                          else deep_sweep_geometry(cost.device, D))
         geo["deep"] = (lines, sms)
-    elif cost.device.type != "cpu" and D <= SWEEP_MAX_D:
+    elif D > SWEEP_MAX_D:
+        lines, _, sms = (sweep_stand_in(D) if cpu
+                         else sweep_geometry(cost.device, D))
+        geo["wide"] = (lines, sms)
+    elif not cpu:
         geo["tile"], _, geo["resident"] = sweep_geometry(cost.device, D)
     return geo
 
@@ -311,11 +358,12 @@ def path_kernel(D: int) -> str:
 
 def deep_sweep_chunks(B: int, L: int, max_lines: int, sms: int):
     """``(first problem, problem count, lines per block)`` of each
-    `sgm_deep_sweep_kernel` launch of a sweep with a diagonal over B
-    problems of L lines, or None where one problem does not fit. Its blocks
-    wait on their neighbours, so a launch holds at most one block (of at
-    most ``max_lines`` lines) per SM; a problem is never split, and its
-    lines spread evenly over the SMs its launch leaves it."""
+    cooperative launch of a sweep with a diagonal over B problems of L
+    lines (`sgm_deep_sweep_kernel`, and `sgm_sweep3_kernel` at 129 to 512
+    depths), or None where one problem does not fit. Its blocks wait on
+    their neighbours, so a launch holds at most one block (of at most
+    ``max_lines`` lines) per SM; a problem is never split, and its lines
+    spread evenly over the SMs its launch leaves it."""
     if max_lines < 1 or -(-L // max_lines) > sms:
         return None
     per = sms // -(-L // max_lines)
@@ -339,7 +387,7 @@ def plan_chunks(B: int, tiles: int, resident: int) -> list:
 def plan_route(entry: str, B: int, L: int, resident: int,
                shifts: tuple | None = None, reverse: bool = False,
                tile: int = TILE, D: int = SWEEP_MAX_D,
-               deep: tuple | None = None) -> list:
+               wide: tuple | None = None, deep: tuple | None = None) -> list:
     """The kernel launches (`Launch`) of one call of the entry point
     ``entry``, in order, chosen from the shape alone.
 
@@ -347,15 +395,17 @@ def plan_route(entry: str, B: int, L: int, resident: int,
     and `aggregate`, whose horizontal sweeps scan axis 2 with shifts (0,)
     and vertical ones axis 1 with (0, 1, -1)); ``shifts`` and ``reverse``
     as the other entry points take them; ``resident`` blocks of ``tile``
-    lines of `sgm_sweep3_kernel` fit the card at once; D depths; ``deep``
-    = (most lines a block of `sgm_deep_sweep_kernel` with a diagonal
-    holds, SMs), by default the H100's (`deep_sweep_stand_in`).
+    lines of `sgm_sweep3_kernel` fit the card at once (D <= 128); D
+    depths; ``wide`` = (most lines a `sgm_sweep3_kernel` block holds, SMs)
+    at 128 < D <= 512, and ``deep`` = (most lines a block of
+    `sgm_deep_sweep_kernel` with a diagonal holds, SMs) beyond, by default
+    the H100's (`sweep_stand_in`, `deep_sweep_stand_in`).
 
     A straight-only sweep takes `sgm_line_kernel` (row 1 keeps its sweep
     kernel); distinct shifts take `sgm_sweep3_kernel` where one problem
-    fits the resident blocks (in chunks of problems, `plan_chunks`);
-    anything else one `sgm_path_kernel` launch per path, and so does every
-    sweep at D > ``SWEEP_MAX_D``. At D > ``PATH_MAX_D`` a sweep of
+    fits the resident blocks (in chunks of problems: `plan_chunks`, at 128
+    < D <= 512 `deep_sweep_chunks`, one block an SM); anything else one
+    `sgm_path_kernel` launch per path. At D > ``PATH_MAX_D`` a sweep of
     distinct shifts takes one `sgm_deep_sweep_kernel` launch (straight
     only: every problem; with a diagonal: per chunk of problems whose lines
     the card holds at once, `deep_sweep_chunks`), and anything else one
@@ -366,10 +416,12 @@ def plan_route(entry: str, B: int, L: int, resident: int,
     with "into", they add into a copy.
     """
     tiles = -(-L // tile)
-    small = D <= SWEEP_MAX_D
+    small = D <= PATH_MAX_D  # the line and sweep kernels' reach
     per_path = path_kernel(D)
     if D > PATH_MAX_D and deep is None:
         deep = deep_sweep_stand_in(D)[::2]
+    if SWEEP_MAX_D < D <= PATH_MAX_D and wide is None:
+        wide = sweep_stand_in(D)[::2]
 
     def sweep(row, scan, rev, paths, first, line=True):
         if D > PATH_MAX_D and len(set(paths)) == len(paths):
@@ -382,9 +434,16 @@ def plan_route(entry: str, B: int, L: int, resident: int,
                                b0, nb, n) for b0, nb, n in chunks]
         if paths == (0,) and line and small:
             return [Launch("line", scan, rev, first, paths, row, 0, B)]
-        if len(set(paths)) == len(paths) and tiles <= resident and small:
-            return [Launch("sweep3", scan, rev, "add", paths, row, b0, nb)
-                    for b0, nb in plan_chunks(B, tiles, resident)]
+        if len(set(paths)) == len(paths) and small:
+            if D <= SWEEP_MAX_D and tiles <= resident:
+                return [Launch("sweep3", scan, rev, "add", paths, row, b0,
+                               nb) for b0, nb in plan_chunks(B, tiles,
+                                                             resident)]
+            chunks = (deep_sweep_chunks(B, L, *wide) if D > SWEEP_MAX_D
+                      else None)
+            if chunks is not None:
+                return [Launch("sweep3", scan, rev, "add", paths, row, b0,
+                               nb, n) for b0, nb, n in chunks]
         # The path kernel writes (the first launch of an 8-path sum) or
         # adds; "into" adds into a copy of acc.
         return [Launch(per_path, scan, rev,
@@ -501,13 +560,14 @@ def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
                     int(p1), int(p2), ln.lines, stream)
             elif ln.kernel == "sweep3":
                 tile, edge_words, _ = sweep_geometry(cost.device, D)
+                lines = ln.lines or tile
                 # Each word carries the scan step that wrote it; -1 is none.
-                edge = torch.full((ln.nb * -(-L // tile) * edge_words,), -1,
+                edge = torch.full((ln.nb * -(-L // lines) * edge_words,), -1,
                                   dtype=torch.int64, device=cost.device)
                 paths = sum({0: 1, 1: 2, -1: 4}[s] for s in ln.shifts)
                 err = lib.sgm_agg_sweep3(
                     *ptrs, out.data_ptr() + voff, edge.data_ptr(), *dims,
-                    paths, int(p1), int(p2), stream)
+                    paths, int(p1), int(p2), lines, stream)
             else:
                 (shift,) = ln.shifts
                 if ln.mode == "into":
@@ -688,7 +748,8 @@ def fused_pass_batch(cost: torch.Tensor, inten: torch.Tensor,
     Returns ``acc`` plus the path costs as a new int16 tensor. On the card
     (`plan_route`): shifts (0,) is one `sgm_line_kernel` launch writing
     acc + path into the result; distinct shifts with a diagonal one
-    `sgm_sweep3_kernel` launch; anything else one launch per path. Beyond
+    `sgm_sweep3_kernel` launch (at 129 to 512 depths one per chunk of
+    problems); anything else one launch per path. Beyond
     512 depths distinct shifts take one `sgm_deep_sweep_kernel` launch
     writing acc + paths into the result (per chunk of problems with a
     diagonal).
@@ -710,8 +771,8 @@ def fused_pass(cost: torch.Tensor, inten: torch.Tensor, acc: torch.Tensor,
     the same result; on the card both forms are one launch of the vertical
     sweep kernel for distinct shifts, counted as row 4 when ``loop`` is set
     (one `sgm_path_kernel` launch per path, as the JAX kernel keeps one
-    scratch line per listed shift, for a repeated shift, a problem wider
-    than the resident blocks, or D > 128). At D > 512 distinct shifts take
+    scratch line per listed shift, for a repeated shift or a problem wider
+    than the resident blocks). At D > 512 distinct shifts take
     one `sgm_deep_sweep_kernel` launch writing acc + paths into the result
     where the card holds the problem's lines at once, and anything else
     one `sgm_deep_kernel` launch per path. ``xb``, that
@@ -734,7 +795,7 @@ def fused_pass_bidir(cost: torch.Tensor, inten: torch.Tensor,
 
     On the card: the forward sweep, then the backward one adding into the
     same result in place (2 launches for (0,) or distinct shifts with a
-    diagonal, at D > 512 where the card holds the problem's lines at once;
+    diagonal, at D > 128 where the card holds the problem's lines at once;
     one launch per path and direction otherwise).
     """
     _check(cost, inten, acc, 3)
@@ -751,9 +812,9 @@ def aggregate(cost: torch.Tensor, intensity: torch.Tensor, p1: int, p2: int
 
     Casts like the JAX entry point (cost to int16, intensity to int32).
     On the card: `aggregate_batch`'s 4 launches for one problem, counted
-    as row 3 (at D > 512 all four `sgm_deep_sweep_kernel`, where the card
-    holds the W lines at once; else the vertical sweeps take one
-    `sgm_deep_kernel` launch per path).
+    as row 3 (at D > 512 all four `sgm_deep_sweep_kernel`), where the
+    card holds the W lines at once; else the vertical sweeps take one
+    launch per path (`sgm_path_kernel`, beyond 512 `sgm_deep_kernel`).
     """
     cost = cost.to(torch.int16).contiguous()
     intensity = intensity.to(torch.int32).contiguous()
@@ -772,9 +833,10 @@ def aggregate_batch(cost: torch.Tensor, intensity: torch.Tensor, p1: int,
     no transposed copy; the first writes the path cost, so nothing is
     zeroed), counted as row 2, and one `sgm_sweep3_kernel` launch per
     vertical direction carrying the straight path and both diagonals,
-    counted as row 1, all into one accumulator. At D > 512 the same four
-    sweeps take `sgm_deep_sweep_kernel` (the vertical ones per chunk of
-    problems whose W lines the card holds at once).
+    counted as row 1, all into one accumulator (at 129 to 512 depths one
+    per chunk of problems whose W lines the card holds at once). At D >
+    512 the same four sweeps take `sgm_deep_sweep_kernel` (the vertical
+    ones per chunk of problems, likewise).
     """
     _check(cost, intensity, None, 4)
     B, H, W, D = cost.shape

@@ -9,7 +9,8 @@ to the deep kernels: a sweep of distinct shifts to one
 whose lines the card holds at once, one block per SM), and anything else
 (a repeated shift, a problem too wide, row 5) to `sgm_deep_kernel`, one
 launch per path, which splits one chain's depths across the warps of a
-block. The routes at D <= 512 are unchanged (`tests/test_torch_faults.py`).
+block. The routes at D <= 512 are `tests/test_torch_faults.py`'s and
+`tests/test_torch_wide.py`'s.
 CPU tensors are planned with the H100's geometry
 (`cuda_agg.deep_sweep_stand_in`). On the CPU the entry points run their
 plan through the plain sweep, so holding them bit for bit against the
@@ -69,8 +70,9 @@ def _per_path(reverses, shifts, row, nb=1, first="add"):
 
 
 # (entry, B, L, kwargs) and the launches of the old per-path route, which
-# D = 512 keeps on `sgm_path_kernel` and D > 512 keeps on `sgm_deep_kernel`
-# where the new kernel cannot take a sweep.
+# D > 512 keeps on `sgm_deep_kernel` where the new kernel cannot take a
+# sweep (and D <= 512 on `sgm_path_kernel` where the line and sweep
+# kernels cannot).
 PER_PATH = {
     "aggregate_batch": (
         ("aggregate_batch", 2, 1696, {}),
@@ -147,13 +149,48 @@ def test_routes_beyond_512_take_the_deep_kernel(case, D):
     assert cuda_agg.plan_route(entry, B, L, R, D=D, **kw) == ROUTES[case][D]
 
 
+def _w(kernel, scan, reverse, mode, shifts, row, b0=0, nb=1, lines=0):
+    """One launch of the 512-depth route's line or sweep kernel."""
+    return cuda_agg.Launch(kernel, scan, reverse, mode, shifts, row, b0, nb,
+                           lines)
+
+
+# The plan at D = 192, 256 and 512: every sweep of distinct shifts on
+# `sgm_line_kernel` (straight) or `sgm_sweep3_kernel` (with a diagonal:
+# the problem's lines spread over the 132 SMs, ceil(L / 132) a block, one
+# problem a launch where two do not fit in blocks of at most 16 lines at 8
+# depths a lane and 14 at 16), a repeated shift one `sgm_path_kernel`
+# launch per path.
+AT_512 = {
+    "aggregate_batch": [_w("line", 2, False, "write", (0,), B2, 0, 2),
+                        _w("line", 2, True, "add", (0,), B2, 0, 2)]
+    + [_w("sweep3", 1, r, "add", DIAG, B1, b, 1, 13) for r in (False, True)
+       for b in (0, 1)],
+    "aggregate": [_w("line", 2, False, "write", (0,), B3),
+                  _w("line", 2, True, "add", (0,), B3)]
+    + [_w("sweep3", 1, r, "add", DIAG, B3, 0, 1, 11) for r in (False, True)],
+    "batch (0,)": [_w("line", 1, False, "into", (0,), B2, 0, 2)],
+    "batch (0, 1, -1)": [_w("sweep3", 1, True, "add", DIAG, B2, 0, 1, 5)],
+    "pass (0, 1, -1)": [_w("sweep3", 1, True, "add", DIAG, B1, 0, 1, 11)],
+    "loop (0, 1, -1)": [_w("sweep3", 1, False, "add", DIAG, LOOP, 0, 1, 5)],
+    "pass (0, 1, 0)": [ln._replace(kernel="path")
+                       for ln in PER_PATH["pass (0, 1, 0)"][1]],
+    "bidir (0,)": [_w("line", 1, False, "into", (0,), B3),
+                   _w("line", 1, True, "add", (0,), B3)],
+}
+
+
+@pytest.mark.parametrize("D", [192, 256, 512])
 @pytest.mark.parametrize("case", list(PER_PATH))
-def test_routes_at_512_keep_the_path_kernel(case):
-    """At D = 512 every launch stays on `sgm_path_kernel`, as before:
-    the same launches, with the path kernel named."""
-    (entry, B, L, kw), want = PER_PATH[case]
-    plan = cuda_agg.plan_route(entry, B, L, R, D=512, **kw)
-    assert plan == [ln._replace(kernel="path") for ln in want]
+def test_routes_at_512_keep_the_path_kernel(case, D):
+    """At D = 512 (and 192, 256) a sweep of distinct shifts takes one
+    launch (the line or the sweep kernel at 16 or 8 depths a lane; before
+    this route was redesigned every launch here was the per-path route's
+    on `sgm_path_kernel`), and a repeated shift keeps `sgm_path_kernel`,
+    one launch per path."""
+    (entry, B, L, kw), _ = PER_PATH[case]
+    plan = cuda_agg.plan_route(entry, B, L, R, D=D, **kw)
+    assert plan == AT_512[case]
 
 
 # (entry, L, D, fits): the most lines the card holds at once with a

@@ -5,10 +5,12 @@ the CPU.
    the JAX kernel keeps one scratch line per listed shift and returns acc
    plus every path; the port routes such a sweep to one `sgm_path_kernel`
    launch per path, as rows 2 and 3 already did.
-2. More than 128 depth planes: the line and sweep kernels hold 4 depths per
-   lane, so `plan_route` sends every sweep at D > 128 to `sgm_path_kernel`,
-   built for 8 and 16 depths per lane (D <= 512); the D <= 128 routes are
-   unchanged.
+2. More than 128 depth planes: every kernel up to 512 depths is built for
+   8 and 16 depths per lane beyond 128, and `plan_route` sends a sweep at
+   129 <= D <= 512 where it goes at D <= 128 (straight: `sgm_line_kernel`;
+   distinct shifts with a diagonal: `sgm_sweep3_kernel`, one block an SM
+   with a problem's lines spread over the SMs; the rest: one
+   `sgm_path_kernel` launch per path); the D <= 128 routes are unchanged.
 
 On the CPU the entry points run their plan through the plain sweep, each
 launch in its mode, so holding them bit for bit against the Pallas kernels
@@ -33,8 +35,9 @@ R = 264  # sgm_sweep3_kernel's resident blocks on the H100
 B1, B2, B3 = "fused_pass", "fused_pass_batch", "fused_pass_bidir"
 
 
-def _l(kernel, scan, reverse, mode, shifts, row, b0=0, nb=1):
-    return cuda_agg.Launch(kernel, scan, reverse, mode, shifts, row, b0, nb)
+def _l(kernel, scan, reverse, mode, shifts, row, b0=0, nb=1, lines=0):
+    return cuda_agg.Launch(kernel, scan, reverse, mode, shifts, row, b0, nb,
+                           lines)
 
 
 def _volume(shape, seed, hi=63):
@@ -98,35 +101,45 @@ def test_fused_pass_rejects_shifts_outside_the_paths(shifts):
 # 2. more than 128 depths
 
 
-DEEP_ROUTES = {  # (entry, B, L, kwargs) -> launches at D = 129 and 512
+DIAG = (0, 1, -1)
+# (entry, B, L, kwargs) -> launches at D = 129, 192, 256 and 512: a sweep
+# with a diagonal spreads a problem's L lines over the 132 SMs, ceil(L /
+# 132) lines a block (13 for 1696 lines, 11 for 1440), one problem a
+# launch where two do not fit (1696 or 1440 lines need 107 or 90 blocks of
+# the most lines a block holds, 16 at 8 depths a lane and 14 at 16).
+DEEP_ROUTES = {
     "aggregate_batch": (
         ("aggregate_batch", 2, 1696, {}),
-        [_l("path", 2, False, "write", (0,), B2, 0, 2),
-         _l("path", 2, True, "add", (0,), B2, 0, 2)]
-        + [_l("path", 1, r, "add", (s,), B1, 0, 2) for r in (False, True)
-           for s in (0, 1, -1)]),
+        [_l("line", 2, False, "write", (0,), B2, 0, 2),
+         _l("line", 2, True, "add", (0,), B2, 0, 2)]
+        + [_l("sweep3", 1, r, "add", DIAG, B1, b, 1, 13)
+           for r in (False, True) for b in (0, 1)]),
     "aggregate": (
         ("aggregate", 1, 1440, {}),
-        [_l("path", 2, False, "write", (0,), B3),
-         _l("path", 2, True, "add", (0,), B3)]
-        + [_l("path", 1, r, "add", (s,), B3) for r in (False, True)
-           for s in (0, 1, -1)]),
+        [_l("line", 2, False, "write", (0,), B3),
+         _l("line", 2, True, "add", (0,), B3)]
+        + [_l("sweep3", 1, r, "add", DIAG, B3, 0, 1, 11)
+           for r in (False, True)]),
     "batch (0,)": (
         ("fused_pass_batch", 2, 1440, dict(shifts=(0,))),
-        [_l("path", 1, False, "add", (0,), B2, 0, 2)]),
+        [_l("line", 1, False, "into", (0,), B2, 0, 2)]),
     "pass (0, 1, -1)": (
-        ("fused_pass", 1, 1440, dict(shifts=(0, 1, -1), reverse=True)),
-        [_l("path", 1, True, "add", (s,), B1) for s in (0, 1, -1)]),
+        ("fused_pass", 1, 1440, dict(shifts=DIAG, reverse=True)),
+        [_l("sweep3", 1, True, "add", DIAG, B1, 0, 1, 11)]),
     "bidir (0,)": (
         ("fused_pass_bidir", 1, 1440, dict(shifts=(0,))),
-        [_l("path", 1, False, "add", (0,), B3),
-         _l("path", 1, True, "add", (0,), B3)]),
+        [_l("line", 1, False, "into", (0,), B3),
+         _l("line", 1, True, "add", (0,), B3)]),
 }
 
 
-@pytest.mark.parametrize("D", [129, 512])
+@pytest.mark.parametrize("D", [129, 192, 256, 512])
 @pytest.mark.parametrize("case", list(DEEP_ROUTES))
 def test_deep_routes_take_the_path_kernel(case, D):
+    """At 129-512 depths a sweep takes one launch as at D <= 128 (before
+    this route was redesigned every sweep here took one `sgm_path_kernel`
+    launch per path): straight sweeps `sgm_line_kernel`, sweeps with a
+    diagonal `sgm_sweep3_kernel` in chunks of problems."""
     (entry, B, L, kw), want = DEEP_ROUTES[case]
     assert cuda_agg.plan_route(entry, B, L, R, D=D, **kw) == want
 

@@ -8,7 +8,11 @@ line, and B = 3, and one test repeats a sweep to catch a rare race. The
 line kernel (the straight sweeps of rows 2 and 3) is held in both layouts
 the entry points give it and in its three modes (write, add in place,
 acc + path elsewhere), at depth counts that do and do not allow 16-byte
-copies, one scan step, fewer lines than a block, and B = 3. Beyond 512
+copies, one scan step, fewer lines than a block, and B = 3. At 129-512
+depths both kernels run 8 or 16 depths a lane: every entry point and
+mode bit-equal to plain at D = 129, 136, 256 and 512 (several lines a
+block of the sweep kernel, many blocks, a ragged last block), a repeated
+3-path sweep, and the geometry against the H100 stand-in. Beyond 512
 depths every entry point is held to its plan's launches and bit-equal to
 plain on `sgm_deep_sweep_kernel` (several lines a block, many blocks, a
 ragged last block, odd and aligned D) and on `sgm_deep_kernel` where a
@@ -174,7 +178,9 @@ def test_aggregate_batch_beyond_the_resident_blocks_equals_plain(cuda):
 
 LINE_SHAPES = [(3, 9, 7, 1), (2, 11, 13, 24), (1, 12, 5, 33),
                (2, 7, 10, 100), (2, 21, 34, 128), (3, 1, 6, 64),
-               (1, 40, 3, 128), (2, 70, 9, 128)]
+               (1, 40, 3, 128), (2, 70, 9, 128), (2, 9, 7, 129),
+               (1, 11, 6, 136), (2, 40, 5, 256), (3, 1, 5, 200),
+               (1, 9, 4, 512), (2, 13, 3, 300)]
 
 
 @pytest.mark.parametrize("mode", ["write", "add", "into"])
@@ -186,7 +192,8 @@ def test_line_kernel_equals_plain(cuda, shape, reverse, scan, mode):
     lines-adjacent layout of `fused_pass_batch`, scan 2 the
     chain-contiguous one of the horizontal sweeps (a line's positions are
     one run of bytes). X = 1 and 70 scan steps, fewer lines than a block,
-    D from 1 to 128, B = 3."""
+    D from 1 to 512 (8 and 16 depths a lane beyond 128; 129 and 300 fill
+    the ring by plain loads), B = 3."""
     cost, inten = _volume(shape, seed=sum(shape) + scan, device=cuda)
     acc, _ = _volume(shape, seed=sum(shape) + 7, device=cuda, hi=500)
     keep = acc.clone()
@@ -254,32 +261,33 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     assert sum(cuda_agg.launches.values()) == 0
 
 
-# 129-512: sgm_path_kernel with 8 or 16 depths a lane; 513-16384:
-# sgm_deep_sweep_kernel for a sweep of distinct shifts that fits, else
-# sgm_deep_kernel, one block of ceil(D / 512) warps a chain per path.
+# 129-512: sgm_line_kernel and sgm_sweep3_kernel with 8 or 16 depths a
+# lane; 513-16384: sgm_deep_sweep_kernel for a sweep of distinct shifts
+# that fits, else sgm_deep_kernel, one block of ceil(D / 512) warps a
+# chain per path.
 DEEP = [129, 192, 256, 512, 513, 1024, 2048, 4608, 16384]
 
 
 @pytest.mark.parametrize("D", DEEP)
 def test_deep_aggregate_batch_and_aggregate_equal_plain(cuda, D):
-    """More than 128 depths: every sweep takes `sgm_path_kernel` with 8 or
-    16 depths per lane (1 + 1 horizontal, 3 + 3 vertical launches), and
-    beyond 512 the deep kernels, with the launches `plan_route` plans (4
-    where the vertical sweeps fit at once)."""
+    """More than 128 depths: one launch per sweep (2 horizontal, 2
+    vertical with both problems in one chunk) on the line and sweep
+    kernels with 8 or 16 depths per lane, and beyond 512 on the deep
+    kernels, with the launches `plan_route` plans (4 where the vertical
+    sweeps fit at once)."""
     cost, inten = _volume((2, 9, 13, D), seed=D, device=cuda)
     cuda_agg.reset_launches()
     got = cuda_agg.aggregate_batch(cost, inten, 6, 96)
     assert _launched() == _planned("aggregate_batch", cost, 2, 13)
     if D <= 512:
         assert (cuda_agg.launches["fused_pass_batch"],
-                cuda_agg.launches["fused_pass"]) == (2, 6)
+                cuda_agg.launches["fused_pass"]) == (2, 2)
     assert torch.equal(got.to(torch.int32),
                        cuda_agg.plain_aggregate_batch(cost, inten, 6, 96))
     cuda_agg.reset_launches()
     got = cuda_agg.aggregate(cost[0], inten[0], 6, 96)
     assert _launched() == _planned("aggregate", cost, 1, 13)
-    assert cuda_agg.launches["fused_pass_bidir"] == (
-        8 if D <= 512 or D > 8192 else 4)
+    assert cuda_agg.launches["fused_pass_bidir"] == (8 if D > 8192 else 4)
     assert torch.equal(got.to(torch.int32),
                        cuda_agg.plain_aggregate(cost[0], inten[0], 6, 96))
 
@@ -287,8 +295,9 @@ def test_deep_aggregate_batch_and_aggregate_equal_plain(cuda, D):
 @pytest.mark.parametrize("D", DEEP)
 def test_deep_sweeps_equal_plain(cuda, D):
     """`fused_pass` (rows 1 and 4), `fused_pass_batch`, `fused_pass_bidir`
-    and `scan_direction` at D > 128, one path (or deep) launch per path, or
-    one `sgm_deep_sweep_kernel` launch per sweep, as planned."""
+    and `scan_direction` at D > 128: one launch per sweep (line, sweep or
+    deep sweep kernel), or one path (or deep) launch per path, as
+    planned."""
     cost, inten = _volume((11, 14, D), seed=D + 1, device=cuda)
     acc, _ = _volume((11, 14, D), seed=D + 2, device=cuda, hi=500)
     for reverse in (False, True):
@@ -485,3 +494,145 @@ def test_deep_sweep_repeats_bit_equal(cuda):
         got = cuda_agg.fused_pass(cost, inten, acc, False, (0, 1, -1), 6, 96)
         assert cuda_agg.kernel_launches["deep_sweep"] == 1
         assert torch.equal(got.to(torch.int32), want), f"repetition {rep}"
+
+
+# The line and sweep kernels at 8 and 16 depths a lane, on [X, L, D]: L >
+# 132 lines, so a sweep with a diagonal takes several lines a block
+# (in-block hand-off) and many blocks (hand-off through the edge words),
+# with a ragged last block; D = 129 fills the ring by plain loads and
+# stores a depth at a time, D = 136 copies 16-byte pieces and holds 8
+# depths a lane, 256 and 512 fill every lane.
+WIDE = {129: (9, 301), 136: (11, 290), 256: (8, 301), 512: (7, 277)}
+
+
+@pytest.mark.parametrize("D", list(WIDE))
+def test_wide_sweeps_equal_plain(cuda, D):
+    """Every entry point, both directions and every shift set, bit-equal
+    to the plain version, with the launches planned: every sweep of
+    distinct shifts on `sgm_line_kernel` or `sgm_sweep3_kernel`, none on
+    `sgm_path_kernel` but a repeated shift's and row 5's."""
+    X, L = WIDE[D]
+    cost, inten = _volume((X, L, D), seed=D + 5, device=cuda)
+    acc, _ = _volume((X, L, D), seed=D + 6, device=cuda, hi=500)
+    b = (cost[None], inten[None], acc[None])
+    calls = []
+    for reverse in (False, True):
+        for shifts in ((0, 1, -1), (1,), (-1, 0), (0,), (1, -1)):
+            calls.append((
+                ("fused_pass", 1, L, dict(shifts=shifts, reverse=reverse)),
+                lambda r=reverse, s=shifts: cuda_agg.fused_pass(
+                    cost, inten, acc, r, s, 6, 96),
+                lambda r=reverse, s=shifts: cuda_agg.plain_fused_pass_batch(
+                    *b, r, s, 6, 96)[0]))
+        calls.append((
+            ("fused_pass_loop", 1, L, dict(shifts=(0, 1, -1),
+                                           reverse=reverse)),
+            lambda r=reverse: cuda_agg.fused_pass(cost, inten, acc, r,
+                                                  (0, 1, -1), 6, 96,
+                                                  loop=True),
+            lambda r=reverse: cuda_agg.plain_fused_pass_batch(
+                *b, r, (0, 1, -1), 6, 96)[0]))
+        for shifts in ((0,), (0, 1, -1), (0, 0)):
+            calls.append((
+                ("fused_pass_batch", 1, L, dict(shifts=shifts,
+                                                reverse=reverse)),
+                lambda r=reverse, s=shifts: cuda_agg.fused_pass_batch(
+                    *b, r, s, 6, 96)[0],
+                lambda r=reverse, s=shifts: cuda_agg.plain_fused_pass_batch(
+                    *b, r, s, 6, 96)[0]))
+    for shifts in ((0,), (0, 1, -1)):
+        calls.append((
+            ("fused_pass_bidir", 1, L, dict(shifts=shifts)),
+            lambda s=shifts: cuda_agg.fused_pass_bidir(cost, inten, acc, s,
+                                                       6, 96),
+            lambda s=shifts: cuda_agg.plain_fused_pass_bidir(cost, inten, acc,
+                                                             s, 6, 96)))
+    calls.append((("aggregate", 1, L, {}),
+                  lambda: cuda_agg.aggregate(cost, inten, 6, 96),
+                  lambda: cuda_agg.plain_aggregate(cost, inten, 6, 96)))
+    two = torch.stack([cost, cost.flip(0)]), torch.stack([inten, inten])
+    calls.append((("aggregate_batch", 2, L, {}),
+                  lambda: cuda_agg.aggregate_batch(*two, 6, 96),
+                  lambda: cuda_agg.plain_aggregate_batch(*two, 6, 96)))
+    for (entry, B, lines, kw), fn, plain in calls:
+        cuda_agg.reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        planned = _planned(entry, cost, B, lines, **kw)
+        assert _launched() == planned, (entry, kw)
+        shifts = kw.get("shifts", (0, 1, -1))
+        if len(set(shifts)) == len(shifts):
+            assert "path" not in planned[1], (entry, kw)
+        assert torch.equal(got.to(torch.int32), plain()), (entry, kw)
+    assert torch.equal(acc, _volume((X, L, D), seed=D + 6, device=cuda,
+                                    hi=500)[0])  # input left untouched
+
+
+@pytest.mark.parametrize("D", [136, 512])
+def test_wide_sweep_plans_bit_equal(cuda, D):
+    """`sgm_sweep3_kernel` at 8 and 16 depths a lane through `run_plan`
+    at every lines-a-block count from 1 to the geometry's most, on B = 3
+    problems of 40 lines (one launch of 3 problems), and split into two
+    chunks of problems (the plan for one line a block on 80 SMs)."""
+    tile, _, _ = cuda_agg.sweep_geometry(cuda, D)
+    cost, inten = _volume((3, 6, 40, D), seed=D + 7, device=cuda)
+    acc, _ = _volume(cost.shape, seed=D + 8, device=cuda, hi=500)
+    want = cuda_agg.plain_fused_pass_batch(cost, inten, acc, True,
+                                           (0, 1, -1), 6, 96)
+    for n in range(1, tile + 1):
+        plan = [cuda_agg.Launch("sweep3", 1, True, "add", (0, 1, -1),
+                                "fused_pass_batch", 0, 3, n)]
+        got = cuda_agg.run_plan(plan, cost, inten, acc, 6, 96)
+        assert torch.equal(got.to(torch.int32), want), n
+    plan = cuda_agg.plan_route("fused_pass_batch", 3, 40,
+                               cuda_agg.CPU_RESIDENT, shifts=(0, 1, -1),
+                               reverse=True, D=D, wide=(1, 80))
+    assert [(ln.b0, ln.nb, ln.lines) for ln in plan] == [
+        (0, 2, 1), (2, 1, 1)]
+    got = cuda_agg.run_plan(plan, cost, inten, acc, 6, 96)
+    assert torch.equal(got.to(torch.int32), want)
+
+
+@pytest.mark.parametrize("D", [256, 512])
+def test_wide_sweep_repeats_bit_equal(cuda, D):
+    """A race in the blocks' hand-off shows as a rare mismatch: the 3-path
+    sweep at [64, 640, D] (5 lines a block, 128 blocks) 20 times, each
+    bit-equal to the plain version."""
+    cost, inten = _volume((64, 640, D), seed=35, device=cuda)
+    acc, _ = _volume(cost.shape, seed=36, device=cuda, hi=500)
+    want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None], acc[None],
+                                           False, (0, 1, -1), 6, 96)[0]
+    for rep in range(20):
+        cuda_agg.reset_launches()
+        got = cuda_agg.fused_pass(cost, inten, acc, False, (0, 1, -1), 6, 96)
+        assert cuda_agg.kernel_launches["sweep3"] == 1
+        assert torch.equal(got.to(torch.int32), want), f"repetition {rep}"
+
+
+def test_wide_sweep_beyond_the_resident_lines_takes_the_path_kernel(cuda):
+    """One line more than the card holds at once at 256 depths: the 3-path
+    sweep keeps one `sgm_path_kernel` launch per path, bit-equal."""
+    D = 256
+    tile, _, sms = cuda_agg.sweep_geometry(cuda, D)
+    cost, inten = _volume((3, tile * sms + 1, D), seed=37, device=cuda)
+    acc, _ = _volume(cost.shape, seed=38, device=cuda, hi=500)
+    cuda_agg.reset_launches()
+    got = cuda_agg.fused_pass(cost, inten, acc, True, (0, 1, -1), 6, 96)
+    assert _launched() == ({"fused_pass": 3}, {"path": 3})
+    want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None], acc[None],
+                                           True, (0, 1, -1), 6, 96)[0]
+    assert torch.equal(got.to(torch.int32), want)
+
+
+def test_sweep_geometry_matches_the_stand_in(cuda):
+    """At 129-512 depths the card's geometry is the one CPU tensors are
+    planned with (on an H100 SXM: 16 lines a block at 8 depths a lane, 14
+    at 16, 132 SMs); at D <= 128 the tile stays 16 lines and two blocks an
+    SM."""
+    if cuda_agg.deep_sweep_geometry(cuda, 2048)[2] != cuda_agg.H100_SMS:
+        pytest.skip("not an H100 SXM")
+    for D in (129, 136, 256, 257, 512):
+        assert cuda_agg.sweep_geometry(cuda, D) == \
+            cuda_agg.sweep_stand_in(D), D
+    assert cuda_agg.sweep_geometry(cuda, 128) == (
+        cuda_agg.TILE, 512, cuda_agg.CPU_RESIDENT)

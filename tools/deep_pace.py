@@ -1,19 +1,25 @@
-"""What the deep SGM sweep costs on the card, against the per-path route.
+"""What the SGM sweeps beyond 128 depths cost on the card, against the
+per-path route.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python tools/deep_pace.py [--reps 10] [--depths 513 1024 2048]
+    python tools/deep_pace.py --depths 129 192 256 512
 
 At [640, 640, D] int16 (the deep-plane shapes of `chip_smoke.py`) it
-builds the kernels (printing ptxas' registers and spills of
-`sgm_deep_sweep_kernel`) and times `aggregate`'s plan with CUDA events:
+builds the kernels (printing ptxas' registers and spills of every
+instantiation of `sgm_line_kernel`, `sgm_sweep3_kernel`,
+`sgm_deep_sweep_kernel` and `sgm_path_kernel`, one line each) and times
+`aggregate`'s plan with CUDA events:
 
-- the plan `cuda_agg.plan_route` gives (`sgm_deep_sweep_kernel`: two
-  straight sweeps and two 3-path sweeps, 4 launches) against the same
-  sums as one `sgm_deep_kernel` launch per path (`cuda_agg.per_path_plan`,
-  8 launches, the route every sweep took before), in turns (new, old,
-  old, new), each run bit-equal to the plain version;
-- each launch of the new plan on its own;
+- the plan `cuda_agg.plan_route` gives (two straight sweeps and two
+  3-path sweeps, 4 launches: `sgm_line_kernel` and `sgm_sweep3_kernel`
+  at 129-512 depths, `sgm_deep_sweep_kernel` beyond) against the same
+  sums as one launch per path (`cuda_agg.per_path_plan`, 8 launches of
+  `sgm_path_kernel` or `sgm_deep_kernel`, the route every sweep took
+  before), in turns (new, old, old, new), each run bit-equal to the
+  plain version;
+- each launch of both plans on its own (the events between launches);
 
 beside the bound (the 8-path sum's bytes: cost read once, result written
 once) and each plan's bytes floor (`cuda_agg.plan_bytes`: every launch
@@ -23,8 +29,11 @@ limit. It imports nothing of JAX.
 """
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -59,6 +68,29 @@ def run_timed(plan, cost, inten):
     events[-1].synchronize()
     per = [events[i].elapsed_time(events[i + 1]) for i in range(len(plan))]
     return out, events[0].elapsed_time(events[-1]), per
+
+
+def ptxas_summary(report: str) -> list:
+    """One line per compiled kernel of nvcc's ``-Xptxas -v`` report: its
+    name and template arguments (mangled), registers, and spill bytes."""
+    rows, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '[^']*?\d(sgm_[a-z0-9_]*?"
+                      r"_kernel)I(\w*?)EEv", line)
+        if m:
+            args = re.sub(r"L[ib](\d+)E?", r"\1,", m.group(2)).rstrip(",")
+            args = {"s": "int16,", "i": "int32,"}.get(args[:1], "") + \
+                args.lstrip("si")
+            name = f"{m.group(1)}<{args}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append(f"{name}: {m.group(1)} registers, {spills}")
+            name = None
+    return rows
 
 
 def probe(D: int, reps: int) -> dict:
@@ -133,8 +165,16 @@ def main() -> int:
                          text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
-    cuda_agg.build(verbose=not args.probe)
-    res = {"card": card, "depths": {}}
+    # ptxas reports only while it compiles: where the library is built
+    # already, a copy under a define that the source does not read is.
+    built = os.path.exists(cuda_agg.library_path())
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        cuda_agg.build(verbose=True,
+                       defines=("SGM_PTXAS_REPORT=1",) if built else ())
+    ptxas = ptxas_summary(report.getvalue())
+    print("\n".join(ptxas), flush=True)
+    res = {"card": card, "ptxas": ptxas, "depths": {}}
     if args.probe:
         res["probe"] = {D: probe(D, args.reps) for D in args.depths}
         print(json.dumps(res), flush=True)
@@ -147,7 +187,7 @@ def main() -> int:
         want = cuda_agg.plain_aggregate_batch(cost, inten, P1, P2).to(
             torch.int16)
         times = {"new": [], "old": []}
-        per_launch = []
+        per_launch = {"new": [], "old": []}
         for rep in range(2 * args.reps + 2):
             which = ("new", "old", "old", "new")[rep % 4]
             out, ms, per = run_timed(new if which == "new" else old, cost,
@@ -157,8 +197,7 @@ def main() -> int:
                                    "from the plain version")
             if rep >= 2:  # the first of each is a warm-up
                 times[which].append(ms)
-                if which == "new":
-                    per_launch.append(per)
+                per_launch[which].append(per)
             del out
         shape = tuple(cost.shape)
         n = cost.numel()
@@ -169,7 +208,10 @@ def main() -> int:
                       list(ln.shifts), ln.lines) for ln in new],
             "new_ms": statistics.median(times["new"]),
             "old_ms": statistics.median(times["old"]),
-            "new_launch_ms": [statistics.median(c) for c in zip(*per_launch)],
+            "new_launch_ms": [statistics.median(c)
+                              for c in zip(*per_launch["new"])],
+            "old_launch_ms": [statistics.median(c)
+                              for c in zip(*per_launch["old"])],
             "bound_ms": bound,
             "new_floor_ms": cuda_agg.plan_bytes(new, shape)
             / PEAK_BYTES_PER_S * 1e3,
@@ -179,7 +221,8 @@ def main() -> int:
         res["depths"][D] = row
         print(f"D = {D}: new {row['new_ms']:.3f} ms ({len(new)} launches: "
               + ", ".join(f"{t:.3f}" for t in row["new_launch_ms"])
-              + f"), per path {row['old_ms']:.3f} ms ({len(old)} launches);"
+              + f"), per path {row['old_ms']:.3f} ms ({len(old)} launches: "
+              + ", ".join(f"{t:.3f}" for t in row["old_launch_ms"]) + ");"
               f" floors {row['new_floor_ms']:.3f} / {row['old_floor_ms']:.3f}"
               f" ms, bound {bound:.4f} ms; bit-equal on every run",
               flush=True)

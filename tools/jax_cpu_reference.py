@@ -6,7 +6,7 @@ runs them at 1440, 1280 (the CLI ones) and 1440; a CPU run at that size
 holds many GB, so the reference is mostly taken at a smaller one and the
 script's output says which):
 
-    python tools/jax_cpu_reference.py general --dim 720
+    python tools/jax_cpu_reference.py general --dim 720 [--planes 256]
     python tools/jax_cpu_reference.py cli --dim 640
     python tools/jax_cpu_reference.py forward --dim 960
     python tools/jax_cpu_reference.py shading --dim 640
@@ -18,10 +18,10 @@ script's output says which):
     python tools/jax_cpu_reference.py step --dim 480
     python tools/jax_cpu_reference.py pipeline --dim 480 --patch 2
 
-`general`: `stereo.reconstruct` (the general-warp SGM, 128 planes, range
-(4.0, 8.5)) on the two-view scene of tests/test_sgm.py, with the plane's
-slope per pixel scaled by 160/dim so its depths stay inside the sweep
-range at any dim. Prints coverage and the median relative error against
+`general`: `stereo.reconstruct` (the general-warp SGM, 128 planes or
+``--planes``, range (4.0, 8.5)) on the two-view scene of tests/test_sgm.py,
+with the plane's slope per pixel scaled by 160/dim so its depths stay
+inside the sweep range at any dim. Prints coverage and the median relative error against
 the analytic depth.
 
 `cli`: the `smvsrecon` CLI with its defaults (and `--batch-views 1`) on a
@@ -135,7 +135,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 
-def general(dim: int) -> dict:
+def general(dim: int, planes: int = 128) -> dict:
     from smvs_tpu.core.synthetic import make_two_view_scene
     from smvs_tpu.sgm import stereo as sgm
 
@@ -151,12 +151,12 @@ def general(dim: int) -> dict:
     depth = np.asarray(sgm.reconstruct(
         jnp.asarray(scene.images[1] * np.float32(255.0)),
         jnp.asarray(scene.images[0] * np.float32(255.0)), *mats,
-        (4.0, 8.5), (4.0, 8.5), sgm.SGMOptions(num_steps=128)))
+        (4.0, 8.5), (4.0, 8.5), sgm.SGMOptions(num_steps=planes)))
     seconds = time.perf_counter() - t0
     gt = scene.depths[1]
     mask = depth > 0
     rel = np.abs(depth[mask] - gt[mask]) / gt[mask]
-    return {"coverage": float(mask.mean()),
+    return {"planes": planes, "coverage": float(mask.mean()),
             "median_rel_err": float(np.median(rel)),
             "cpu_seconds": seconds}
 
@@ -560,6 +560,8 @@ def main(argv=None) -> int:
                              "pipeline", "costinterp", "scene", "dtu",
                              *RUNS))
     ap.add_argument("--dim", type=int, required=True)
+    ap.add_argument("--planes", type=int, default=128,
+                    help="general: the SGM's depth planes (num_steps)")
     ap.add_argument("--patch", type=int, default=2,
                     help="pipeline: the 'patch' axis")
     ap.add_argument("--scene", choices=("main", "plane"), default="main",
@@ -569,7 +571,7 @@ def main(argv=None) -> int:
                          "configuration but general)")
     args = ap.parse_args(argv)
     if args.config == "general":
-        out = general(args.dim)
+        out = general(args.dim, args.planes)
     elif args.config == "flagship":
         out = flagship(args.dim, port=args.port)
     elif args.config == "batch":

@@ -13,6 +13,14 @@ unpacked with `git archive`), so that two trees are compared in one call,
 in turns (parent, change, change, parent):
 
     python tools/main_path_time.py [--root DIR] [--reps N] [--shading]
+        [--aggregate]
+
+``--aggregate`` also times the main path's SGM kernels alone:
+`cuda_agg.aggregate_batch` on a seeded [2, 1440, 1696, 128] volume (the
+shape and the INVALID band of `chip_smoke.py`'s phase 3), the median of
+20 CUDA-event runs after a warm-up, with its launches by kernel and a
+checksum of its result, so that two trees' kernels are compared bit for
+bit as well as by time.
 """
 
 from __future__ import annotations
@@ -41,6 +49,40 @@ def _runs(bench_main, fn, dim: int, reps: int, label: str) -> None:
         }), flush=True)
 
 
+def _aggregate(label: str) -> None:
+    import torch
+
+    from smvs_tpu_torch.sgm import cuda_agg
+    from smvs_tpu_torch.sgm.stereo import INVALID_COST
+
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    shape = (2, 1440, 1696, 128)
+    cost = torch.randint(0, 127, shape, generator=g, device="cuda",
+                         dtype=torch.int16)
+    inten = torch.randint(0, 256, shape[:-1], generator=g, device="cuda",
+                          dtype=torch.int32)
+    cost[0, :, 1440:] = INVALID_COST
+    inten[0, :, 1440:] = 0
+    cuda_agg.reset_launches()
+    out = cuda_agg.aggregate_batch(cost, inten, 6, 96)
+    kernels = {k: v for k, v in cuda_agg.kernel_launches.items() if v}
+    checksum = int(out.to(torch.int64).sum())
+    times = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cuda_agg.aggregate_batch(cost, inten, 6, 96)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    print(json.dumps({"root": label, "path": "aggregate_batch",
+                      "shape": list(shape), "ms": times[len(times) // 2],
+                      "kernels": kernels, "checksum": checksum}),
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(
@@ -48,6 +90,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--dim", type=int, default=1440)
     ap.add_argument("--shading", action="store_true")
+    ap.add_argument("--aggregate", action="store_true",
+                    help="also time aggregate_batch on the main path's "
+                         "volume")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -57,6 +102,8 @@ def main() -> int:
     from smvs_tpu_torch import bench_main
 
     label = os.path.basename(os.path.abspath(args.root))
+    if args.aggregate:
+        _aggregate(label)
     _runs(bench_main, bench_main.run_once, args.dim, args.reps, label)
     if args.shading:
         _runs(bench_main, bench_main.run_shading_once, args.dim, args.reps,
