@@ -17,11 +17,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    four launches timed on its own (horizontal write and add, the two
    vertical sweeps), and one in-place straight sweep at its horizontal
    launch through `sgm_line_kernel` and through `sgm_path_kernel` (the
-   route row 2 took before), in turns, both bit-equal to plain;
+   same ring design walking a chain), in turns, both bit-equal to plain;
 4. kernel rows 3-5 the same way at the general path's per-direction shape
    [1440, 1440, 128]: `aggregate` (4 launches) and `fused_pass_bidir` (2
    launches, row 3), `fused_pass(loop=True)` (row 4), `scan_direction` on
-   int32 costs above 2^15 (row 5); then `aggregate_batch` on [1, 8, W, 16]
+   int32 costs above 2^15 with shifts 0, 1 and -1 (row 5,
+   `sgm_path_kernel`); then `aggregate_batch` on [1, 8, W, 16]
    with W one tile more than the vertical sweep kernel's resident blocks
    hold, whose vertical sweeps take one `sgm_path_kernel` launch per path,
    bit-equal to plain;
@@ -64,7 +65,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    per sweep with 1440 lines resident); every entry point at D = 16384 on
    a small volume (straight sweeps on `sgm_deep_sweep_kernel`, diagonal
    ones on `sgm_deep_kernel`'s 32-warp form, as planned), bit-equal; and
-   D = 16385 raising before any launch;
+   D = 16385 raising before any launch; row 5 at every D on [640, 640, D]
+   (`sgm_path_kernel` to 512, `sgm_deep_kernel` beyond), shift 1, timed
+   beside its bound and bit-equal on every run;
 10. the shading-aware flagship: `bench_main.run_shading_once(1440, 2)`
    once to warm up, once timed with the kernel's launch counts (rows 1-2
    > 0), and once with its stages synchronized for their split and its
@@ -82,13 +85,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    features), then `--no-sgm -S -g` in the same directory; no kernel
    launch, color points, and limits from the JAX CLI on the same
    configuration (`tools/jax_cpu_reference.py color`);
-13. the CLI on the gray scene of phase 7 with `--full-opt -m` (row 1-2
-   launches, a triangle mesh whose points, faces and error are held to
-   limits from `tools/jax_cpu_reference.py fullopt`), then `-m -y -l 0-1`
-   in the same directory (it skips both views and only fuses them, no
-   launch; the greedy triangulation's mesh has fewer faces than the full
-   one; two views, not four, to keep the run's time), and
-   the simplify tool (`smvs_tpu_torch.tools.simplify`) on the full mesh;
+13. the CLI on a gray 4-view 640 x 640 plane scene (the configuration
+   its limits come from, `tools/jax_cpu_reference.py fullopt --dim 640`;
+   1280^2 took 168 s) with `--full-opt -m` (row 1-2 launches, a triangle
+   mesh whose points, faces and error are held to those limits), then
+   `-m -y` in the same directory (it skips the views and only fuses them,
+   no launch; the greedy triangulation's mesh has fewer faces than the
+   full one), and the simplify tool (`smvs_tpu_torch.tools.simplify`) on
+   the full mesh;
 14. view batching: the CLI with its defaults (`--batch-views 4`) on 8 views
    of the JAX repository's DTU-scale camera grid (`make_dtu_scene`), their
    sizes alternating 1440 and 1280 as `bench_dtu.py` mixes them: input
@@ -124,8 +128,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    view on every rank bit-equal to the unsharded batch of phase 14;
    optimize seconds, host read-backs and peak memory per rank; (c) the
    scaling harness (`dist.scaling.measure`) at 1 and 2 ranks on
-   `make_view_batch(dim=116)`, ranks sharing the card. A rank that fails
-   or outlasts its timeout stops the others and fails the phase;
+   `make_view_batch(dim=116)`, ranks sharing the card. (a) on 2 ranks,
+   (b) and (c) at 2 ranks run on one spawn of 2 ranks, (a) on 4 ranks on
+   one of 4 (a spawn's start costs 15-25 s). A rank that fails or
+   outlasts its timeout stops the others and fails the phase;
 16. the row-split pipeline (`optimize_view_batch` over a mesh whose
    'patch' axis splits each view's node rows: band assembly, band
    multigrid, halo stencil products, summed dots), gloo ranks sharing the
@@ -139,16 +145,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    mesh against phase 14's unsharded batch, under the CLI's options: per
    view the coverage apart by < 0.5% of the pixels and the median error
    on the analytic depth at most twice the unsharded map's; (c)
-   `dist.dryrun.dryrun_multichip` at 2 and 4 ranks (a 'patch' axis of
-   2). Every rank must hold the same bits of every depth map. Per mesh
+   the dry run of `dist.dryrun.dryrun_multichip` at 2 and 4 ranks (a
+   'patch' axis of 2), on (a)'s and (b)'s spawns, with its checks. Every
+   rank must hold the same bits of every depth map. Per mesh
    and rank: optimize seconds, peak memory, host read-backs, and the
    collectives (halo exchanges, all-reduces, all-gathers) per PCG
    iteration;
 17. what users and a benchmark run beyond the CLI: (a) the benchmark
    driver `smvs_tpu_torch.bench` (`bench.py`'s counterpart) at 1440 with
-   3 passes: the main path's bars (coverage >= 0.84, median relative
-   error <= 1e-4) and the flagship's (>= 0.85, <= 1e-2), MP/s median, min
-   and max; (b) `smvs_tpu_torch.bench_scene` at its defaults (10 plane
+   one pass after its warm-up (`bench`'s default is 3): the main
+   path's bars (coverage >= 0.84, median relative error <= 1e-4) and the
+   flagship's (>= 0.85, <= 1e-2), MP/s; (b) `smvs_tpu_torch.bench_scene` at its defaults (10 plane
    views of 720^2, groups of 5) and (c) `smvs_tpu_torch.bench_dtu` on 10
    views of the DTU grid at scale 0 (7 of 1440^2, 3 of 1280^2, two shape
    buckets) in a fresh directory, cold then warm: each at least 90% of
@@ -159,8 +166,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    plain on its volume, the depth map within limits from the JAX
    package's cost-interpolated SGM (`tools/jax_cpu_reference.py
    costinterp`), and its t_sgm beside the default cost's, in turns;
-   (e) the CLI with `-d 2 -S` on a 4-view 320^2 plane scene: every view
-   run alone, the debug images of the JAX CLI in every view, finite. The
+   (e) the CLI with `-d 2 -S -l 0-1` on a 4-view 320^2 plane scene: each
+   of the two views run alone, the debug images of the JAX CLI in both,
+   finite. The
    kernel rows 1-2 launch on (a)-(e), each path's counts set to 0 just
    before it and read just after;
 18. the autodiff oracle (`gn.GNOptions(analytic=False)`): the final
@@ -187,7 +195,8 @@ every phase's seconds, the card's name and power limit again, one
 `{"kernels": [...]}` line with the five TPU kernel rows, each naming the
 CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
 `sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
-5), the 129-512 route (`sgm_line_kernel` + `sgm_sweep3_kernel` at 8 and
+5, whose entry lists its time, bound and share of the bound at every
+shape timed: `by_shape`), the 129-512 route (`sgm_line_kernel` + `sgm_sweep3_kernel` at 8 and
 16 depths a lane), timed on `aggregate` at D = 256 with its launches
 from phase 6's run at 256 planes, `sgm_deep_sweep_kernel`, which serves
 every sweep of distinct shifts beyond 512 depths, timed on `aggregate`
@@ -311,13 +320,15 @@ COLOR_SHADING_MAX_ERR = 1.5e-2
 # needs a few in each node's window.
 CLI_DIM = 1280  # the CLI scenes' views: 4 x 1280^2
 COLOR_FEATURES = round(200 * (CLI_DIM / 160) ** 2)
-# Limits of the CLI with --full-opt -m on 4 x 1280^2, from the JAX CLI on
-# the same configuration at dim 640 on the CPU
-# (`tools/jax_cpu_reference.py fullopt --dim 640`; PERF.md): 1,424,205
-# vertices (0.8693 per pixel), 2,838,597 faces (1.7326 per pixel), median
-# fused error 1.086e-4. 80% of its vertices and faces per pixel, three
-# times its error. Its -m -y run gives 0 vertices and 0 faces (the greedy
-# triangulation of maps without depth at the image corners; ROADMAP.md).
+# Limits of the CLI with --full-opt -m on 4 x 640^2, from the JAX CLI on
+# the same configuration on the CPU (`tools/jax_cpu_reference.py fullopt
+# --dim 640`; PERF.md): 1,424,205 vertices (0.8693 per pixel), 2,838,597
+# faces (1.7326 per pixel), median fused error 1.086e-4. 80% of its
+# vertices and faces per pixel, three times its error. Its -m -y run gives
+# 0 vertices and 0 faces (the greedy triangulation of maps without depth
+# at the image corners; ROADMAP.md). Phase 13 ran these on 4 x 1280^2
+# until its time was cut; 640^2 is the configuration the limits come from.
+MESH_DIM = 640
 FULLOPT_MIN_POINT_SHARE = 0.69
 FULLOPT_MIN_FACE_SHARE = 1.38
 FULLOPT_MAX_ERR = 3.3e-4
@@ -344,6 +355,7 @@ DIST_MESHES = ((2, 1), (1, 2), (2, 2))
 DIST_RTOL, DIST_ATOL = 2e-3, 5e-5  # the JAX multihost worker's, at dim 116
 DIST_F64_RATIO = 2.0  # sharded vs single float32, each against float64
 DIST_TIMEOUT = 300.0
+DIST_SCALING_DIM = 116  # (c)'s make_view_batch(dim=...)
 # Phase 16: (a)'s fixed-step run takes the JAX dry run's six Newton steps
 # a loop; every spawn's time limit.
 SPLIT_FIXED_STEPS = 6
@@ -370,6 +382,9 @@ DRIVER_MAX_ERR_FACTOR = 3.0
 SCENE_JAX_CPU = (0.9046, 2.1e-5)
 DTU_JAX_CPU = (0.9447, 3.28e-4)
 DTU_VIEWS = 10
+# (a)'s passes after its warm-up (`bench`'s default is 3; one keeps the
+# run's time; the bars are held on that pass).
+BENCH_PASSES = 1
 # The JAX package's TPU records, a class check printed beside (b) and (c):
 # `bench_scene_r5.json` and `BENCH_DTU_r5.json` (49 views).
 SCENE_TPU_RECORD = (0.9046, 2.1e-5)
@@ -384,6 +399,7 @@ COST_INTERP_MAX_ERR = 3.8e-3
 # (e): the CLI with -d 2 -S on 4 plane views of this size; the debug
 # images the JAX CLI writes there.
 DEBUG_DIM = 320
+DEBUG_VIEWS = "0-1"  # the views -d 2 -S reconstructs, of 4
 DEBUG_IMAGES = ("smvs-sgm-filtered", "smvs-initial", "smvs-shaded",
                 "smvs-shaded-sphere", "smvs-implicit-albedo")
 
@@ -717,16 +733,16 @@ def phase_kernel_general() -> dict:
             acc_in=True),
     }
     rows["fused_pass_bidir"]["aggregate"] = agg
-    # Row 5 in int32, costs above 2^15 (as the TPU kernel's tests use).
+    # Row 5 in int32, costs above 2^15 (as the TPU kernel's tests use);
+    # shift 0 is the row's entry, the diagonals beside it.
     cost32 = cost.to(torch.int32) * 300
     del cost, acc
-    for shift in (0, 1, -1):
-        rows["scan_direction"] = compare(
-            f"scan_direction shift {shift} (row 5)",
-            lambda: cuda_agg.scan_direction(cost32, inten, shift, P1, P2),
-            lambda: cuda_agg.plain_scan_direction(cost32, inten, shift, P1,
-                                                  P2),
-            acc_in=False, elem=4)
+    shifts = {shift: compare(
+        f"scan_direction shift {shift} (row 5)",
+        lambda: cuda_agg.scan_direction(cost32, inten, shift, P1, P2),
+        lambda: cuda_agg.plain_scan_direction(cost32, inten, shift, P1, P2),
+        acc_in=False, elem=4) for shift in (0, 1, -1)}
+    rows["scan_direction"] = {**shifts[0], "shifts": shifts}
     return rows
 
 
@@ -952,11 +968,13 @@ def phase_cli_color() -> dict:
 
 
 def phase_cli_mesh() -> dict:
-    """The CLI on the gray 4-view 1280^2 plane scene with `--full-opt -m`,
-    then `-m -y` on views 0 and 1 in the same directory (both skipped,
-    only the fusion into greedy simplified meshes, which took 104 s for
-    all four), then the simplify tool on the full mesh."""
-    scene = syn.make_plane_scene(n_views=4, dim=CLI_DIM)
+    """The CLI on a gray 4-view plane scene of MESH_DIM^2 with `--full-opt
+    -m`, then `-m -y` in the same directory (every view skipped, only the
+    fusion into greedy simplified meshes), then the simplify tool on the
+    full mesh. At 1280^2 the three took 168 s: `-m -y` alone 88 s on two
+    of the views and 166 s on one (uncut maps take longer), the simplify
+    tool 55 s on the 11.4 million faces."""
+    scene = syn.make_plane_scene(n_views=4, dim=MESH_DIM)
     with tempfile.TemporaryDirectory() as path:
         syn.save_as_mve_scene(scene, path)
         full = run_cli("cli --full-opt -m", path, scene, ("--full-opt", "-m"),
@@ -965,9 +983,9 @@ def phase_cli_mesh() -> dict:
                        FULLOPT_MIN_FACE_SHARE, embedding="smvs-B0")
         kept = os.path.join(path, "full-mesh.ply")
         shutil.copy(os.path.join(path, "smvs-m-B0.ply"), kept)
-        simple = run_cli("cli -m -y", path, scene, ("-m", "-y", "-l", "0-1"),
+        simple = run_cli("cli -m -y", path, scene, ("-m", "-y"),
                          "smvs-m-B0.ply", ())
-        if "Skipping 2 views that are already reconstructed." not in \
+        if "Skipping 4 views that are already reconstructed." not in \
                 simple["text"]:
             raise RuntimeError("cli -m -y: the views were reconstructed "
                                "again")
@@ -1608,8 +1626,18 @@ def _dist_pipeline_rank(rank: int, world: int, dev: torch.device,
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
 
 
-def phase_dist_step(root: str) -> dict:
-    """Phase 15(a): the sharded step against the single-process one."""
+def _tasks_rank(rank: int, world: int, dev: torch.device,
+                tasks: list) -> list:
+    """Several rank functions on one spawn of ranks, in turn, each as
+    `launch.spawn` would run it alone; their results in order. A spawn
+    costs its ranks' start (15-25 s on one card: the process, the imports,
+    the first CUDA set-up), so the work of one world size shares one."""
+    return [fn(rank, world, dev, *args) for fn, args in tasks]
+
+
+def _dist_refs(root: str) -> tuple:
+    """Phase 15(a)'s problems, saved under ``root`` for the ranks, and the
+    single-process steps they are held to."""
     refs, paths, single = {}, [], {}
     for dim, scale in DIST_STEPS:
         template, batch = make_view_batch(4, dim=dim, scale=scale,
@@ -1635,67 +1663,58 @@ def phase_dist_step(root: str) -> dict:
         refs[path] = (dim, ref.cpu(), ref64.cpu(), batch["nodes"].cpu())
         del template, batch, args, ref, t64, b64, ref64
         torch.cuda.empty_cache()
-    rows, spawn_seconds = [], {}
-    for world, patch_axes in ((2, (1, 2)), (4, (2,))):
-        t0 = time.perf_counter()
-        outs = launch.spawn(
-            _dist_step_rank, world, backend="gloo", device="cuda",
-            store_path=os.path.join(root, f"store_step{world}"),
-            args=(paths, patch_axes), timeout=DIST_TIMEOUT)
-        spawn_seconds[world] = time.perf_counter() - t0
-        for rank, entries in enumerate(outs):
-            for e in entries:
-                dim, ref, ref64, nodes0 = refs[e["path"]]
-                p = e["patch"]
-                s, b = e["share"], e["band"]
-                idx = (slice(s.start, s.stop), slice(b.start, b.stop))
-                got, want, w64 = e["shard"], ref[idx], ref64[idx]
-                diff = (got - want).abs()
-                row = {"dim": dim, "mesh": (world // p, p), "rank": rank,
-                       "views": list(s), "rows": [b.start, b.stop],
-                       "seconds": e["seconds"],
-                       "max_memory_allocated": e["max_memory_allocated"],
-                       "max_abs_err": float(diff.max()),
-                       "outside_jax_bar": float((diff > DIST_ATOL + DIST_RTOL
-                                                 * want.abs()).float().mean()),
-                       "err_vs_f64": float((got.double() - w64).abs().max()),
-                       "single_err_vs_f64":
-                           float((want.double() - w64).abs().max()),
-                       "update": float((got - nodes0[idx]).abs().max())}
-                rows.append(row)
-                log(f"  dist step {row}")
-                if p == 1:
-                    if not torch.equal(got, want):
-                        raise RuntimeError(f"dist step {row['mesh']}: not "
-                                           "bit-equal to the single process")
-                    continue
-                if not row["update"] > 0:
-                    raise RuntimeError(f"dist step: no update: {row}")
-                if dim == DIST_STEPS[0][0]:
-                    ok = torch.allclose(got, want, rtol=DIST_RTOL,
-                                        atol=DIST_ATOL)
-                else:
-                    ok = row["err_vs_f64"] <= \
-                        DIST_F64_RATIO * row["single_err_vs_f64"]
-                if not ok:
-                    raise RuntimeError(f"dist step out of its bar: {row}")
-    return {"single": single, "meshes": rows, "spawn_seconds": spawn_seconds}
+    return refs, paths, single
 
 
-def phase_dist_pipeline(root: str, captured: list) -> dict:
-    """Phase 15(b): phase 14's batched 720^2 group over a (2, 1) mesh."""
-    group = next(g for g in captured
-                 if [m.view_id for m in g["mains"]] == [0, 2, 4, 6])
-    path = os.path.join(root, "group.pt")
-    torch.save(group, path)
-    t0 = time.perf_counter()
-    outs = launch.spawn(_dist_pipeline_rank, 2, backend="gloo",
-                        device="cuda",
-                        store_path=os.path.join(root, "store_pipeline"),
-                        args=(path,), timeout=DIST_TIMEOUT)
+def _dist_step_rows(refs: dict, outs: list) -> list:
+    """Phase 15(a): each rank's shard of each mesh's step (``outs``, per
+    rank) against the single-process step, within its bar."""
+    rows = []
+    world = len(outs)
+    for rank, entries in enumerate(outs):
+        for e in entries:
+            dim, ref, ref64, nodes0 = refs[e["path"]]
+            p = e["patch"]
+            s, b = e["share"], e["band"]
+            idx = (slice(s.start, s.stop), slice(b.start, b.stop))
+            got, want, w64 = e["shard"], ref[idx], ref64[idx]
+            diff = (got - want).abs()
+            row = {"dim": dim, "mesh": (world // p, p), "rank": rank,
+                   "views": list(s), "rows": [b.start, b.stop],
+                   "seconds": e["seconds"],
+                   "max_memory_allocated": e["max_memory_allocated"],
+                   "max_abs_err": float(diff.max()),
+                   "outside_jax_bar": float((diff > DIST_ATOL + DIST_RTOL
+                                             * want.abs()).float().mean()),
+                   "err_vs_f64": float((got.double() - w64).abs().max()),
+                   "single_err_vs_f64":
+                       float((want.double() - w64).abs().max()),
+                   "update": float((got - nodes0[idx]).abs().max())}
+            rows.append(row)
+            log(f"  dist step {row}")
+            if p == 1:
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"dist step {row['mesh']}: not "
+                                       "bit-equal to the single process")
+                continue
+            if not row["update"] > 0:
+                raise RuntimeError(f"dist step: no update: {row}")
+            if dim == DIST_STEPS[0][0]:
+                ok = torch.allclose(got, want, rtol=DIST_RTOL,
+                                    atol=DIST_ATOL)
+            else:
+                ok = row["err_vs_f64"] <= \
+                    DIST_F64_RATIO * row["single_err_vs_f64"]
+            if not ok:
+                raise RuntimeError(f"dist step out of its bar: {row}")
+    return rows
+
+
+def _dist_pipeline_check(group: dict, outs: list) -> dict:
+    """Phase 15(b): phase 14's batched 720^2 group over a (2, 1) mesh
+    (``outs``, per rank), every view bit-equal to the unsharded batch."""
     out = {"views": [m.view_id for m in group["mains"]],
            "dims": list(group["mains"][0].image.shape),
-           "spawn_seconds": time.perf_counter() - t0,
            "ranks": [{**o, "share": list(o["share"])} for o in outs]}
     log(f"  dist pipeline: {out}")
     if [i for o in outs for i in o["share"]] != [0, 1, 2, 3]:
@@ -1707,27 +1726,50 @@ def phase_dist_pipeline(root: str, captured: list) -> dict:
     return out
 
 
-def phase_dist_scaling() -> dict:
-    """Phase 15(c): the scaling harness at 1 and 2 ranks on this card."""
-    thr = {n: scaling.measure(n, 2, dim=116, steps=5, backend="gloo",
-                              device="cuda") for n in (1, 2)}
-    eff = thr[2] / (2 * thr[1])
-    log(f"  dist scaling, make_view_batch(dim=116), 2 views a rank, 5 "
-        f"steps: 1 rank {thr[1]:.2f} view-steps/s; 2 ranks sharing one card "
-        f"{thr[2]:.2f} view-steps/s (efficiency {eff:.0%}: the two ranks "
-        "share one card, so this measures sharing, not scaling)")
-    return {"view_steps_per_s": thr, "efficiency": eff,
-            "ranks_per_card": {n: n for n in thr}}
-
-
 def phase_dist(captured: list) -> dict:
-    """Phase 15, the multi-device half, on ranks sharing this card."""
+    """Phase 15, the multi-device half, on ranks sharing this card: one
+    spawn of 2 ranks runs (a) the step over meshes (2, 1) and (1, 2), (b)
+    the pipeline over (2, 1) and (c) the scaling harness's 2-rank step;
+    one of 4 ranks (a) over (2, 2); (c) at 1 rank spawns its own."""
     t0 = time.perf_counter()
     cuda_agg.reset_launches()
     with tempfile.TemporaryDirectory() as root:
-        out = {"step": phase_dist_step(root),
-               "pipeline": phase_dist_pipeline(root, captured),
-               "scaling": phase_dist_scaling()}
+        refs, paths, single = _dist_refs(root)
+        group = next(g for g in captured
+                     if [m.view_id for m in g["mains"]] == [0, 2, 4, 6])
+        group_path = os.path.join(root, "group.pt")
+        torch.save(group, group_path)
+        spawn_seconds, outs = {}, {}
+        for world, tasks in (
+                (2, [(_dist_step_rank, (paths, (1, 2))),
+                     (_dist_pipeline_rank, (group_path,)),
+                     (scaling._step_rank, (2, DIST_SCALING_DIM, 5))]),
+                (4, [(_dist_step_rank, (paths, (2,)))])):
+            t1 = time.perf_counter()
+            outs[world] = launch.spawn(
+                _tasks_rank, world, backend="gloo", device="cuda",
+                store_path=os.path.join(root, f"store_dist{world}"),
+                args=(tasks,), timeout=DIST_TIMEOUT)
+            spawn_seconds[world] = time.perf_counter() - t1
+        out = {"step": {
+            "single": single,
+            "meshes": [r for world in (2, 4) for r in _dist_step_rows(
+                refs, [o[0] for o in outs[world]])],
+            "spawn_seconds": spawn_seconds},
+            "pipeline": _dist_pipeline_check(group,
+                                             [o[1] for o in outs[2]])}
+    # (c): view-steps per second, as `scaling.measure` reckons them.
+    thr = {1: scaling.measure(1, 2, dim=DIST_SCALING_DIM, steps=5,
+                              backend="gloo", device="cuda"),
+           2: 2 * 2 * 5 / max(o[2] for o in outs[2])}
+    eff = thr[2] / (2 * thr[1])
+    log(f"  dist scaling, make_view_batch(dim={DIST_SCALING_DIM}), 2 views "
+        f"a rank, 5 steps: 1 rank {thr[1]:.2f} view-steps/s; 2 ranks "
+        f"sharing one card {thr[2]:.2f} view-steps/s (efficiency {eff:.0%}:"
+        " the two ranks share one card, so this measures sharing, not "
+        "scaling)")
+    out["scaling"] = {"view_steps_per_s": thr, "efficiency": eff,
+                      "ranks_per_card": {n: n for n in thr}}
     out["launches_in_this_process"] = dict(cuda_agg.launches)
     out["seconds"] = time.perf_counter() - t0
     log(f"dist phase: {out['seconds']:.1f} s")
@@ -1773,15 +1815,20 @@ def _split_stats(seconds: float, dev) -> dict:
 def _split_spawn(root: str, name: str, problem: dict, world: int,
                  patch: int) -> tuple:
     """Save ``problem`` and run `_split_rank` on ``world`` ranks sharing
-    the card; every rank must hold the same bits of every depth map.
-    Returns (per-rank outputs, seconds of the spawn)."""
+    the card, and on the same spawn (c), the dry run at ``world`` ranks
+    (`dryrun_check`); every rank must hold the same bits of every depth
+    map. Returns (per-rank outputs, seconds of the spawn)."""
     path = os.path.join(root, f"{name}.pt")
     torch.save(problem, path)
     t0 = time.perf_counter()
-    outs = launch.spawn(_split_rank, world, backend="gloo", device="cuda",
+    both = launch.spawn(_tasks_rank, world, backend="gloo", device="cuda",
                         store_path=os.path.join(root, f"store_{name}"),
-                        args=(path, patch), timeout=SPLIT_TIMEOUT)
+                        args=([(_split_rank, (path, patch)),
+                               (dryrun._rank, ())],),
+                        timeout=SPLIT_TIMEOUT)
     seconds = time.perf_counter() - t0
+    outs = [o[0] for o in both]
+    dryrun_check(world, [o[1] for o in both])
     for key in problem["opts"]:
         for r, o in enumerate(outs[1:], 1):
             for i, (a, b) in enumerate(zip(o[key]["depths"],
@@ -1790,6 +1837,21 @@ def _split_spawn(root: str, name: str, problem: dict, world: int,
                     raise RuntimeError(f"split {name} {key}: rank {r} holds "
                                        f"another depth map of view {i}")
     return outs, seconds
+
+
+def dryrun_check(n: int, outs: list) -> None:
+    """Phase 16(c): `dryrun.dryrun_multichip`'s checks on its ranks'
+    outputs (each row's first rank has held its views to the sequential
+    run's bars): every rank received rank 0's depth maps."""
+    for r, o in enumerate(outs[1:], 1):
+        for i, (a, b) in enumerate(zip(outs[0]["depths"], o["depths"])):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"dry run on {n} ranks: rank {r} received "
+                                   f"another depth map of view {i} than "
+                                   "rank 0")
+    log(f"  dryrun_multichip ok: {n} ranks, mesh={outs[0]['mesh']} "
+        f"views={len(outs[0]['depths'])} "
+        f"depth={tuple(outs[0]['depths'][0].shape)}")
 
 
 def _per_rank(outs: list, key: str) -> list:
@@ -1901,13 +1963,11 @@ def phase_split(details: dict, captured: list) -> dict:
     with tempfile.TemporaryDirectory() as root:
         out = {"main": phase_split_main(root, details),
                "batch": phase_split_batch(root, captured)}
-    out["dryrun"] = {}
-    for n in (2, 4):
-        t1 = time.perf_counter()
-        dryrun.dryrun_multichip(n, device="cuda")
-        out["dryrun"][n] = {"mesh": [n // dryrun.patch_axis(n),
-                                     dryrun.patch_axis(n)],
-                            "seconds": time.perf_counter() - t1}
+    # (c) ran on (a)'s 2 ranks and (b)'s 4.
+    out["dryrun"] = {n: {"mesh": [n // dryrun.patch_axis(n),
+                                  dryrun.patch_axis(n)],
+                         "spawn_seconds": out[k]["spawn_seconds"]}
+                     for n, k in ((2, "main"), (4, "batch"))}
     out["launches_in_this_process"] = dict(cuda_agg.launches)
     out["seconds"] = time.perf_counter() - t0
     log(f"split phase: {out['seconds']:.1f} s; dry runs {out['dryrun']}")
@@ -1936,9 +1996,11 @@ def _against_jax_cpu(label: str, res: dict, ref: tuple, record: tuple
 
 
 def phase_bench() -> dict:
-    """Phase 17(a): the `bench.py` driver at 1440, 3 passes."""
+    """Phase 17(a): the `bench.py` driver at 1440, one pass after its
+    warm-up (each about 14 s: run_once and the flagship)."""
     cuda_agg.reset_launches()
-    res = bench_driver.run(dim=1440, min_scale=2, passes=3, device="cuda")
+    res = bench_driver.run(dim=1440, min_scale=2, passes=BENCH_PASSES,
+                           device="cuda")
     launches = dict(cuda_agg.launches)
     _rows_launched("bench", launches)
     for key, (min_cov, max_err) in (("base", (0.84, 1e-4)),
@@ -2050,14 +2112,16 @@ def phase_cost_interp() -> dict:
 
 
 def phase_debug_cli() -> dict:
-    """Phase 17(e): the CLI with -d 2 -S on 4 plane views of 320^2."""
+    """Phase 17(e): the CLI with -d 2 -S on views 0 and 1 (`-l 0-1`) of 4
+    plane views of 320^2 (each view about 7 s, run alone)."""
     scene = syn.make_plane_scene(n_views=4, dim=DEBUG_DIM)
     with tempfile.TemporaryDirectory() as path:
         syn.save_as_mve_scene(scene, path)
-        res = run_cli("cli -d 2 -S", path, scene, ("-d", "2", "-S"),
-                      "smvs-S0.ply", ("fused_pass", "fused_pass_batch"),
-                      embedding="smvs-S0")
-        views = sc.Scene.load(path).views
+        res = run_cli("cli -d 2 -S", path, scene,
+                      ("-d", "2", "-S", "-l", DEBUG_VIEWS), "smvs-S0.ply",
+                      ("fused_pass", "fused_pass_batch"))
+        views = [v for v in sc.Scene.load(path).views
+                 if v.view_id in cli.parse_view_list(DEBUG_VIEWS, 4)]
         for v in views:
             for name in (*DEBUG_IMAGES, "smvs-S0"):
                 if not v.has_embedding(name):
@@ -2252,6 +2316,22 @@ def wide_kernel_entry(rows: dict, general: dict) -> dict:
     }
 
 
+def row5_by_shape(rows: dict) -> dict:
+    """Row 5's times beside their bounds at every shape this run timed it:
+    [1440, 1440, 128] with shifts 0, 1 and -1 (phase 4) and [640, 640, D]
+    with shift 1 (phase 9; `sgm_deep_kernel` beyond 512 depths)."""
+    r = rows["scan_direction"]
+    runs = {f"{GEN_SHAPE} shift {s}": (v, "sgm_path_kernel")
+            for s, v in r["shifts"].items()}
+    runs.update({f"({DEEP_HW}, {DEEP_HW}, {D}) shift 1": (
+        r["deep"][D]["sweep"], cuda_agg.KERNELS[cuda_agg.path_kernel(D)])
+        for D in DEEP})
+    return {k: {"kernel": kernel, "ms": v["ms"], "bound_ms": v["bound_ms"],
+                "share_of_bound": v["bound_ms"] / v["ms"],
+                "bit_equal_runs": v["bit_equal_runs"]}
+            for k, (v, kernel) in runs.items()}
+
+
 def deep_kernel_entries(rows: dict) -> list:
     """The kernels line's entries of the two deep kernels, from phase 9's
     results in ``rows``. No user path sets more than 512 planes.
@@ -2392,6 +2472,7 @@ def main() -> int:
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
         })
+    kernels[-1]["by_shape"] = row5_by_shape(rows)
     kernels.append(wide_kernel_entry(rows, general))
     kernels += deep_kernel_entries(rows)
     print(json.dumps({"flagship": shading}), flush=True)

@@ -28,7 +28,7 @@
 // - sgm_path_kernel: row 5, and one launch per path of a sweep that the
 //   other two cannot take (a repeated shift, in any row; or a problem
 //   wider than the resident blocks of sgm_sweep3_kernel), up to 512
-//   depths;
+//   depths; it is the line kernel's design walking a chain;
 // - sgm_deep_sweep_kernel: every sweep of distinct shifts at more than 512
 //   depths (up to 16384), one launch per sweep: a straight-only sweep over
 //   any number of problems, one with a diagonal per chunk of problems
@@ -63,14 +63,15 @@
 // and its output `out` are separate arguments: acc == out adds in place,
 // acc != out writes acc + path elsewhere (no copy of acc first), and a
 // null acc writes the path cost itself (no zeroed volume, no accumulator
-// read). sgm_path_kernel, which served this sweep before, was paced by
-// load latency: one position in flight per warp (a one-step register
-// prefetch), about 1.6 us a step against the bytes' 0.66. Here each warp
-// fills a private ring of kLineStages scan positions (cost and
-// accumulator) in shared memory kLineStages - 1 steps ahead with cp.async
-// 16-byte pieces (lanes 0-15 the cost, 16-31 the accumulator at D = 128):
-// 15 positions, 7.5 KB, in flight per warp (3.75 KB with no accumulator),
-// 80 to 160 KB per SM at the paths' shapes. The ring is private to its
+// read). A walk that loads the next position into registers a step ahead
+// keeps one position in flight per warp and is paced by load latency,
+// about 1.6 us a step against the bytes' 0.66. Here each warp
+// (walk_chain, which sgm_path_kernel shares) fills a private ring of
+// kLineStages scan positions (cost and accumulator) in shared memory
+// kLineStages - 1 steps ahead with cp.async 16-byte pieces (lanes 0-15
+// the cost, 16-31 the accumulator at D = 128): 15 positions, 7.5 KB, in
+// flight per warp (3.75 KB with no accumulator), 80 to 160 KB per SM at
+// the paths' shapes. The ring is private to its
 // warp, so __syncwarp orders it and no step waits on a block barrier.
 // The int32 intensities are read 32 steps at a time, one per lane, and
 // handed out by a shuffle; min(prev) is one redux.sync instruction and
@@ -125,25 +126,37 @@
 //   edge line are [K][32] words (line_word), so a warp's access of one
 //   depth per lane touches 32 consecutive words: no bank conflicts in
 //   shared memory, coalesced in device memory. The ring keeps 4 positions
-//   at K = 8 and 3 at K = 16, so 16 and 14 lines fit a block (137 and 213
+//   at K = 8 and 3 at K = 16, so 16 and 14 lines fit a block (139 and 215
 //   KB); 1440 lines (the general path's [1440, 1440, 256]) take 11 a
 //   block on 131 SMs. Unaligned runs fill the ring with copy_words, as
 //   the line kernel does; each depth's step is sgm_step. The K <= 4
 //   instantiations keep kTile lines a block, two blocks an SM and their
 //   layout, byte for byte.
 //
-// sgm_path_kernel: one warp walks one chain of one path (a straight chain
-// is a line; a diagonal chain walks (x, l0 + s*k) from x = 0 or from the
-// border line), so no two warps share a carried line and no
-// synchronisation is needed; one launch per path and direction. Storage
-// is a template parameter: int16 adding into `out` in place (rows 1-3 on
-// the wide-problem route and for a repeated shift), or int32 writing the
-// path cost (row 5, whose costs exceed int16). The next position is
-// loaded one step ahead, one position in flight per warp: at 129-512
-// depths, where it took every sweep until the line and sweep kernels took
-// K = 8 and 16, that is latency-bound, about 1.3 us a step.
+// sgm_path_kernel: one launch per path and direction, one warp per chain
+// (a straight chain is a line; a diagonal chain walks (x, l0 + s*k) from
+// x = 0 or from the border line), so no two warps share a carried line and
+// no warp waits on another. Storage is a template parameter: int16 adding
+// into `out` in place (rows 1-3 for a repeated shift and on the
+// wide-problem route), int16 writing the path cost (the first launch of
+// an 8-path sum on the per-path route), or int32 writing it (row 5, whose
+// costs exceed int16). It is sgm_line_kernel's design with a chain's
+// addressing: every address of a chain is known in advance (position t
+// lies t * (vx + shift * vl) past the first), so both kernels walk their
+// chains with walk_chain, a private ring of scan positions filled by
+// cp.async S - 1 steps ahead. Its ring is sized in bytes (PathRing, 4 KB
+// a warp at every K and element size), its rows padded for an odd
+// start's word and filled in 16-byte pieces where every run is aligned
+// and otherwise, at every K, with the 4-byte words that cover each run.
+// Measured (PERF.md, tools/deep_pace.py --probe-path), what paces it is
+// each SM's share of the work, not the ring's depth: a block is one warp,
+// so a launch's chains spread evenly over the SMs, and where a lane's run
+// is wider than 16 bytes (int16 at K = 16, int32 at K >= 8) the result
+// goes out through the ring stage just read, consecutive lanes writing
+// consecutive 16-byte pieces, instead of each lane's pieces landing 32 or
+// 64 bytes apart.
 //
-// sgm_deep_kernel: sgm_path_kernel's walk for D > 512, where one warp
+// sgm_deep_kernel: sgm_path_kernel's work for D > 512, where one warp
 // would need more than 16 depths a lane (127 registers a thread at 16; 32
 // would spill). One block walks one chain with W = ceil(D / 512) warps,
 // each holding 512 consecutive depths, 16 a lane, so W <= 32 at the
@@ -157,8 +170,8 @@
 // slot's last values has passed. Every warp of a block walks the same
 // chain, so all reach every barrier, a ragged last warp (D % 512 != 0)
 // too: its lanes past D hold BIG, as in the other kernels. Up to 8 warps
-// (D <= 4096) the block loads the next position one step ahead, as
-// sgm_path_kernel does; beyond that, 9 to 32 warps, a thread may hold 64
+// (D <= 4096) the block loads the next position one step ahead into
+// registers; beyond that, 9 to 32 warps, a thread may hold 64
 // registers (1024 threads), so it loads each position at its step and the
 // accumulator only after the recurrence (ptxas: no spills in any form). The
 // recurrence and its integer arithmetic are those of the other kernels,
@@ -242,7 +255,6 @@
 namespace {
 
 constexpr int kBig = 1 << 24;
-constexpr int kWarpsPerBlock = 8;   // sgm_path_kernel
 // Lines (one warp each) per sweep block: every block's at K <= 4, the most
 // a block holds at K = 8 and 16 (Sweep3).
 constexpr int kTile = 16;
@@ -257,9 +269,10 @@ constexpr int kDeepK = kPathMaxD / 32;
 constexpr int kDeepMaxWarps = 32;
 constexpr int kDeepMaxD = kPathMaxD * kDeepMaxWarps;
 constexpr int kDeepPrefetchWarps = 8;
-// sgm_line_kernel: warps per block and scan positions in a warp's ring.
-// Small blocks of one line per warp balance the SMs: the main path's
-// horizontal sweep (B = 2 x 1440 lines) is 720 blocks, at most 6 per SM
+// sgm_line_kernel and sgm_path_kernel: warps (one chain each) per block;
+// sgm_line_kernel: scan positions in a warp's ring (sgm_path_kernel sizes
+// its ring in bytes, PathRing). Small blocks balance the SMs: the main
+// path's horizontal sweep (B = 2 x 1440 lines) is 720 blocks, at most 6 per SM
 // against 5.45 on average, and every block is resident at once (each
 // takes 33 KB of shared memory, 128 threads and 64 registers a thread, so
 // 6 fit an SM by shared memory, 8 by registers, 16 by threads: 792 on
@@ -267,21 +280,44 @@ constexpr int kDeepPrefetchWarps = 8;
 // -DSGM_LINE_STAGES=n and times them: 16 positions beat 8 by 6% on the
 // write launch and by 9% at B = 1, and tie 4 over the main path's two
 // horizontal launches (PERF.md).
-constexpr int kLineWarps = 4;
+constexpr int kChainWarps = 4;
 #ifndef SGM_LINE_STAGES
 #define SGM_LINE_STAGES 16
 #endif
 constexpr int kLineStages = SGM_LINE_STAGES;
+// sgm_path_kernel: warps (one chain each) per block; the bytes of what a
+// step reads that a warp's ring keeps in flight (PathRing); and whether a
+// lane's run wider than 16 bytes is written through the ring stage just
+// read, as consecutive 16-byte pieces. tools/deep_pace.py --probe-path
+// builds other values with -D and times them (PERF.md): one warp a block
+// spreads a launch's chains evenly over the SMs (640 chains in blocks of
+// 4 leave 28 SMs twice the warps of the rest), and 4 KB a warp keeps the
+// 2880 chains of a main-path-sized sweep resident at once (32 blocks an
+// SM), as deep as 8 or 32 KB elsewhere; staged writes took row 5 at
+// [640, 640, 512] from 1.28 to 0.86 ms.
+#ifndef SGM_PATH_WARPS
+#define SGM_PATH_WARPS 1
+#endif
+#ifndef SGM_PATH_RING_BYTES
+#define SGM_PATH_RING_BYTES 4096
+#endif
+#ifndef SGM_PATH_STAGE_OUT
+#define SGM_PATH_STAGE_OUT 1
+#endif
+constexpr int kPathWarps = SGM_PATH_WARPS;
+constexpr int kPathRingBytes = SGM_PATH_RING_BYTES;
+constexpr bool kPathStageOut = SGM_PATH_STAGE_OUT != 0;
 constexpr unsigned kFull = 0xffffffffu;
 
 // sgm_line_kernel's ring by depths a lane: rows of 128 depths and
-// kLineStages positions at K <= 4; beyond, rows of 32 K depths and
+// kLineStages positions at K <= 4; beyond, rows of 32 K depths and the
+// word an odd start adds (copy_words), padded to 16 bytes, and
 // kLineStages * 4 / K positions (8 at K = 8, 4 at K = 16), so that a warp
 // keeps the same bytes in flight (8 KB of cost and accumulator) and a
-// block the same 33 KB of shared memory at every D.
+// block about the same 33 KB of shared memory at every D.
 template <int K>
 struct LineRing {
-  static constexpr int kRow = K <= 4 ? 128 : 32 * K;
+  static constexpr int kRow = K <= 4 ? 128 : 32 * K + 8;
   static constexpr int kStages =
       K <= 4 ? kLineStages
              : (kLineStages * 4 / K > 2 ? kLineStages * 4 / K : 2);
@@ -292,7 +328,7 @@ struct LineRing {
 // a block holds up to kTile lines, as many as the wrapper plans from L
 // (cuda_agg.deep_sweep_chunks: one block an SM, a problem's lines spread
 // over all SMs), and the ring 4 or 3 positions, so that 16 lines at K = 8
-// (137 KB) and 14 at K = 16 (213 KB) fit a block's shared memory.
+// (139 KB) and 14 at K = 16 (215 KB) fit a block's shared memory.
 template <int K>
 struct Sweep3 {
   static constexpr bool kFixed = K <= 4;
@@ -546,143 +582,6 @@ __device__ __forceinline__ void poll_edge(const unsigned long long* p,
   } while (!__all_sync(kFull, ok));
 }
 
-// kAdd: out += path (int16); otherwise out = path (int32 for row 5, int16
-// for the first launch of an 8-path sum on the per-path route,
-// cuda_agg.per_path_plan).
-template <typename T, int K, bool kAdd>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    sgm_path_kernel(const T* __restrict__ cost,
-                    const int32_t* __restrict__ inten, T* __restrict__ out,
-                    int B, int X, int L, int D, long long vb, long long vx,
-                    long long vl, long long ib, long long ix, long long il,
-                    int reverse, int shift, int p1, int p2, bool vec) {
-  const int lane = threadIdx.x & 31;
-  const long long n_chains = shift ? static_cast<long long>(L) + X - 1
-                                   : static_cast<long long>(L);
-  const long long warp =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp >= B * n_chains) return;  // whole warp
-  const bool rev = reverse != 0;
-  const long long b = warp / n_chains;
-  const long long c = warp - b * n_chains;
-
-  // Chain start: scan step 0 on line c, or the border line at step c-L+1.
-  int t = 0;
-  int l;
-  if (c < L) {
-    l = static_cast<int>(c);
-  } else {
-    t = static_cast<int>(c - L + 1);
-    l = shift > 0 ? 0 : L - 1;
-  }
-  const T* cb = cost + b * vb;
-  T* ob = out + b * vb;
-  const int32_t* ibase = inten + b * ib;
-  const int p2min = p1 * 3 / 2;
-  const int d0 = lane * K;
-
-  int x = rev ? X - 1 - t : t;
-  long long off = x * vx + l * vl + d0;
-  int cur[K], av[K];
-  load_k<T, K>(cb + off, cur, d0, D, vec);
-  if constexpr (kAdd) load_k<T, K>(ob + off, av, d0, D, vec);
-  int it = ibase[x * ix + l * il];
-
-  int prev[K];
-  int prev_i = 0;
-  bool first = true;
-  while (true) {
-    // Prefetch the next chain position (independent of the recurrence).
-    const int tn = t + 1;
-    const int ln = l + shift;
-    const bool more = tn < X && ln >= 0 && ln < L;
-    int ncur[K], nav[K];
-    int nit = 0;
-    long long noff = 0;
-    if (more) {
-      const int xn = rev ? X - 1 - tn : tn;
-      noff = xn * vx + ln * vl + d0;
-      load_k<T, K>(cb + noff, ncur, d0, D, vec);
-      if constexpr (kAdd) load_k<T, K>(ob + noff, nav, d0, D, vec);
-      nit = ibase[xn * ix + ln * il];
-    }
-
-    int nv[K];
-    if (first) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) nv[k] = cur[k];
-      first = false;
-    } else {
-      min_plus<K>(prev, cur, lane, p1,
-                  max(p2min, p2 / (abs(it - prev_i) + 1)), nv);
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (d0 + k >= D) nv[k] = kBig;
-      prev[k] = nv[k];
-      if constexpr (kAdd) av[k] += nv[k];
-    }
-    if constexpr (kAdd) {
-      store_k<T, K>(ob + off, av, d0, D, vec);
-    } else {
-      store_k<T, K>(ob + off, nv, d0, D, vec);
-    }
-    prev_i = it;
-    if (!more) break;
-    t = tn;
-    l = ln;
-    off = noff;
-    it = nit;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      cur[k] = ncur[k];
-      if constexpr (kAdd) av[k] = nav[k];
-    }
-  }
-}
-
-template <typename T, int K, bool kAdd>
-cudaError_t launch(const void* cost, const void* inten, void* out, int B,
-                   int X, int L, int D, long long vb, long long vx,
-                   long long vl, long long ib, long long ix, long long il,
-                   int reverse, int shift, int p1, int p2,
-                   cudaStream_t stream) {
-  // Vector loads need every position's depth run aligned to K elements.
-  const uintptr_t align = sizeof(T) * K;
-  const bool vec = (K == 2 || K == 4 || K == 8 || K == 16) && D % K == 0 &&
-                   vb % K == 0 && vx % K == 0 && vl % K == 0 &&
-                   reinterpret_cast<uintptr_t>(cost) % align == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % align == 0;
-  const long long n_chains =
-      shift ? static_cast<long long>(L) + X - 1 : static_cast<long long>(L);
-  const long long warps = static_cast<long long>(B) * n_chains;
-  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sgm_path_kernel<T, K, kAdd>
-      <<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(
-          static_cast<const T*>(cost), static_cast<const int32_t*>(inten),
-          static_cast<T*>(out), B, X, L, D, vb, vx, vl, ib, ix, il, reverse,
-          shift, p1, p2, vec);
-  return cudaGetLastError();
-}
-
-template <typename T, bool kAdd>
-cudaError_t launch_k(const void* cost, const void* inten, void* out, int B,
-                     int X, int L, int D, long long vb, long long vx,
-                     long long vl, long long ib, long long ix, long long il,
-                     int reverse, int shift, int p1, int p2,
-                     cudaStream_t s) {
-  switch ((D + 31) / 32) {
-    case 1: return launch<T, 1, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
-    case 2: return launch<T, 2, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
-    case 3: return launch<T, 3, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
-    case 4: return launch<T, 4, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
-    case 5: case 6: case 7: case 8:
-      return launch<T, 8, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
-    default:
-      return launch<T, 16, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
-  }
-}
-
 // One chain of one path per block, W = blockDim.x / 32 warps of 512
 // depths. kAdd as for sgm_path_kernel. kPrefetch: load the next position
 // one step ahead (W <= kDeepPrefetchWarps).
@@ -901,13 +800,19 @@ __device__ __forceinline__ void copy_words(int16_t* dst, const int16_t* src,
 // [parity][+1, -1][lines + 2][32 K] (row w + 1 is warp w's line; rows 0
 // and lines + 1 hold the neighbouring blocks' edge lines, which the edge
 // warps copy in); a ring of S scan positions, int16 [S][lines][cost,
-// acc][32 K]; the intensities of the block's lines and the one line past
-// each end, int32 [S][lines + 2]; P2a by |dI| below 256. At K <= 4 and
-// kTile lines this is the main path's layout, byte for byte. The plan
-// mirrors it (cuda_agg.sweep_smem_bytes).
+// acc][ring_row]: 32 K depths, and at K >= 8 the word that copy_words
+// adds at an odd start, padded to 16 bytes (32 K + 8); the intensities of
+// the block's lines and the one line past each end, int32 [S][lines + 2];
+// P2a by |dI| below 256. At K <= 4 and kTile lines this is the main
+// path's layout, byte for byte. The plan mirrors it
+// (cuda_agg.sweep_smem_bytes).
 struct Sweep3Layout {
   int diag, line, inten, p2a, bytes;
 };
+
+__host__ __device__ inline int sweep3_ring_row(int K) {
+  return K <= 4 ? 32 * K : 32 * K + 8;
+}
 
 __host__ __device__ inline Sweep3Layout sweep3_layout(int lines, int K,
                                                       int S) {
@@ -915,7 +820,7 @@ __host__ __device__ inline Sweep3Layout sweep3_layout(int lines, int K,
   Sweep3Layout s;
   s.diag = 0;
   s.line = 2 * 2 * (lines + 2) * row * 4;
-  s.inten = s.line + S * lines * 2 * row * 2;
+  s.inten = s.line + S * lines * 2 * sweep3_ring_row(K) * 2;
   s.p2a = s.inten + S * (lines + 2) * 4;
   s.bytes = s.p2a + 256 * 4;
   return s;
@@ -953,7 +858,7 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
     return s_diag + ((par * 2 + dir) * (lines + 2) + row) * kRow;
   };
   auto ring = [&](int q, int warp, int which) {
-    return s_line + ((q * lines + warp) * 2 + which) * kRow;
+    return s_line + ((q * lines + warp) * 2 + which) * sweep3_ring_row(K);
   };
   auto inten_at = [&](int q, int i) { return s_inten + q * (lines + 2) + i; };
   const int lane = threadIdx.x & 31;
@@ -1140,14 +1045,17 @@ cudaError_t sweep3_smem(int lines, int* bytes) {
 }
 
 // vec: every lane's depth run of `out` may be written whole (K elements at
-// K = 2 and 4, 16-byte pieces at K >= 8).
-template <int K>
+// K = 2 and 4, 16-byte pieces where a lane's run is a multiple of 16
+// bytes: int16 at K >= 8, int32 at K >= 4).
+template <int K, typename T = int16_t>
 bool sweep_vec(const void* out, int D, long long vb, long long vx,
                long long vl) {
-  if constexpr (K >= 8)
-    return D % 8 == 0 && vb % 8 == 0 && vx % 8 == 0 && vl % 8 == 0 &&
-           reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const uintptr_t align = sizeof(int16_t) * K;
+  if constexpr ((sizeof(T) * K) % 16 == 0) {
+    constexpr int kPer = 16 / sizeof(T);
+    return D % kPer == 0 && vb % kPer == 0 && vx % kPer == 0 &&
+           vl % kPer == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  }
+  const uintptr_t align = sizeof(T) * K;
   return (K == 2 || K == 4) && D % K == 0 && vb % K == 0 && vx % K == 0 &&
          vl % K == 0 && reinterpret_cast<uintptr_t>(out) % align == 0;
 }
@@ -1191,81 +1099,110 @@ cudaError_t sweep3_per_sm(int lines, int* per_sm) {
       per_sm, sgm_sweep3_kernel<K>, lines * 32, smem);
 }
 
-// One straight sweep of B int16 problems: out = acc + path, or out = path
-// where acc is null. acc may be out (in place); no other warp touches a
-// line, and each position is read into the ring before it is written.
-// async16: every depth run is 16-byte aligned and D % 8 == 0, so the ring
-// is filled by cp.async in 16-byte pieces; otherwise by plain loads.
-template <int K>
-__global__ void __launch_bounds__(kLineWarps * 32)
-    sgm_line_kernel(const int16_t* __restrict__ cost,
-                    const int32_t* __restrict__ inten, const int16_t* acc,
-                    int16_t* out, int B, int X, int L, int D, long long vb,
-                    long long vx, long long vl, long long ib, long long ix,
-                    long long il, int reverse, int p1, int p2, bool vec,
-                    bool async16) {
-  constexpr int S = LineRing<K>::kStages;
-  // [warp][stage][cost, acc][d]
-  __shared__ __align__(16) int16_t ring[kLineWarps][S][2][LineRing<K>::kRow];
-  __shared__ int p2a_tab[256];  // P2a by |dI| below 256
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
+// A depth run of n elements from src into a ring row by cp.async, in
+// 4-byte words: at int16 the words that cover it (copy_words), the row then
+// holding the run from element odd_start(src); at int32 a word an element.
+__device__ __forceinline__ void copy_run(int16_t* dst, const int16_t* src,
+                                         int n, const int16_t* end,
+                                         int lane) {
+  const int sc = odd_start(src);
+  copy_words(dst, src - sc, n + sc, end, lane);
+}
+
+__device__ __forceinline__ void copy_run(int32_t* dst, const int32_t* src,
+                                         int n, const int32_t*, int lane) {
+  for (int d = lane; d < n; d += 32) cp_async4(dst + d, src + d);
+}
+
+// Where a ring row filled from src holds its run: element odd_start(src)
+// where copy_run filled an int16 row (kWords, not async16), else 0.
+template <typename T, bool kWords>
+__device__ __forceinline__ int ring_start(const T* src, bool async16) {
+  if constexpr (kWords && sizeof(T) == 2)
+    return async16 ? 0 : odd_start(reinterpret_cast<const int16_t*>(src));
+  return 0;
+}
+
+// One scan position into a warp's ring rows: the cost's run into rc and,
+// where src_a is not null, the accumulator's into ra. async16: every run
+// is 16-byte aligned and D a multiple of 16 bytes, so the lanes take the
+// 16-byte pieces in turn (int16 at D = 128: lanes 0-15 the cost's, 16-31
+// the accumulator's); otherwise, with kWords, the 4-byte words that cover
+// each run (copy_run), which stay in flight as the pieces do, and without,
+// plain loads. Commits no copy group.
+template <typename T, bool kWords>
+__device__ __forceinline__ void fill_run(T* rc, T* ra, const T* src_c,
+                                         const T* src_a, int D, bool async16,
+                                         const T* cend, const T* aend,
+                                         int lane) {
+  if (async16) {
+    constexpr int kPer = 16 / sizeof(T);
+    const int chunks = D / kPer;
+    const int n = src_a == nullptr ? chunks : 2 * chunks;
+    for (int c = lane; c < n; c += 32) {
+      if (c < chunks)
+        cp_async16(rc + c * kPer, src_c + c * kPer);
+      else
+        cp_async16(ra + (c - chunks) * kPer, src_a + (c - chunks) * kPer);
+    }
+  } else if constexpr (kWords) {
+    copy_run(rc, src_c, D, cend, lane);
+    if (src_a != nullptr) copy_run(ra, src_a, D, aend, lane);
+  } else {
+    for (int d = lane; d < D; d += 32) {
+      rc[d] = src_c[d];
+      if (src_a != nullptr) ra[d] = src_a[d];
+    }
+  }
+}
+
+// P2a = max(P1 * 3 / 2, P2 / (|dI| + 1)) for |dI| below 256, by the
+// block's threads; a __syncthreads() must follow.
+__device__ __forceinline__ void fill_p2a(int* tab, int p1, int p2) {
   const int p2min = p1 * 3 / 2;
   for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    p2a_tab[i] = max(p2min, p2 / (i + 1));
-  __syncthreads();  // the only block barrier
-  const long long line =
-      static_cast<long long>(blockIdx.x) * kLineWarps + w;
-  if (line >= static_cast<long long>(B) * L) return;  // whole warp
-  const long long b = line / L;
-  const long long l = line - b * L;
-  const int16_t* cl = cost + b * vb + l * vl;
-  const int16_t* al = acc == nullptr ? nullptr : acc + b * vb + l * vl;
-  const int16_t* cend = cost + B * vb;  // the launch's volumes' ends
-  const int16_t* aend = acc == nullptr ? nullptr : acc + B * vb;
-  int16_t* ol = out + b * vb + l * vl;
-  const int32_t* il0 = inten + b * ib + l * il;
-  const int d0 = lane * K;
-  auto pos = [&](int t) {
-    return static_cast<long long>(reverse ? X - 1 - t : t);
-  };
+    tab[i] = max(p2min, p2 / (i + 1));
+}
 
-  // Ring stage of scan step s, S - 1 steps ahead of its use; one copy
-  // group per step, empty past the end.
+// One chain of one path, walked by one warp (the line and path kernels):
+// n scan positions, position t's depth runs at cc + t * step (the cost),
+// ca + t * step (the accumulator; null: none) and co + t * step (the
+// result), its intensity at ic[t * istep]. Writes co = ca + path, or the
+// path itself where ca is null; ca may be co (in place): no other warp
+// touches the chain's positions, and each is read into the ring before it
+// is written. The path restarts from the raw cost at t = 0.
+// - The ring: S stages of A rows (cost, accumulator) of R elements, the
+//   warp's own, filled by fill_run S - 1 steps ahead (one copy group a
+//   step, empty past the end), so every address of the chain can be in
+//   flight; it is ordered by __syncwarp alone, so no step waits on a block
+//   barrier.
+// - The intensities come 32 steps at a time, one a lane, handed out by a
+//   shuffle; min(prev) is one redux.sync; P2a comes from p2a_tab below 256
+//   (a division above); each depth's step is min_plus's (DPX at K >= 8).
+template <typename T, int K, int S, int A, int R, bool kWords,
+          bool kStageOut = false>
+__device__ __forceinline__ void walk_chain(
+    T* ring, const int* p2a_tab, const T* cc, const T* ca, T* co, int n,
+    long long step, const int32_t* ic, long long istep, int D, int p1,
+    int p2, bool vec, bool async16, const T* cend, const T* aend,
+    int lane) {
+  if (A < 2) ca = nullptr;  // no row for it
+  const int d0 = lane * K;
+  const int p2min = p1 * 3 / 2;
+  auto row = [&](int s, int a) { return ring + ((s % S) * A + a) * R; };
   auto fill = [&](int s) {
-    if (s < X) {
-      int16_t* rc = ring[w][s % S][0];
-      int16_t* ra = ring[w][s % S][1];
-      const long long go = pos(s) * vx;
-      if (async16) {
-        const int chunks = D / 8;
-        const int n = al == nullptr ? chunks : 2 * chunks;
-        for (int c = lane; c < n; c += 32) {
-          if (c < chunks)
-            cp_async16(rc + c * 8, cl + go + c * 8);
-          else
-            cp_async16(ra + (c - chunks) * 8, al + go + (c - chunks) * 8);
-        }
-      } else if constexpr (K >= 8) {
-        const int sc = odd_start(cl + go);
-        copy_words(rc, cl + go - sc, D + sc, cend, lane);
-        if (al != nullptr) {
-          const int sa = odd_start(al + go);
-          copy_words(ra, al + go - sa, D + sa, aend, lane);
-        }
-      } else {
-        for (int d = lane; d < D; d += 32) {
-          rc[d] = cl[go + d];
-          if (al != nullptr) ra[d] = al[go + d];
-        }
-      }
+    if (s < n) {
+      const long long go = s * step;
+      fill_run<T, kWords>(row(s, 0), A > 1 ? row(s, A - 1) : nullptr,
+                          cc + go, ca == nullptr ? nullptr : ca + go, D,
+                          async16, cend, aend, lane);
     }
     cp_async_commit();
   };
   // Intensities of scan steps [32c, 32c + 32), lane j holding step 32c + j.
   auto inten_run = [&](int c) {
     const int s = c * 32 + lane;
-    return s < X ? il0[pos(s) * ix] : 0;
+    return s < n ? ic[s * istep] : 0;
   };
   auto p2a_of = [&](int i_cur, int i_prev) {
     const int d = abs(i_cur - i_prev);
@@ -1276,30 +1213,26 @@ __global__ void __launch_bounds__(kLineWarps * 32)
   int run = inten_run(0), next_run = inten_run(1);
   int prev[K];
   int prev_i = 0;
-  for (int t = 0; t < X; ++t) {
+  for (int t = 0; t < n; ++t) {
     __syncwarp();  // every lane has read the stage of step t - 1
     fill(t + S - 1);  // into that stage
     cp_async_wait<S - 1>();  // this lane's copies for step t
     __syncwarp();  // and every other lane's
-    const int q = t % S;
     if (t > 0 && (t & 31) == 0) {
       run = next_run;
       next_run = inten_run((t >> 5) + 1);
     }
     const int it = __shfl_sync(kFull, run, t & 31);
-    // Where the ring rows hold the run from (copy_words), and whether
-    // this lane's depths there may be read as 16-byte pieces.
-    int sc = 0, sa = 0;
-    if constexpr (K >= 8) {
-      if (!async16) {
-        sc = odd_start(cl + pos(t) * vx);
-        sa = al == nullptr ? 0 : odd_start(al + pos(t) * vx);
-      }
-    }
+    const long long go = t * step;
+    // Where the ring rows hold the run from (copy_run), and whether this
+    // lane's depths there may be read whole.
+    const int sc = ring_start<T, kWords>(cc + go, async16);
+    const int sa =
+        ca == nullptr ? 0 : ring_start<T, kWords>(ca + go, async16);
     int cur[K], av[K], nv[K];
-    load_k<int16_t, K>(ring[w][q][0] + sc + d0, cur, d0, D, sc == 0);
-    if (al != nullptr)
-      load_k<int16_t, K>(ring[w][q][1] + sa + d0, av, d0, D, sa == 0);
+    load_k<T, K>(row(t, 0) + sc + d0, cur, d0, D, sc == 0);
+    if (ca != nullptr)
+      load_k<T, K>(row(t, A - 1) + sa + d0, av, d0, D, sa == 0);
     if (t == 0) {
 #pragma unroll
       for (int k = 0; k < K; ++k) nv[k] = cur[k];
@@ -1310,11 +1243,63 @@ __global__ void __launch_bounds__(kLineWarps * 32)
     for (int k = 0; k < K; ++k) {
       if (d0 + k >= D) nv[k] = kBig;
       prev[k] = nv[k];
-      av[k] = al == nullptr ? nv[k] : av[k] + nv[k];
+      av[k] = ca == nullptr ? nv[k] : av[k] + nv[k];
     }
-    store_k<int16_t, K>(ol + pos(t) * vx + d0, av, d0, D, vec);
+    if (kStageOut && vec) {
+      // Through the stage just read: a lane's own run is wider than 16
+      // bytes, so its 16-byte pieces would land 32 or 64 bytes apart
+      // across the lanes; here consecutive lanes write consecutive pieces.
+      T* st = row(t, 0);
+      __syncwarp();  // every lane has read the stage
+      store_k<T, K>(st + d0, av, d0, D, true);
+      __syncwarp();
+      constexpr int kPer = 16 / sizeof(T);
+      for (int c = lane; c < D / kPer; c += 32)
+        reinterpret_cast<int4*>(co + go)[c] =
+            reinterpret_cast<const int4*>(st)[c];
+    } else {
+      store_k<T, K>(co + go + d0, av, d0, D, vec);
+    }
     prev_i = it;
   }
+}
+
+// One straight sweep of B int16 problems: out = acc + path, or out = path
+// where acc is null; acc may be out (in place). One warp a line, walked by
+// walk_chain from the sweep's first scan position. async16: every depth
+// run is 16-byte aligned and D % 8 == 0, so the ring is filled by cp.async
+// in 16-byte pieces; otherwise by plain loads at K <= 4 and by the 4-byte
+// words that cover each run at K = 8 and 16.
+template <int K>
+__global__ void __launch_bounds__(kChainWarps * 32)
+    sgm_line_kernel(const int16_t* __restrict__ cost,
+                    const int32_t* __restrict__ inten, const int16_t* acc,
+                    int16_t* out, int B, int X, int L, int D, long long vb,
+                    long long vx, long long vl, long long ib, long long ix,
+                    long long il, int reverse, int p1, int p2, bool vec,
+                    bool async16) {
+  constexpr int S = LineRing<K>::kStages;
+  constexpr int R = LineRing<K>::kRow;
+  // [warp][stage][cost, acc][d]
+  __shared__ __align__(16) int16_t ring[kChainWarps][S][2][R];
+  __shared__ int p2a_tab[256];  // P2a by |dI| below 256
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  fill_p2a(p2a_tab, p1, p2);
+  __syncthreads();  // the only block barrier
+  const long long line =
+      static_cast<long long>(blockIdx.x) * kChainWarps + w;
+  if (line >= static_cast<long long>(B) * L) return;  // whole warp
+  const long long b = line / L;
+  const long long l = line - b * L;
+  const long long x0 = reverse ? X - 1 : 0;  // the sweep's first position
+  const long long first = b * vb + x0 * vx + l * vl;
+  walk_chain<int16_t, K, S, 2, R, (K >= 8)>(
+      &ring[w][0][0][0], p2a_tab, cost + first,
+      acc == nullptr ? nullptr : acc + first, out + first, X,
+      reverse ? -vx : vx, inten + b * ib + x0 * ix + l * il,
+      reverse ? -ix : ix, D, p1, p2, vec, async16, cost + B * vb,
+      acc == nullptr ? nullptr : acc + B * vb, lane);
 }
 
 template <int K>
@@ -1329,14 +1314,132 @@ cudaError_t launch_line(const void* cost, const void* inten, const void* acc,
       reinterpret_cast<uintptr_t>(cost) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(acc) % 16 == 0;
   const long long lines = static_cast<long long>(B) * L;
-  const long long blocks = (lines + kLineWarps - 1) / kLineWarps;
+  const long long blocks = (lines + kChainWarps - 1) / kChainWarps;
   sgm_line_kernel<K>
-      <<<static_cast<unsigned>(blocks), kLineWarps * 32, 0, stream>>>(
+      <<<static_cast<unsigned>(blocks), kChainWarps * 32, 0, stream>>>(
           static_cast<const int16_t*>(cost),
           static_cast<const int32_t*>(inten),
           static_cast<const int16_t*>(acc), static_cast<int16_t*>(out), B, X,
           L, D, vb, vx, vl, ib, ix, il, reverse, p1, p2, vec, async16);
   return cudaGetLastError();
+}
+
+// sgm_path_kernel's ring by storage: rows of 32 K elements and the word an
+// odd start adds, a multiple of 16 bytes; as many positions (2 to 32) as
+// hold kPathRingBytes of what a step reads (the cost, and the accumulator
+// where it adds) at every K and element size: at 4 KB, 8 at D = 128
+// adding int16 or writing int32 (16 writing int16), 4 at K = 8, 2 at
+// K = 16 (4 writing int16).
+template <typename T, int K, bool kAdd>
+struct PathRing {
+  static constexpr int kArrays = kAdd ? 2 : 1;
+  static constexpr int kRow = 32 * K + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kStepBytes =
+      32 * K * static_cast<int>(sizeof(T)) * kArrays;
+  static constexpr int kStages =
+      kPathRingBytes / kStepBytes < 2
+          ? 2
+          : (kPathRingBytes / kStepBytes > 32 ? 32
+                                              : kPathRingBytes / kStepBytes);
+};
+
+// One path of B problems in one direction. kAdd: out += path in place
+// (int16); otherwise out = path (int32 for row 5, int16 for the first
+// launch of an 8-path sum on the per-path route, cuda_agg.per_path_plan).
+// Warp (b, c) walks chain c of problem b with walk_chain: c < L from scan
+// step 0 on line c; c >= L (a diagonal's) from step c - L + 1 on the
+// border line (0 for shift +1, L - 1 for -1). A chain ends where the scan
+// does or where its line leaves [0, L): the corners' chains are one
+// position long. async16: every position's runs are 16-byte aligned (the
+// strides, so the diagonal's step vx + shift * vl, too) and D a multiple
+// of 16 bytes: the ring takes 16-byte pieces; otherwise the 4-byte words
+// that cover each run.
+template <typename T, int K, bool kAdd>
+__global__ void __launch_bounds__(kPathWarps * 32)
+    sgm_path_kernel(const T* __restrict__ cost,
+                    const int32_t* __restrict__ inten, T* out, int B, int X,
+                    int L, int D, long long vb, long long vx, long long vl,
+                    long long ib, long long ix, long long il, int reverse,
+                    int shift, int p1, int p2, bool vec, bool async16) {
+  using Ring = PathRing<T, K, kAdd>;
+  // [warp][stage][cost, acc][d]
+  __shared__ __align__(16)
+      T ring[kPathWarps][Ring::kStages][Ring::kArrays][Ring::kRow];
+  __shared__ int p2a_tab[256];  // P2a by |dI| below 256
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  fill_p2a(p2a_tab, p1, p2);
+  __syncthreads();  // the only block barrier
+  const long long n_chains = shift ? static_cast<long long>(L) + X - 1
+                                   : static_cast<long long>(L);
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * kPathWarps + w;
+  if (warp >= B * n_chains) return;  // whole warp
+  const long long b = warp / n_chains;
+  const long long c = warp - b * n_chains;
+  int t0 = 0;
+  int l0;
+  if (c < L) {
+    l0 = static_cast<int>(c);
+  } else {
+    t0 = static_cast<int>(c - L + 1);
+    l0 = shift > 0 ? 0 : L - 1;
+  }
+  int n = X - t0;
+  if (shift > 0) n = min(n, L - l0);
+  if (shift < 0) n = min(n, l0 + 1);
+  const long long x0 = reverse ? X - 1 - t0 : t0;
+  const long long first = b * vb + x0 * vx + l0 * vl;
+  walk_chain<T, K, Ring::kStages, Ring::kArrays, Ring::kRow, true,
+             (kPathStageOut && sizeof(T) * K > 16)>(
+      &ring[w][0][0][0], p2a_tab, cost + first,
+      kAdd ? out + first : nullptr, out + first, n,
+      (reverse ? -vx : vx) + shift * vl, inten + b * ib + x0 * ix + l0 * il,
+      (reverse ? -ix : ix) + shift * il, D, p1, p2, vec, async16,
+      cost + B * vb, out + B * vb, lane);
+}
+
+template <typename T, int K, bool kAdd>
+cudaError_t launch_path(const void* cost, const void* inten, void* out,
+                        int B, int X, int L, int D, long long vb,
+                        long long vx, long long vl, long long ib,
+                        long long ix, long long il, int reverse, int shift,
+                        int p1, int p2, cudaStream_t stream) {
+  constexpr int kPer = 16 / sizeof(T);
+  const bool vec = sweep_vec<K, T>(out, D, vb, vx, vl);
+  const bool async16 =
+      D % kPer == 0 && vb % kPer == 0 && vx % kPer == 0 && vl % kPer == 0 &&
+      reinterpret_cast<uintptr_t>(cost) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long n_chains =
+      shift ? static_cast<long long>(L) + X - 1 : static_cast<long long>(L);
+  const long long blocks =
+      (static_cast<long long>(B) * n_chains + kPathWarps - 1) / kPathWarps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  sgm_path_kernel<T, K, kAdd>
+      <<<static_cast<unsigned>(blocks), kPathWarps * 32, 0, stream>>>(
+          static_cast<const T*>(cost), static_cast<const int32_t*>(inten),
+          static_cast<T*>(out), B, X, L, D, vb, vx, vl, ib, ix, il, reverse,
+          shift, p1, p2, vec, async16);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kAdd>
+cudaError_t launch_path_k(const void* cost, const void* inten, void* out,
+                          int B, int X, int L, int D, long long vb,
+                          long long vx, long long vl, long long ib,
+                          long long ix, long long il, int reverse, int shift,
+                          int p1, int p2, cudaStream_t s) {
+  switch ((D + 31) / 32) {
+    case 1: return launch_path<T, 1, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 2: return launch_path<T, 2, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 3: return launch_path<T, 3, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 4: return launch_path<T, 4, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 5: case 6: case 7: case 8:
+      return launch_path<T, 8, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    default:
+      return launch_path<T, 16, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+  }
 }
 
 // sgm_deep_sweep_kernel's shared memory (byte offsets) for `lines` lines of
@@ -2051,15 +2154,15 @@ extern "C" int sgm_agg_path(const void* cost, const void* inten, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 2 && add)
-    return static_cast<int>(launch_k<int16_t, true>(
+    return static_cast<int>(launch_path_k<int16_t, true>(
         cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
         p1, p2, s));
   if (elem_bytes == 2 && !add)
-    return static_cast<int>(launch_k<int16_t, false>(
+    return static_cast<int>(launch_path_k<int16_t, false>(
         cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
         p1, p2, s));
   if (elem_bytes == 4 && !add)
-    return static_cast<int>(launch_k<int32_t, false>(
+    return static_cast<int>(launch_path_k<int32_t, false>(
         cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
         p1, p2, s));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -26,7 +26,9 @@ with a diagonal, all its paths in one cooperative launch, where one
 problem fits the blocks the card keeps resident (at 129 to 512 depths in
 chunks of problems, one block an SM, a problem's lines spread over the
 SMs); `sgm_path_kernel`, one launch per path, for the rest (a repeated
-shift, a problem wider than the resident blocks) and for row 5. At more
+shift, a problem wider than the resident blocks) and for row 5: the line
+kernel's design walking a chain (a straight line or a diagonal), one warp
+per chain with a private cp.async ring of scan positions. At more
 than 512 depths `sgm_deep_sweep_kernel` takes every sweep of distinct
 shifts in one launch (a straight-only sweep over any number of lines; one
 with a diagonal cooperatively, in chunks of problems whose lines the card
@@ -245,11 +247,11 @@ def sweep_smem_bytes(lines: int, D: int) -> int:
     """Shared memory of a `sgm_sweep3_kernel` block of ``lines`` lines at
     ``SWEEP_MAX_D`` < D <= ``PATH_MAX_D`` (``sweep3_layout`` in the
     source: both diagonals' lines by step parity in rows of 32 K ints, a
-    ring of each line's cost and accumulator, the intensities, the P2a
-    table)."""
+    ring of each line's cost and accumulator in rows of 32 K + 8 int16,
+    the intensities, the P2a table)."""
     K = wide_sweep_k(D)
     S, row = WIDE_SWEEP_STAGES[K], 32 * K
-    return (16 * (lines + 2) * row + 4 * S * lines * row
+    return (16 * (lines + 2) * row + 4 * S * lines * (row + 8)
             + 4 * S * (lines + 2) + 4 * 256)
 
 
@@ -351,8 +353,10 @@ def plan_geometry(cost: torch.Tensor) -> dict:
 
 def path_kernel(D: int) -> str:
     """The kernel that runs one path per launch at D depths: "path"
-    (`sgm_path_kernel`, one warp per chain) up to ``PATH_MAX_D``, "deep"
-    (`sgm_deep_kernel`, a block of ceil(D / 512) warps per chain) above."""
+    (`sgm_path_kernel`, one warp per chain, each with a private ring of
+    scan positions filled by cp.async ahead of the walk) up to
+    ``PATH_MAX_D``, "deep" (`sgm_deep_kernel`, a block of ceil(D / 512)
+    warps per chain) above."""
     return "path" if D <= PATH_MAX_D else "deep"
 
 

@@ -71,12 +71,15 @@ def test_fused_pass_loop_matches_pallas(reverse, shifts, xb):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("D", [16, 129, 200, 256, 512, 520])
 @pytest.mark.parametrize("shift", [0, 1, -1])
-def test_scan_direction_matches_pallas(shift):
+def test_scan_direction_matches_pallas(shift, D):
     """int32 costs above 2^15, which int16 cannot hold; the output is the
-    path cost itself, not an accumulation."""
-    cost, inten = _volume((9, 11, 16), seed=12 + shift, lo=30000, hi=90000,
-                          dtype=np.int32)
+    path cost itself, not an accumulation. L != X; D from one to 16 depths
+    a lane on the card (129 and 200 unaligned), and 520 past the path
+    kernel's 512 (the deep kernel's on the card)."""
+    cost, inten = _volume((9, 11, D), seed=12 + shift + D, lo=30000,
+                          hi=90000, dtype=np.int32)
     want = np.asarray(pallas_agg.scan_direction(
         jnp.asarray(cost), jnp.asarray(inten), shift, 6, 96, interpret=True))
     got = cuda_agg.scan_direction(*_t(cost, inten), shift, 6, 96)

@@ -384,6 +384,195 @@ def test_scan_direction_equals_plain(cuda, shift, shape):
     assert torch.equal(got, want)
 
 
+# sgm_path_kernel at every instantiation, K = 1, 2, 3, 4, 8 and 16 depths a
+# lane: D that allow 16-byte pieces (16, 64, 128, 256, 512) and D that
+# take the 4-byte words that cover each run (5, 40, 100, 129, 200, 300);
+# X = 1 or L = 1 make every chain one position long (the corners' chains).
+PATH_SHAPES = [(2, 11, 13, 16), (1, 9, 7, 5), (2, 7, 10, 40),
+               (1, 12, 9, 64), (3, 6, 5, 100), (1, 13, 17, 128),
+               (2, 9, 7, 129), (1, 8, 11, 200), (1, 6, 9, 256),
+               (1, 7, 5, 300), (2, 5, 6, 512), (1, 1, 9, 64),
+               (1, 9, 1, 129), (1, 1, 1, 512)]
+
+
+def _path_volumes(shape, seed, device, mode):
+    """cost (int32 above 2^15 for "write32"), intensities, accumulator."""
+    cost, inten = _volume(shape, seed=seed, device=device)
+    if mode == "write32":
+        cost = cost.to(torch.int32) * 300 + 30000
+    acc, _ = _volume(shape, seed=seed + 7, device=device, hi=500)
+    return cost, inten, acc
+
+
+@pytest.mark.parametrize("mode", ["add", "write", "write32"])
+@pytest.mark.parametrize("scan", [1, 2])
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_path_kernel_equals_plain(cuda, shape, scan, mode):
+    """One `sgm_path_kernel` launch over [B, A, C, D] in each of its three
+    storage modes (int16 adding in place, int16 writing, int32 writing),
+    with shifts 0, +1 and -1, forward and reverse, scanning axis 1 (lines
+    adjacent) and axis 2 (a chain's positions strided by D, a diagonal's
+    by D +- C D); bit-equal to the plain version."""
+    cost, inten, acc = _path_volumes(shape, sum(shape) + scan, cuda, mode)
+    for shift in (0, 1, -1):
+        for reverse in (False, True):
+            plan = [cuda_agg.Launch("path", scan, reverse, mode[:5],
+                                    (shift,), "fused_pass", 0, shape[0])]
+            a = acc if mode == "add" else None
+            cuda_agg.reset_launches()
+            got = cuda_agg.run_plan(plan, cost, inten, a, 6, 96)
+            torch.cuda.synchronize()
+            assert cuda_agg.kernel_launches["path"] == 1
+            want = cuda_agg.plain_run_plan(plan, cost, inten, a, 6, 96)
+            assert got.dtype == cost.dtype
+            assert torch.equal(got, want), (shift, reverse)
+
+
+def _at_odd_element(t):
+    """``t`` copied into a contiguous tensor that starts one element into
+    its storage."""
+    store = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = store[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("D", [40, 129, 256, 512])
+def test_chain_kernels_take_volumes_at_an_odd_element(cuda, D):
+    """Volumes that start one element into their storage: every int16 run
+    starts on the odd half of a 4-byte word, so the line, path and sweep
+    kernels copy the words that cover it from one element early (at D >
+    128 for the line and sweep kernels). At D = 256 and 512 that is a
+    whole ring row and one word more, which the rows' padding holds; every
+    mode and scan axis, bit-equal to plain."""
+    shape = (2, 9, 7, D)
+    for mode, kernel, shift in (("add", "path", 1), ("write", "path", -1),
+                                ("write32", "path", 0), ("into", "line", 0),
+                                ("add", "line", 0), ("write", "line", 0)):
+        cost, inten, acc = _path_volumes(shape, D, cuda, mode)
+        cost, acc = _at_odd_element(cost), _at_odd_element(acc)
+        for scan in (1, 2):
+            plan = [cuda_agg.Launch(kernel, scan, True, mode[:5], (shift,),
+                                    "fused_pass_batch", 0, shape[0])]
+            a = None if mode.startswith("write") else acc
+            got = cuda_agg.run_plan(plan, cost, inten, a, 6, 96)
+            want = cuda_agg.plain_run_plan(plan, cost, inten, a, 6, 96)
+            assert torch.equal(got, want), (mode, kernel, scan)
+    cost, inten = _volume((9, 7, D), seed=D + 1, device=cuda)
+    acc, _ = _volume(cost.shape, seed=D + 2, device=cuda, hi=500)
+    cost, acc = _at_odd_element(cost), _at_odd_element(acc)
+    cuda_agg.reset_launches()
+    got = cuda_agg.fused_pass(cost, inten, acc, True, (0, 1, -1), 6, 96)
+    assert _launched()[1] == {"sweep3": 1}
+    want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None], acc[None],
+                                           True, (0, 1, -1), 6, 96)[0]
+    assert torch.equal(got.to(torch.int32), want)
+
+
+@pytest.mark.parametrize("D", [16, 129, 256, 512])
+def test_repeated_shifts_take_the_path_kernel_at_every_entry_point(cuda, D):
+    """A repeated shift in every entry point that takes shifts: one
+    `sgm_path_kernel` launch per listed path (and direction), adding into
+    a copy of acc, bit-equal to plain."""
+    cost, inten = _volume((9, 13, D), seed=40 + D, device=cuda)
+    acc, _ = _volume(cost.shape, seed=41 + D, device=cuda, hi=500)
+    b3 = (cost[None], inten[None], acc[None])
+    for name, fn, plain, n in (
+            ("fused_pass (1, 1)",
+             lambda: cuda_agg.fused_pass(cost, inten, acc, False, (1, 1), 6,
+                                         96),
+             lambda: cuda_agg.plain_fused_pass_batch(*b3, False, (1, 1), 6,
+                                                     96)[0], 2),
+            ("fused_pass(loop=True) (0, 1, 0)",
+             lambda: cuda_agg.fused_pass(cost, inten, acc, True, (0, 1, 0),
+                                         6, 96, loop=True),
+             lambda: cuda_agg.plain_fused_pass_batch(*b3, True, (0, 1, 0), 6,
+                                                     96)[0], 3),
+            ("fused_pass_batch (-1, -1)",
+             lambda: cuda_agg.fused_pass_batch(*b3, True, (-1, -1), 6, 96),
+             lambda: cuda_agg.plain_fused_pass_batch(*b3, True, (-1, -1), 6,
+                                                     96), 2),
+            ("fused_pass_bidir (1, 0, 1)",
+             lambda: cuda_agg.fused_pass_bidir(cost, inten, acc, (1, 0, 1),
+                                               6, 96),
+             lambda: cuda_agg.plain_fused_pass_bidir(cost, inten, acc,
+                                                     (1, 0, 1), 6, 96), 6)):
+        cuda_agg.reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        assert _launched()[1] == {"path": n}, name
+        assert torch.equal(got.to(torch.int32), plain()), name
+
+
+@pytest.mark.parametrize("D", [16, 256])
+def test_wide_problem_takes_the_path_kernel_at_every_entry_point(cuda, D):
+    """One line more than the vertical sweep kernel holds at once: every
+    sweep with a diagonal of every entry point takes one `sgm_path_kernel`
+    launch per path (as planned), the straight sweeps their line kernel,
+    bit-equal to plain."""
+    tile, _, held = cuda_agg.sweep_geometry(cuda, D)
+    cost, inten = _volume((3, tile * held + 1, D), seed=42 + D, device=cuda)
+    acc, _ = _volume(cost.shape, seed=43 + D, device=cuda, hi=500)
+    b3 = (cost[None], inten[None], acc[None])
+    L = cost.shape[1]
+    for entry, fn, plain, kw in (
+            ("aggregate", lambda: cuda_agg.aggregate(cost, inten, 6, 96),
+             lambda: cuda_agg.plain_aggregate(cost, inten, 6, 96), {}),
+            ("aggregate_batch",
+             lambda: cuda_agg.aggregate_batch(*b3[:2], 6, 96),
+             lambda: cuda_agg.plain_aggregate_batch(*b3[:2], 6, 96), {}),
+            ("fused_pass",
+             lambda: cuda_agg.fused_pass(cost, inten, acc, True, (0, 1, -1),
+                                         6, 96),
+             lambda: cuda_agg.plain_fused_pass_batch(
+                 *b3, True, (0, 1, -1), 6, 96)[0],
+             {"shifts": (0, 1, -1), "reverse": True}),
+            ("fused_pass_loop",
+             lambda: cuda_agg.fused_pass(cost, inten, acc, False, (0, 1, -1),
+                                         6, 96, loop=True),
+             lambda: cuda_agg.plain_fused_pass_batch(
+                 *b3, False, (0, 1, -1), 6, 96)[0], {"shifts": (0, 1, -1)}),
+            ("fused_pass_batch",
+             lambda: cuda_agg.fused_pass_batch(*b3, False, (1, -1), 6, 96),
+             lambda: cuda_agg.plain_fused_pass_batch(*b3, False, (1, -1), 6,
+                                                     96),
+             {"shifts": (1, -1)}),
+            ("fused_pass_bidir",
+             lambda: cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1),
+                                               6, 96),
+             lambda: cuda_agg.plain_fused_pass_bidir(cost, inten, acc,
+                                                     (0, 1, -1), 6, 96),
+             {"shifts": (0, 1, -1)})):
+        want_launches = _planned(entry, cost, 1, L, **kw)
+        assert "path" in want_launches[1], entry
+        cuda_agg.reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        assert _launched() == want_launches, entry
+        assert torch.equal(got.to(torch.int32), plain()), entry
+
+
+def test_path_kernel_repeats_bit_equal(cuda):
+    """Row 5 and the per-path route of `aggregate` 10 times on one input,
+    each bit-equal to the plain version (a race shows as a rare
+    mismatch)."""
+    g = torch.Generator(device="cpu").manual_seed(44)
+    cost32 = (torch.randint(0, 127, (300, 257, 200), generator=g,
+                            dtype=torch.int32) * 300).to(cuda)
+    inten = torch.randint(0, 255, (300, 257), generator=g,
+                          dtype=torch.int32).to(cuda)
+    want = cuda_agg.plain_scan_direction(cost32, inten, -1, 6, 96)
+    cost, inten2 = _volume((1, 64, 300, 256), seed=45, device=cuda)
+    plan = cuda_agg.per_path_plan(cuda_agg.plan_route(
+        "aggregate", 1, 300, **cuda_agg.plan_geometry(cost)), 256)
+    want2 = cuda_agg.plain_run_plan(plan, cost, inten2, None, 6, 96)
+    for rep in range(10):
+        got = cuda_agg.scan_direction(cost32, inten, -1, 6, 96)
+        assert torch.equal(got, want), f"row 5, repetition {rep}"
+        got = cuda_agg.run_plan(plan, cost, inten2, None, 6, 96)
+        assert torch.equal(got, want2), f"per path, repetition {rep}"
+
+
 # sgm_deep_sweep_kernel at D depths on [X, L, D]: L > 132 lines, so a
 # sweep with a diagonal takes several lines a block (in-block hand-off)
 # and many blocks (hand-off through the edge words), with a ragged last

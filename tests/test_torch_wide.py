@@ -71,8 +71,10 @@ def test_sweep_stand_in():
             lines + 1, D) > cuda_agg.H100_SMEM_PER_BLOCK
         assert cuda_agg.deep_sweep_chunks(1, 640, lines, 132) == \
             [(0, 1, 5)]
-    assert cuda_agg.sweep_smem_bytes(16, 256) == 140576
-    assert cuda_agg.sweep_smem_bytes(14, 512) == 218304
+    # The ring's rows hold 32 K + 8 int16: a run read from one element
+    # early and the word past it.
+    assert cuda_agg.sweep_smem_bytes(16, 256) == 142624
+    assert cuda_agg.sweep_smem_bytes(14, 512) == 219648
     # The layout at D <= 128 (16 lines, 4 stages, 4 depths a lane) is the
     # main path's, byte for byte: 70944 bytes a block.
     assert 16 * 18 * 128 + 4 * 4 * 16 * 128 + 4 * 4 * 18 + 1024 == 70944
