@@ -202,7 +202,8 @@ from phase 6's run at 256 planes, `sgm_deep_sweep_kernel`, which serves
 every sweep of distinct shifts beyond 512 depths, timed on `aggregate`
 at D = 2048, and
 `sgm_deep_kernel`, its one-path-per-launch fallback, timed on the
-per-path route there, then as the last line
+per-path route there, with its row-5 times at D = 513 and 2048 and its
+per-path time at 513 beside their bounds, then as the last line
 `{"ok": true, "device": {...}}`. It imports nothing of JAX.
 """
 
@@ -419,6 +420,9 @@ ORACLE_REPS = 5
 DEEP = (129, 192, 256, 512, 513, 1024, 2048)
 DEEP_HW = 640  # [640, 640, D] problems for them
 DEEP_MAX_SHAPE = (16, 24, cuda_agg.MAX_D)  # sgm_deep_kernel's 32-warp form
+# sgm_deep_kernel's entry of the kernels line: row 5 at these D, and the
+# per-path route at the first.
+DEEP_KERNEL_D = (513, 2048)
 DEEP_TIMED_D = 2048  # the deep kernels' entries of the kernels line
 WIDE_TIMED_D = 256  # the 129-512 route's entry of the kernels line
 # The general path's per-direction volume at 256 planes, timed on both
@@ -1398,9 +1402,9 @@ def routes_in_turns(D: int, cost, inten) -> dict:
 
 def phase_deepest() -> dict:
     """Every entry point at the plane limit (`cuda_agg.MAX_D` = 16384,
-    `sgm_deep_kernel` with 32 warps a block, loading each position at its
-    step) on a small volume, bit-equal to plain; one plane more raises
-    before any launch."""
+    `sgm_deep_kernel` with 32 warps a chain of 16 depths a lane) on a
+    small volume, bit-equal to plain; one plane more raises before any
+    launch."""
     cost, inten = _seeded(DEEP_MAX_SHAPE, 901)
     g = torch.Generator(device="cuda").manual_seed(902)
     acc = torch.randint(0, 500, cost.shape, generator=g, device="cuda",
@@ -2332,6 +2336,34 @@ def row5_by_shape(rows: dict) -> dict:
             for k, (v, kernel) in runs.items()}
 
 
+def deep_kernel_times(rows: dict) -> dict:
+    """sgm_deep_kernel's own times from phase 9: row 5 (`scan_direction`,
+    int32, shift 1, one launch) at [640, 640, D] for D in DEEP_KERNEL_D,
+    and `aggregate` on the per-path route (8 launches) at the first D,
+    each beside its bound (for the per-path route the 8-path sum's bound
+    and the plan's bytes floor)."""
+    out = {"row5": {}}
+    for D in DEEP_KERNEL_D:
+        r = rows["scan_direction"]["deep"][D]["sweep"]
+        out["row5"][D] = {"ms": r["ms"], "bound_ms": r["bound_ms"],
+                          "share_of_bound": r["bound_ms"] / r["ms"],
+                          "launches": 1}
+    D = DEEP_KERNEL_D[0]
+    deep = rows["fused_pass_bidir"]["deep"][D]
+    out[f"per_path_{D}"] = {
+        "ms": deep["routes"]["per_path_ms"],
+        "launches": deep["routes"]["per_path_launches"],
+        "bound_ms": deep["aggregate"]["bound_ms"],
+        "bytes_floor_ms": deep["routes"]["per_path_floor_ms"]}
+    log(f"sgm_deep_kernel: row 5 "
+        + ", ".join(f"D = {D}: {v['ms']:.3f} ms (bound {v['bound_ms']:.4f})"
+                    for D, v in out["row5"].items())
+        + f"; per-path aggregate D = {D}: "
+        f"{out[f'per_path_{D}']['ms']:.3f} ms (floor "
+        f"{out[f'per_path_{D}']['bytes_floor_ms']:.3f})")
+    return out
+
+
 def deep_kernel_entries(rows: dict) -> list:
     """The kernels line's entries of the two deep kernels, from phase 9's
     results in ``rows``. No user path sets more than 512 planes.
@@ -2340,7 +2372,9 @@ def deep_kernel_entries(rows: dict) -> list:
     those of `aggregate` at the plane limit, whose diagonal sweeps the card
     cannot hold at once (one launch per path). Both are timed on
     `aggregate` at the timed depth, sgm_deep_kernel through the per-path
-    route, in turns."""
+    route, in turns; sgm_deep_kernel's entry also gives row 5 at
+    [640, 640, D] for D in DEEP_KERNEL_D and the per-path route at the
+    first, each beside its bound."""
     entries = []
     deep = rows["fused_pass_bidir"]["deep"][DEEP_TIMED_D]
     routes = deep["routes"]
@@ -2359,7 +2393,8 @@ def deep_kernel_entries(rows: dict) -> list:
              f"route of aggregate on [{DEEP_HW}, {DEEP_HW}, "
              f"{DEEP_TIMED_D}], {routes['per_path_launches']} launches",
              routes["per_path_ms"],
-             {"bytes_floor_ms": routes["per_path_floor_ms"]})):
+             {"bytes_floor_ms": routes["per_path_floor_ms"],
+              **deep_kernel_times(rows)})):
         entries.append({
             "name": f"{name} via aggregate at D = {DEEP_TIMED_D}",
             "route": "cuda",

@@ -157,26 +157,59 @@
 // 64 bytes apart.
 //
 // sgm_deep_kernel: sgm_path_kernel's work for D > 512, where one warp
-// would need more than 16 depths a lane (127 registers a thread at 16; 32
-// would spill). One block walks one chain with W = ceil(D / 512) warps,
-// each holding 512 consecutive depths, 16 a lane, so W <= 32 at the
-// 16384-depth limit. Each step, each warp takes its minimum with one
-// redux.sync and writes it, with its first and last depth, to shared
-// memory; one __syncthreads() later every warp reads the block's
-// min(prev) (lane i reads warp i's, one redux.sync) and the depths next
-// to its own ends, from the neighbouring warps. The slots alternate by
-// step parity, so one barrier per step is enough: a warp writes a slot
-// again two steps later, after the barrier that every reader of the
-// slot's last values has passed. Every warp of a block walks the same
-// chain, so all reach every barrier, a ragged last warp (D % 512 != 0)
-// too: its lanes past D hold BIG, as in the other kernels. Up to 8 warps
-// (D <= 4096) the block loads the next position one step ahead into
-// registers; beyond that, 9 to 32 warps, a thread may hold 64
-// registers (1024 threads), so it loads each position at its step and the
-// accumulator only after the recurrence (ptxas: no spills in any form). The
-// recurrence and its integer arithmetic are those of the other kernels,
-// bit for bit.
-//
+// would need more than 16 depths a lane (32 would spill), one launch per
+// path, one chain a block. A chain's step is a serial dependence, so what
+// paces it is the step's latency: the depths a lane, whether the step's
+// loads are in shared memory when it starts, and one exchange.
+// - Shape (deep_shape). K depths a lane, even, from D: about kDeepWarps
+//   (4) warps a chain, K = ceil(D / 128) rounded up to even (6, 8, 16 at
+//   D = 513, 1024, 2048), at most 16 and at least what keeps W = ceil(D /
+//   (32 K)) <= 32 (16384 depths: 32 warps of 16 a lane). The ceil(D / K)
+//   lane runs spread evenly over the W warps (deep_slice: at D = 513
+//   174 + 174 + 165 depths), so no warp holds a stub; a warp's lanes past
+//   its runs, and its depths past D, hold BIG.
+// - Loads. Each warp walks its own slice of each position through a
+//   private ring of S positions in shared memory (DeepRing: 8 KB of what a
+//   step reads below 16 depths a lane, 4 KB at 16, where 8 KB left fewer
+//   blocks resident than a launch's chains; 10 positions at D = 513 in
+//   int32, 2 at 2048), filled S - 1 steps ahead as walk_chain fills its
+//   ring, so that odd D and odd starts keep positions in flight too. An
+//   int16 ring takes the 16-byte pieces that cover the slice from the
+//   boundary at or below it (fill_cover; a piece past the volume's end is
+//   copied an element at a time): the per-path route at D = 513 took 6.4
+//   ms against 7.8 with fill_run's 4-byte words, and it puts an in-place
+//   accumulator on the output's 16-byte boundaries. An int32 ring takes
+//   fill_run's 16-byte pieces where the slice is aligned and else a word
+//   an element, which keeps every lane's run aligned in the ring (row 5 at
+//   D = 513 10% faster than with the covering pieces). The ring is the
+//   warp's own, ordered by __syncwarp. The intensities come 32 steps at a
+//   time, one a lane, by shuffle; P2a from fill_p2a's table.
+// - Exchange. Each step, each warp publishes its line's minimum (one
+//   redux.sync) and its first and last depth to [parity][warp] slots; one
+//   block barrier (kDeepBarrier: __syncthreads or the named barrier of the
+//   chain's threads) later, every warp reads the block's min(prev) (lane i
+//   warp i's, one redux.sync) and the depths next to its slice from its
+//   neighbours. A slot is written again two steps later, after the barrier
+//   that every reader of it has passed; it is the loop's only block
+//   barrier, and every warp of a block walks the same chain, so all reach
+//   it.
+// - Stores. Where a lane's run is wider than 16 bytes (int32 at K > 4,
+//   int16 at K > 8), the result goes out through the ring stage just read,
+//   placed so that the run's 16-byte boundaries fall on the row's, and the
+//   lanes write consecutive 16-byte pieces (the run's ends element by
+//   element), adding an in-place accumulator from its ring row on the way
+//   (one SIMD add a word); otherwise each lane writes its run in the
+//   widest pieces its size allows (RunPiece). Staging the 12-byte int16
+//   runs of D = 513 too was slower (7.9 ms against 6.5 for the per-path
+//   route, PERF.md). In place (rows 1-3), a warp reads each
+//   position of its slice into its ring before it writes it, and no other
+//   warp writes that slice.
+// - Registers. At K = 16 a block may have 1024 threads (64 registers a
+//   thread); below, at most kDeepWarps warps (deep_max_warps). The line is
+//   updated in place and int16 costs stay two to a register (RunRegs), so
+//   no form spills (ptxas, PERF.md). The recurrence and its integer
+//   arithmetic are the other kernels', bit for bit (sgm_step).
+
 // sgm_deep_sweep_kernel: one launch per sweep beyond 512 depths carries
 // every distinct shift of the sweep, as the Pallas kernel's pass does, so
 // a sweep reads the cost and the accumulator once and writes once: 4
@@ -262,13 +295,46 @@ constexpr int kEdge = 128;          // words per edge line at K <= 4
 // Depths the line, sweep and path kernels take (32 lanes x K <= 16).
 constexpr int kPathMaxD = 512;
 constexpr int kSweepMaxD = 128;     // K <= 4: the main path's instantiations
-// sgm_deep_kernel: kPathMaxD depths per warp (16 a lane), at most
-// kDeepMaxWarps warps a block, and at most kDeepPrefetchWarps warps where
-// it loads one step ahead.
-constexpr int kDeepK = kPathMaxD / 32;
+// The deep kernels: at most kDeepMaxWarps warps a chain of at most
+// kPathMaxD depths each (16 a lane), so at most kDeepMaxD depths.
 constexpr int kDeepMaxWarps = 32;
 constexpr int kDeepMaxD = kPathMaxD * kDeepMaxWarps;
-constexpr int kDeepPrefetchWarps = 8;
+// sgm_deep_kernel: about how many warps walk a chain (deep_shape chooses
+// the depths a lane from it and D); the bytes of what a step reads that a
+// warp's ring keeps in flight below 16 depths a lane and at 16 (DeepRing);
+// whether a lane's result goes out through the ring stage just read, as
+// consecutive 16-byte pieces (0: never, 1: where a lane's run is wider
+// than 16 bytes, 2: also where it is not one aligned piece of 4, 8 or 16
+// bytes); how a warp fills its ring (0: fill_run, 16-byte
+// pieces where the slice is aligned, else 4-byte words; 1: the 16-byte
+// pieces that cover the slice, from the boundary at or below it; 2: 1 for
+// int16, 0 for int32); and the step's barrier (0: __syncthreads, 1: the
+// named barrier 1 of the chain's W * 32 threads). tools/deep_pace.py
+// --probe-deep builds other values with -D and times them (PERF.md).
+#ifndef SGM_DEEP_WARPS
+#define SGM_DEEP_WARPS 4
+#endif
+#ifndef SGM_DEEP_RING_BYTES
+#define SGM_DEEP_RING_BYTES 8192
+#endif
+#ifndef SGM_DEEP_RING_BYTES_16
+#define SGM_DEEP_RING_BYTES_16 4096
+#endif
+#ifndef SGM_DEEP_STAGE_OUT
+#define SGM_DEEP_STAGE_OUT 1
+#endif
+#ifndef SGM_DEEP_FILL
+#define SGM_DEEP_FILL 2
+#endif
+#ifndef SGM_DEEP_BARRIER
+#define SGM_DEEP_BARRIER 0
+#endif
+constexpr int kDeepWarps = SGM_DEEP_WARPS;
+constexpr int kDeepRingBytes = SGM_DEEP_RING_BYTES;
+constexpr int kDeepRingBytes16 = SGM_DEEP_RING_BYTES_16;
+constexpr int kDeepStageOut = SGM_DEEP_STAGE_OUT;
+constexpr int kDeepFill = SGM_DEEP_FILL;
+constexpr int kDeepBarrier = SGM_DEEP_BARRIER;
 // sgm_line_kernel and sgm_path_kernel: warps (one chain each) per block;
 // sgm_line_kernel: scan positions in a warp's ring (sgm_path_kernel sizes
 // its ring in bytes, PathRing). Small blocks balance the SMs: the main
@@ -580,174 +646,6 @@ __device__ __forceinline__ void poll_edge(const unsigned long long* p,
       ok = ok && static_cast<unsigned>(e >> 32) == step;
     }
   } while (!__all_sync(kFull, ok));
-}
-
-// One chain of one path per block, W = blockDim.x / 32 warps of 512
-// depths. kAdd as for sgm_path_kernel. kPrefetch: load the next position
-// one step ahead (W <= kDeepPrefetchWarps).
-template <typename T, bool kAdd, bool kPrefetch>
-__global__ void __launch_bounds__(
-    (kPrefetch ? kDeepPrefetchWarps : kDeepMaxWarps) * 32)
-    sgm_deep_kernel(const T* __restrict__ cost,
-                    const int32_t* __restrict__ inten, T* __restrict__ out,
-                    int X, int L, int D, long long vb, long long vx,
-                    long long vl, long long ib, long long ix, long long il,
-                    int reverse, int shift, int p1, int p2, bool vec) {
-  constexpr int K = kDeepK;
-  // [parity][warp]: each warp's min(prev), and prev at its first and its
-  // last depth.
-  __shared__ int s_min[2][kDeepMaxWarps];
-  __shared__ int s_lo[2][kDeepMaxWarps];
-  __shared__ int s_hi[2][kDeepMaxWarps];
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const long long n_chains = shift ? static_cast<long long>(L) + X - 1
-                                   : static_cast<long long>(L);
-  const long long b = blockIdx.x / n_chains;
-  const long long c = blockIdx.x - b * n_chains;
-  const bool rev = reverse != 0;
-
-  // Chain start: scan step 0 on line c, or the border line at step c-L+1.
-  int t = 0;
-  int l;
-  if (c < L) {
-    l = static_cast<int>(c);
-  } else {
-    t = static_cast<int>(c - L + 1);
-    l = shift > 0 ? 0 : L - 1;
-  }
-  const T* cb = cost + b * vb;
-  T* ob = out + b * vb;
-  const int32_t* ibase = inten + b * ib;
-  const int p2min = p1 * 3 / 2;
-  const int d0 = (w * 32 + lane) * K;
-
-  int x = rev ? X - 1 - t : t;
-  long long off = x * vx + l * vl + d0;
-  int cur[K], av[K];
-  load_k<T, K>(cb + off, cur, d0, D, vec);
-  if constexpr (kAdd && kPrefetch) load_k<T, K>(ob + off, av, d0, D, vec);
-  int it = ibase[x * ix + l * il];
-
-  int prev[K];
-  int prev_i = 0;
-  int par = 0;
-  bool first = true;
-  while (true) {
-    const int tn = t + 1;
-    const int ln = l + shift;
-    const bool more = tn < X && ln >= 0 && ln < L;
-    int ncur[K], nav[K];
-    int nit = 0;
-    long long noff = 0;
-    if constexpr (kPrefetch) {
-      if (more) {
-        const int xn = rev ? X - 1 - tn : tn;
-        noff = xn * vx + ln * vl + d0;
-        load_k<T, K>(cb + noff, ncur, d0, D, vec);
-        if constexpr (kAdd) load_k<T, K>(ob + noff, nav, d0, D, vec);
-        nit = ibase[xn * ix + ln * il];
-      }
-    }
-
-    int nv[K];
-    if (first) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) nv[k] = cur[k];
-      first = false;
-    } else {
-      int m = prev[0];
-#pragma unroll
-      for (int k = 1; k < K; ++k) m = min(m, prev[k]);
-      m = __reduce_min_sync(kFull, m);
-      if (lane == 0) {
-        s_min[par][w] = m;
-        s_lo[par][w] = prev[0];
-      }
-      if (lane == 31) s_hi[par][w] = prev[K - 1];
-      __syncthreads();
-      m = __reduce_min_sync(kFull, lane < n_warps ? s_min[par][lane] : kBig);
-      int left = __shfl_up_sync(kFull, prev[K - 1], 1);    // prev[d0 - 1]
-      int right = __shfl_down_sync(kFull, prev[0], 1);     // prev[d0 + K]
-      if (lane == 0) left = w > 0 ? s_hi[par][w - 1] : kBig;
-      if (lane == 31) right = w < n_warps - 1 ? s_lo[par][w + 1] : kBig;
-      par ^= 1;
-      const int mp = m + max(p2min, p2 / (abs(it - prev_i) + 1));
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int dn = k == 0 ? left : prev[k - 1];
-        const int up = k == K - 1 ? right : prev[k + 1];
-        nv[k] = cur[k] + min(min(prev[k], min(up, dn) + p1), mp) - m;
-      }
-    }
-    // Without the prefetch, the accumulator is read only now, so that it
-    // and cur are never live together (64 registers at 1024 threads).
-    if constexpr (kAdd && !kPrefetch) load_k<T, K>(ob + off, av, d0, D, vec);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (d0 + k >= D) nv[k] = kBig;
-      prev[k] = nv[k];
-      if constexpr (kAdd) av[k] += nv[k];
-    }
-    if constexpr (kAdd) {
-      store_k<T, K>(ob + off, av, d0, D, vec);
-    } else {
-      store_k<T, K>(ob + off, nv, d0, D, vec);
-    }
-    prev_i = it;
-    if (!more) break;
-    t = tn;
-    l = ln;
-    if constexpr (kPrefetch) {
-      off = noff;
-      it = nit;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        cur[k] = ncur[k];
-        if constexpr (kAdd) av[k] = nav[k];
-      }
-    } else {
-      x = rev ? X - 1 - t : t;
-      off = x * vx + l * vl + d0;
-      load_k<T, K>(cb + off, cur, d0, D, vec);
-      it = ibase[x * ix + l * il];
-    }
-  }
-}
-
-template <typename T, bool kAdd>
-cudaError_t launch_deep(const void* cost, const void* inten, void* out,
-                        int B, int X, int L, int D, long long vb,
-                        long long vx, long long vl, long long ib,
-                        long long ix, long long il, int reverse, int shift,
-                        int p1, int p2, cudaStream_t stream) {
-  constexpr int K = kDeepK;
-  // Vector loads need every warp's depth run aligned: lanes start at
-  // multiples of K depths, so D, the strides and the pointers must be too.
-  const uintptr_t align = sizeof(T) * K;
-  const bool vec = D % K == 0 && vb % K == 0 && vx % K == 0 &&
-                   vl % K == 0 &&
-                   reinterpret_cast<uintptr_t>(cost) % align == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % align == 0;
-  const int warps = (D + kPathMaxD - 1) / kPathMaxD;
-  const long long n_chains =
-      shift ? static_cast<long long>(L) + X - 1 : static_cast<long long>(L);
-  const long long blocks = static_cast<long long>(B) * n_chains;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const unsigned grid = static_cast<unsigned>(blocks);
-  if (warps <= kDeepPrefetchWarps) {
-    sgm_deep_kernel<T, kAdd, true><<<grid, warps * 32, 0, stream>>>(
-        static_cast<const T*>(cost), static_cast<const int32_t*>(inten),
-        static_cast<T*>(out), X, L, D, vb, vx, vl, ib, ix, il, reverse,
-        shift, p1, p2, vec);
-  } else {
-    sgm_deep_kernel<T, kAdd, false><<<grid, warps * 32, 0, stream>>>(
-        static_cast<const T*>(cost), static_cast<const int32_t*>(inten),
-        static_cast<T*>(out), X, L, D, vb, vx, vl, ib, ix, il, reverse,
-        shift, p1, p2, vec);
-  }
-  return cudaGetLastError();
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -2130,6 +2028,521 @@ inline void deep_sweep_shape(int D, bool diag, int* W, int* K) {
   *K = k + (k & 1);
 }
 
+constexpr int even_up(int k) { return k + (k & 1); }
+
+// sgm_deep_kernel's depths a lane at D > kPathMaxD: K = ceil(D / (32
+// kDeepWarps)) rounded up to even, so that about kDeepWarps warps walk a
+// chain (K = 6, 8, 16 at D = 513, 1024, 2048), at least what keeps W <= 32
+// warps, at most 16. kDeepMinK is the least K beyond kPathMaxD; a smaller
+// D (the C function takes any) keeps it.
+constexpr int kDeepMinK =
+    even_up((kPathMaxD + 32 * kDeepWarps) / (32 * kDeepWarps));
+
+// (W, K) of sgm_deep_kernel at D depths (cuda_agg.deep_shape mirrors it).
+// For K < 16 it gives W <= kDeepWarps, and W <= 32 at K = 16.
+inline void deep_shape(int D, int* W, int* K) {
+  int k = even_up((D + 32 * kDeepWarps - 1) / (32 * kDeepWarps));
+  const int k32 = even_up((D + 32 * kDeepMaxWarps - 1) / (32 * kDeepMaxWarps));
+  if (k < kDeepMinK) k = kDeepMinK;
+  if (k < k32) k = k32;
+  if (k > 16) k = 16;
+  *K = k;
+  *W = (D + 32 * k - 1) / (32 * k);
+}
+
+// Warps a block of sgm_deep_kernel at K depths a lane may have (its
+// launch bound): 32 at K = 16, else kDeepWarps (deep_shape).
+__host__ __device__ constexpr int deep_max_warps(int K) {
+  return K >= 16 ? kDeepMaxWarps : kDeepWarps;
+}
+
+// Warp w's slice of a chain's D depths: the ceil(D / K) lane runs of K
+// depths spread evenly over the W warps, the first (runs % W) one run
+// more, so that no warp holds a stub (cuda_agg.deep_slices mirrors it).
+// Its first depth, and its runs: lanes 0 .. runs - 1 hold depths.
+__device__ __forceinline__ void deep_slice(int D, int K, int W, int w,
+                                           int* first, int* runs) {
+  const int R = (D + K - 1) / K, q = R / W, rem = R % W;
+  *runs = q + (w < rem ? 1 : 0);
+  *first = (w * q + min(w, rem)) * K;
+}
+
+// sgm_deep_kernel's ring a warp: rows of 32 K elements and the 16 bytes
+// that an unaligned start adds (fill_cover, copy_words), a multiple of 16
+// bytes, as PathRing's; as many positions (2 to 32) as hold kDeepRingBytes
+// of what a step reads (kDeepRingBytes16 at K = 16, where a chain's block
+// has 4 to 32 warps: at [640, 640, 2048] 8 KB a warp left fewer blocks
+// resident than the launch's 1279 chains, PERF.md), and no more than keep
+// deep_max_warps(K) warps' rings within a block's shared memory.
+template <typename T, int K, bool kAdd>
+struct DeepRing {
+  static constexpr int kArrays = kAdd ? 2 : 1;
+  static constexpr int kRow = 32 * K + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kStageBytes =
+      kArrays * kRow * static_cast<int>(sizeof(T));
+  static constexpr int kWant =
+      (K >= 16 ? kDeepRingBytes16 : kDeepRingBytes) /
+      (32 * K * static_cast<int>(sizeof(T)) * kArrays);
+  static constexpr int kFit = 200 * 1024 / (deep_max_warps(K) * kStageBytes);
+  static constexpr int kMost = kWant < kFit ? kWant : kFit;
+  static constexpr int kStages = kMost < 2 ? 2 : (kMost > 32 ? 32 : kMost);
+  static constexpr int kWarpBytes = kStages * kStageBytes;
+};
+
+// A lane's run of K elements (K sizeof(T) a multiple of 4 bytes) in the
+// widest pieces of 16, 8 or 4 bytes that divide it: a run that starts on
+// a multiple of its own size takes no split access.
+template <typename T, int K>
+struct RunPiece {
+  static constexpr int kBytes = K * static_cast<int>(sizeof(T));
+  static constexpr int kPiece =
+      kBytes % 16 == 0 ? 16 : (kBytes % 8 == 0 ? 8 : 4);
+  static constexpr int kWords = kPiece / 4;
+  static constexpr int kCount = kBytes / kPiece;
+};
+
+// Depths [d0, d0 + K) of a run of n from v to p: whole pieces where vec
+// and the lane's K lie inside n, else one element at a time (none past n).
+template <typename T, int K>
+__device__ __forceinline__ void store_run(T* p, const int (&v)[K], int d0,
+                                          int n, bool vec) {
+  using P = RunPiece<T, K>;
+  if (vec && d0 + K <= n) {
+#pragma unroll
+    for (int c = 0; c < P::kCount; ++c) {
+      uint32_t wd[P::kWords];
+#pragma unroll
+      for (int j = 0; j < P::kWords; ++j) {
+        const int e = c * P::kWords + j;
+        if constexpr (sizeof(T) == 4) {
+          wd[j] = static_cast<uint32_t>(v[e]);
+        } else {
+          wd[j] = (static_cast<uint32_t>(v[2 * e]) & 0xffffu) |
+                  (static_cast<uint32_t>(v[2 * e + 1]) << 16);
+        }
+      }
+      uint32_t* q = reinterpret_cast<uint32_t*>(p) + c * P::kWords;
+      if constexpr (P::kWords == 4) {
+        *reinterpret_cast<uint4*>(q) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+      } else if constexpr (P::kWords == 2) {
+        *reinterpret_cast<uint2*>(q) = make_uint2(wd[0], wd[1]);
+      } else {
+        *q = wd[0];
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (d0 + k < n) p[k] = static_cast<T>(v[k]);
+}
+
+// Where a ring row filled by fill_cover from src holds the run: src's
+// element offset past a 16-byte boundary.
+template <typename T>
+__device__ __forceinline__ int cover_start(const T* src) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(src) / sizeof(T)) %
+                          (16 / sizeof(T)));
+}
+
+// A depth run of n elements from src into a ring row (16-byte aligned,
+// at least cover_start(src) + n elements rounded up to 16 bytes) by
+// cp.async, in the 16-byte pieces that cover it from the boundary at or
+// below src (the lanes take them in turn), so that a run anywhere keeps
+// its loads in flight as aligned ones do; the row then holds the run from
+// element cover_start(src). A piece that would pass `end`, the end of the
+// launch's volumes, is copied an element at a time up to it. Commits no
+// copy group.
+template <typename T>
+__device__ __forceinline__ void fill_cover(T* dst, const T* src, int n,
+                                           const T* end, int lane) {
+  constexpr int kPer = 16 / sizeof(T);
+  const T* base = src - cover_start(src);
+  const int pieces = (cover_start(src) + n + kPer - 1) / kPer;
+  for (int c = lane; c < pieces; c += 32) {
+    const T* p = base + c * kPer;
+    if (p + kPer <= end) {
+      cp_async16(dst + c * kPer, p);
+    } else {
+      for (int e = 0; e < kPer && p + e < end; ++e) dst[c * kPer + e] = p[e];
+    }
+  }
+}
+
+// A lane's K elements of one position (its costs, or an accumulator's) in
+// registers: int32 one a register, int16 two to a register (unpacked as
+// they are used, so that the 16-depth forms hold 8 registers and not 16).
+template <typename T, int K>
+struct RunRegs {
+  static constexpr int kRegs = sizeof(T) == 2 ? K / 2 : K;
+  uint32_t r[kRegs];
+  // Depths [d0, d0 + K) of a run of n at p: pieces where vec and the
+  // lane's K lie inside n, else one element at a time (0 past n).
+  __device__ __forceinline__ void load(const T* p, int d0, int n, bool vec) {
+    using P = RunPiece<T, K>;
+    if (vec && d0 + K <= n) {
+#pragma unroll
+      for (int c = 0; c < P::kCount; ++c) {
+        uint32_t wd[P::kWords];
+        load_piece<P::kWords>(
+            reinterpret_cast<const int16_t*>(p) + c * 2 * P::kWords, wd);
+#pragma unroll
+        for (int j = 0; j < P::kWords; ++j) r[c * P::kWords + j] = wd[j];
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int v = d0 + k < n ? static_cast<int>(p[k]) : 0;
+      if constexpr (sizeof(T) == 4) {
+        r[k] = static_cast<uint32_t>(v);
+      } else if (k & 1) {
+        r[k >> 1] |= static_cast<uint32_t>(v) << 16;
+      } else {
+        r[k >> 1] = static_cast<uint32_t>(v) & 0xffffu;
+      }
+    }
+  }
+  __device__ __forceinline__ int at(int k) const {
+    if constexpr (sizeof(T) == 4) {
+      return static_cast<int>(r[k]);
+    } else {
+      return (k & 1) ? static_cast<int>(r[k >> 1]) >> 16
+                     : static_cast<int>(static_cast<int16_t>(r[k >> 1] &
+                                                             0xffffu));
+    }
+  }
+};
+
+// The sums of two 16-byte pieces, element by element, wrapping as the
+// elements do (int16: two to a word, one SIMD add).
+template <typename T>
+__device__ __forceinline__ int4 add_piece(int4 a, int4 b) {
+  if constexpr (sizeof(T) == 2) {
+    return make_int4(
+        static_cast<int>(__vadd2(static_cast<unsigned>(a.x), b.x)),
+        static_cast<int>(__vadd2(static_cast<unsigned>(a.y), b.y)),
+        static_cast<int>(__vadd2(static_cast<unsigned>(a.z), b.z)),
+        static_cast<int>(__vadd2(static_cast<unsigned>(a.w), b.w)));
+  } else {
+    return make_int4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+}
+
+// Element j (a constant) of a 16-byte piece of T.
+template <typename T>
+__device__ __forceinline__ T piece_at(const int4& v, int j) {
+  constexpr int kPerWord = 4 / static_cast<int>(sizeof(T));
+  const int q = j / kPerWord;
+  const unsigned wd =
+      static_cast<unsigned>(q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w);
+  if constexpr (sizeof(T) == 4) {
+    return static_cast<T>(wd);
+  } else {
+    return static_cast<T>((j & 1) ? wd >> 16 : wd & 0xffffu);
+  }
+}
+
+// A staged run of n elements, held from element `mis` of st (16-byte
+// aligned) on, out to dst, where dst - mis is 16-byte aligned, plus (kAcc)
+// the run at acc (the accumulator's, in its ring row): the lanes take the
+// 16-byte pieces in turn, each read whole (st's and acc's rows hold whole
+// pieces) and written whole where the run covers it. Without acc the
+// run's first and last pieces go out element by element from the piece's
+// registers, unrolled. With acc they, and every piece where acc is not
+// aligned as st is, go an element at a time (a piece's registers there
+// cost the 1024-thread in-place form 36 bytes of spill, PERF.md). The sum
+// never holds a lane's registers.
+template <typename T, bool kAcc>
+__device__ __forceinline__ void stage_out(const T* st, int mis, int n,
+                                          T* dst, const T* acc, int lane) {
+  constexpr int kPer = 16 / sizeof(T);
+  T* base = dst - mis;
+  const int end = mis + n;
+  if constexpr (kAcc) {
+    const T* abase = acc - mis;  // abase[e] is added to st[e]
+    const bool whole = reinterpret_cast<uintptr_t>(abase) % 16 == 0;
+    for (int c = lane; c * kPer < end; c += 32) {
+      const int lo = c * kPer;
+      if (whole && lo >= mis && lo + kPer <= end) {
+        reinterpret_cast<int4*>(base)[c] =
+            add_piece<T>(reinterpret_cast<const int4*>(st)[c],
+                         reinterpret_cast<const int4*>(abase)[c]);
+      } else {
+        for (int e = max(lo, mis); e < min(lo + kPer, end); ++e)
+          base[e] = static_cast<T>(st[e] + abase[e]);
+      }
+    }
+  } else {
+    for (int c = lane; c * kPer < end; c += 32) {
+      const int lo = c * kPer;
+      const int4 v = reinterpret_cast<const int4*>(st)[c];
+      if (lo >= mis && lo + kPer <= end) {
+        reinterpret_cast<int4*>(base)[c] = v;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          if (lo + j >= mis && lo + j < end) base[lo + j] = piece_at<T>(v, j);
+      }
+    }
+  }
+}
+
+// The chain's step barrier (kDeepBarrier): all W warps of the block.
+__device__ __forceinline__ void deep_barrier() {
+  if constexpr (kDeepBarrier == 1) {
+    asm volatile("bar.sync 1, %0;" ::"r"(blockDim.x) : "memory");
+  } else {
+    __syncthreads();
+  }
+}
+
+// One path of B problems in one direction at K depths a lane, one chain a
+// block of W = blockDim.x / 32 warps (the design is at the head of this
+// file). Chains, storage (kAdd) and modes as for sgm_path_kernel. a16:
+// the strides are multiples of 16 bytes and cost and out 16-byte aligned,
+// so a warp's slice that starts and ends on 16 bytes fills its ring in
+// 16-byte pieces (otherwise the 4-byte words that cover it); vec: the
+// strides and out are aligned to RunPiece's pieces, so a lane's run of out
+// is written in them.
+template <typename T, int K, bool kAdd>
+__global__ void __launch_bounds__(deep_max_warps(K) * 32)
+    sgm_deep_kernel(const T* __restrict__ cost,
+                    const int32_t* __restrict__ inten, T* out, int B, int X,
+                    int L, int D, long long vb, long long vx, long long vl,
+                    long long ib, long long ix, long long il, int reverse,
+                    int shift, int p1, int p2, bool a16, bool vec) {
+  using Ring = DeepRing<T, K, kAdd>;
+  using Run = RunPiece<T, K>;
+  constexpr int S = Ring::kStages, A = Ring::kArrays, R = Ring::kRow;
+  // The covering pieces fill int16 rings (kDeepFill 2), fill_run int32's.
+  constexpr bool kCover =
+      kDeepFill == 1 || (kDeepFill == 2 && sizeof(T) == 2);
+  const bool stage =
+      (kDeepStageOut >= 1 && Run::kBytes > 16) ||
+      (kDeepStageOut == 2 &&
+       !(vec && (Run::kBytes == 4 || Run::kBytes == 8 || Run::kBytes == 16)));
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // the rings
+  __shared__ int p2a_tab[256];  // P2a by |dI| below 256
+  // [parity][warp]: each warp's minimum of the line it computed at a step
+  // of that parity, and the line at its first and its last depth.
+  __shared__ int s_min[2][kDeepMaxWarps];
+  __shared__ int s_lo[2][kDeepMaxWarps];
+  __shared__ int s_hi[2][kDeepMaxWarps];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  // [stage][cost, acc][d], this warp's
+  T* ring = reinterpret_cast<T*>(smem_raw) + w * (S * A * R);
+  fill_p2a(p2a_tab, p1, p2);
+  __syncthreads();
+  const long long n_chains = shift ? static_cast<long long>(L) + X - 1
+                                   : static_cast<long long>(L);
+  const long long b = blockIdx.x / n_chains;
+  const long long c = blockIdx.x - b * n_chains;
+  int t0 = 0;
+  int l0;
+  if (c < L) {
+    l0 = static_cast<int>(c);
+  } else {
+    t0 = static_cast<int>(c - L + 1);
+    l0 = shift > 0 ? 0 : L - 1;
+  }
+  int n = X - t0;
+  if (shift > 0) n = min(n, L - l0);
+  if (shift < 0) n = min(n, l0 + 1);
+  const long long x0 = reverse ? X - 1 - t0 : t0;
+  const long long step = (reverse ? -vx : vx) + shift * vl;
+  const int32_t* ic = inten + b * ib + x0 * ix + l0 * il;
+  const long long istep = (reverse ? -ix : ix) + shift * il;
+  int ws = 0, runs = 0;
+  deep_slice(D, K, W, w, &ws, &runs);
+  const int wn = min(runs * K, D - ws);  // this warp's depths
+  const T* cc = cost + b * vb + x0 * vx + l0 * vl + ws;
+  T* co = out + b * vb + x0 * vx + l0 * vl + ws;
+  const T* ca = kAdd ? co : nullptr;  // in place: read before written
+  constexpr int kPer = 16 / sizeof(T);
+  const bool async16 = a16 && ws % kPer == 0 && wn % kPer == 0;
+  const T* cend = cost + B * vb;  // the launch's volumes' ends
+  const T* aend = out + B * vb;
+  const int p2min = p1 * 3 / 2;
+  auto row = [&](int s, int a) { return ring + ((s % S) * A + a) * R; };
+  auto fill = [&](int s) {
+    if (s < n) {
+      const long long go = s * step;
+      if constexpr (kCover) {
+        fill_cover<T>(row(s, 0), cc + go, wn, cend, lane);
+        if constexpr (kAdd) fill_cover<T>(row(s, A - 1), ca + go, wn, aend,
+                                          lane);
+      } else {
+        fill_run<T, true>(row(s, 0), kAdd ? row(s, A - 1) : nullptr,
+                          cc + go, kAdd ? ca + go : nullptr, wn, async16,
+                          cend, aend, lane);
+      }
+    }
+    cp_async_commit();
+  };
+  // Where the ring row filled from src holds the run.
+  auto start_of = [&](const T* src) {
+    if constexpr (kCover) return cover_start<T>(src);
+    return ring_start<T, true>(src, async16);
+  };
+  // Intensities of steps [32 c, 32 c + 32), lane j holding step 32 c + j.
+  auto inten_run = [&](int q) {
+    const int s = q * 32 + lane;
+    return s < n ? ic[s * istep] : 0;
+  };
+  auto p2a_of = [&](int i_cur, int i_prev) {
+    const int d = abs(i_cur - i_prev);
+    return d < 256 ? p2a_tab[d] : max(p2min, p2 / (d + 1));
+  };
+
+  for (int s = 0; s < S - 1; ++s) fill(s);
+  int run = inten_run(0), next_run = inten_run(1);
+  const int d0 = lane * K;  // this lane's first depth in the slice
+  int prev[K];  // the line, updated in place
+  int prev_i = 0;
+  for (int t = 0; t < n; ++t) {
+    __syncwarp();  // every lane has read the stage of step t - 1
+    fill(t + S - 1);  // into that stage
+    cp_async_wait<S - 1>();  // this lane's copies for step t
+    __syncwarp();  // and every other lane's
+    if (t > 0 && (t & 31) == 0) {
+      run = next_run;
+      next_run = inten_run((t >> 5) + 1);
+    }
+    const int it = __shfl_sync(kFull, run, t & 31);
+    const long long go = t * step;
+    const int sc = start_of(cc + go);
+    RunRegs<T, K> cur;
+    cur.load(row(t, 0) + sc + d0, d0, wn,
+             (sc * static_cast<int>(sizeof(T))) % Run::kPiece == 0);
+    int mn = kBig;
+    if (t == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        prev[k] = d0 + k < wn ? cur.at(k) : kBig;
+        mn = min(mn, prev[k]);
+      }
+    } else {
+      // The block's line of step t - 1: its minimum and the depths just
+      // past this warp's ends, published by every warp before the barrier.
+      const int par = t & 1;
+      deep_barrier();
+      const int m =
+          __reduce_min_sync(kFull, lane < W ? s_min[par][lane] : kBig);
+      int dn = __shfl_up_sync(kFull, prev[K - 1], 1);     // prev[d0 - 1]
+      int right = __shfl_down_sync(kFull, prev[0], 1);    // prev[d0 + K]
+      if (lane == 0) dn = w > 0 ? s_hi[par][w - 1] : kBig;
+      if (lane == runs - 1) right = w + 1 < W ? s_lo[par][w + 1] : kBig;
+      const int mp = m + p2a_of(it, prev_i);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int a = prev[k];
+        const int up = k == K - 1 ? right : prev[k + 1];
+        int v = sgm_step(cur.at(k), a, dn, up, p1, mp, m);
+        if (d0 + k >= wn) v = kBig;
+        dn = a;
+        prev[k] = v;
+        mn = min(mn, v);
+      }
+    }
+    // Published for step t + 1: slot (t + 1) & 1 is written again at step
+    // t + 2, after the barrier that every reader of it at t + 1 has passed.
+    mn = __reduce_min_sync(kFull, mn);
+    if (lane == 0) {
+      s_min[(t + 1) & 1][w] = mn;
+      s_lo[(t + 1) & 1][w] = prev[0];
+    }
+    if (lane == runs - 1) s_hi[(t + 1) & 1][w] = prev[K - 1];
+    // The accumulator's run of this position in its ring row.
+    const int sa = kAdd ? start_of(ca + go) : 0;
+    const T* acc_run = kAdd ? row(t, A - 1) + sa : nullptr;
+    if (stage) {
+      // Through the cost row just read, from the element that puts the
+      // run's 16-byte boundaries on the row's, so that consecutive lanes
+      // write consecutive pieces; the accumulator is added on the way
+      // out.
+      T* st = row(t, 0);
+      const int mis = cover_start<T>(co + go);
+      __syncwarp();  // every lane has read the stage
+      store_run<T, K>(st + mis + d0, prev, d0, wn,
+                      (mis * static_cast<int>(sizeof(T))) % Run::kPiece == 0);
+      __syncwarp();
+      stage_out<T, kAdd>(st, mis, wn, co + go, acc_run, lane);
+    } else if constexpr (kAdd) {
+      RunRegs<T, K> av;
+      av.load(acc_run + d0, d0, wn,
+              (sa * static_cast<int>(sizeof(T))) % Run::kPiece == 0);
+      int sum[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) sum[k] = prev[k] + av.at(k);
+      store_run<T, K>(co + go + d0, sum, d0, wn, vec);
+    } else {
+      store_run<T, K>(co + go + d0, prev, d0, wn, vec);
+    }
+    prev_i = it;
+  }
+}
+
+template <typename T, int K, bool kAdd>
+cudaError_t launch_deep(const void* cost, const void* inten, void* out,
+                        int B, int X, int L, int D, long long vb,
+                        long long vx, long long vl, long long ib,
+                        long long ix, long long il, int reverse, int shift,
+                        int p1, int p2, cudaStream_t stream) {
+  if constexpr (K < kDeepMinK) {
+    return cudaErrorInvalidValue;  // deep_shape gives no such K
+  } else {
+    using Ring = DeepRing<T, K, kAdd>;
+    const int W = (D + 32 * K - 1) / (32 * K);
+    if (W > deep_max_warps(K)) return cudaErrorInvalidConfiguration;
+    const int smem = W * Ring::kWarpBytes;
+    cudaError_t e = cudaFuncSetAttribute(
+        sgm_deep_kernel<T, K, kAdd>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    constexpr long long kPer = 16 / sizeof(T);
+    const bool a16 = vb % kPer == 0 && vx % kPer == 0 && vl % kPer == 0 &&
+                     reinterpret_cast<uintptr_t>(cost) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    constexpr int kPiece = RunPiece<T, K>::kPiece;
+    constexpr long long kPe = kPiece / sizeof(T);
+    const bool vec = vb % kPe == 0 && vx % kPe == 0 && vl % kPe == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % kPiece == 0;
+    const long long n_chains =
+        shift ? static_cast<long long>(L) + X - 1 : static_cast<long long>(L);
+    const long long blocks = static_cast<long long>(B) * n_chains;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    sgm_deep_kernel<T, K, kAdd>
+        <<<static_cast<unsigned>(blocks), W * 32, smem, stream>>>(
+            static_cast<const T*>(cost), static_cast<const int32_t*>(inten),
+            static_cast<T*>(out), B, X, L, D, vb, vx, vl, ib, ix, il, reverse,
+            shift, p1, p2, a16, vec);
+    return cudaGetLastError();
+  }
+}
+
+template <typename T, bool kAdd>
+cudaError_t launch_deep_k(const void* cost, const void* inten, void* out,
+                          int B, int X, int L, int D, long long vb,
+                          long long vx, long long vl, long long ib,
+                          long long ix, long long il, int reverse, int shift,
+                          int p1, int p2, cudaStream_t s) {
+  int W = 0, K = 0;
+  deep_shape(D, &W, &K);
+  switch (K) {
+    case 2: return launch_deep<T, 2, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 4: return launch_deep<T, 4, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 6: return launch_deep<T, 6, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 8: return launch_deep<T, 8, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 10: return launch_deep<T, 10, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 12: return launch_deep<T, 12, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    case 14: return launch_deep<T, 14, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+    default: return launch_deep<T, 16, kAdd>(cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift, p1, p2, s);
+  }
+}
+
 }  // namespace
 
 // One path of B problems in one direction. elem_bytes = 2: int16
@@ -2169,9 +2582,9 @@ extern "C" int sgm_agg_path(const void* cost, const void* inten, void* out,
 }
 
 // sgm_agg_path's work for kPathMaxD < D <= kDeepMaxD (any 1 <= D <=
-// kDeepMaxD is taken): one path of B problems in one direction, one
-// block of ceil(D / 512) warps per chain. Arguments, storage and result
-// as for sgm_agg_path.
+// kDeepMaxD is taken): one path of B problems in one direction, one block
+// of W warps of K depths a lane per chain (deep_shape). Arguments,
+// storage and result as for sgm_agg_path.
 extern "C" int sgm_agg_deep(const void* cost, const void* inten, void* out,
                             int elem_bytes, int add, int B, int X, int L,
                             int D, long long vb, long long vx, long long vl,
@@ -2183,15 +2596,15 @@ extern "C" int sgm_agg_deep(const void* cost, const void* inten, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 2 && add)
-    return static_cast<int>(launch_deep<int16_t, true>(
+    return static_cast<int>(launch_deep_k<int16_t, true>(
         cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
         p1, p2, s));
   if (elem_bytes == 2 && !add)
-    return static_cast<int>(launch_deep<int16_t, false>(
+    return static_cast<int>(launch_deep_k<int16_t, false>(
         cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
         p1, p2, s));
   if (elem_bytes == 4 && !add)
-    return static_cast<int>(launch_deep<int32_t, false>(
+    return static_cast<int>(launch_deep_k<int32_t, false>(
         cost, inten, out, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, shift,
         p1, p2, s));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -33,7 +33,8 @@ than 512 depths `sgm_deep_sweep_kernel` takes every sweep of distinct
 shifts in one launch (a straight-only sweep over any number of lines; one
 with a diagonal cooperatively, in chunks of problems whose lines the card
 holds at once), and `sgm_deep_kernel`, one launch per path with one
-chain's depths split across the warps of a block, the rest (a repeated
+chain's depths split evenly across the warps of a block (`deep_shape`,
+`deep_slices`), each filling its own cp.async ring, the rest (a repeated
 shift, a problem too wide, row 5). `aggregate_batch` makes 2 line
 launches (row 2) and 2 sweep launches (row 1); `aggregate` the same 4,
 counted as row 3; `fused_pass_bidir` 2; so do they at 129 to 2048 depths
@@ -51,7 +52,7 @@ kernels take any H and W. The line, sweep and path kernels hold a line in
 one warp, built for 1-4, 8 and 16 depths per lane (D <= 128, the plane
 count of both SGM paths by default, 256 and 512: more planes through
 `SGMOptions.num_steps`), and the two deep kernels take 512 < D <= 16384
-(``MAX_D``), up to 512 depths a warp. More depths raise on the card; the
+(``MAX_D``), up to 16 depths a lane and 32 warps a line. More depths raise on the card; the
 plain sweep takes any D.
 
 ``launches`` counts kernel launches by TPU kernel row, and
@@ -96,8 +97,8 @@ _deep_geometry_cache = {}  # (device, D) -> (max_lines, edge_words, sms)
 TILE = 16
 # Depths of the sweep kernel's fixed tile of 16 lines (32 lanes x 4; the
 # main path's), the most that the line, sweep and path kernels hold (32
-# lanes x 16; kPathMaxD in the source), and the most that sgm_deep_kernel
-# holds (32 warps of 512; kDeepMaxD).
+# lanes x 16; kPathMaxD in the source), and the most that the deep kernels
+# hold (32 warps of 512; kDeepMaxD).
 SWEEP_MAX_D = 128
 PATH_MAX_D = 512
 MAX_D = 16384
@@ -110,6 +111,9 @@ CPU_RESIDENT = 264
 H100_SMS = 132
 H100_SMEM_PER_BLOCK = 232448
 DEEP_SWEEP_DIAG_THREADS = 640
+# About how many warps of sgm_deep_kernel walk a chain (kDeepWarps in the
+# source): `deep_shape` chooses the depths a lane from it.
+DEEP_WARPS = 4
 # sgm_sweep3_kernel's ring stages by depths a lane beyond 128 depths
 # (Sweep3<K>::kStages in the source).
 WIDE_SWEEP_STAGES = {8: 4, 16: 3}
@@ -161,10 +165,12 @@ def library_path(defines: tuple = ()) -> str:
     return os.path.join(BUILD_DIR, f"libsgm_agg_{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False, defines: tuple = ()) -> str:
+def build(verbose: bool = False, defines: tuple = (),
+          report: list | None = None) -> str:
     """Compile `csrc/sgm_agg.cu` for sm_90a with nvcc (once per source
     version and ``defines``) and return the library path. ``verbose``
-    prints nvcc's register and spill report."""
+    prints nvcc's register and spill report; a ``report`` list receives it
+    instead."""
     out = library_path(defines)
     if os.path.exists(out):
         return out
@@ -174,14 +180,16 @@ def build(verbose: bool = False, defines: tuple = ()) -> str:
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
     cmd[1:1] = [f"-D{d}" for d in defines]
-    if verbose:
+    if verbose or report is not None:
         cmd[1:1] = ["-Xptxas", "-v"]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
-        if verbose:
+        if report is not None:
+            report.append(proc.stdout + proc.stderr)
+        elif verbose:
             print(proc.stdout + proc.stderr, flush=True)
         os.replace(tmp, out)
     finally:
@@ -282,6 +290,37 @@ def deep_sweep_shape(D: int, diag: bool = False) -> tuple:
     return W, k + (k & 1)
 
 
+def deep_shape(D: int, warps: int = DEEP_WARPS) -> tuple:
+    """(warps per chain W, depths per lane K) of `sgm_deep_kernel` at D >
+    ``PATH_MAX_D`` depths (``deep_shape`` in the source, built with
+    ``SGM_DEEP_WARPS`` = ``warps``): K = ceil(D / (32 warps)) rounded up to
+    even, so that about ``warps`` warps walk a chain, at least what keeps W
+    <= 32 and no less than at D = 513, at most 16; W = ceil(D / (32 K)).
+    With a diagonal `deep_sweep_shape` gives the same at 4 warps."""
+    def even(k):
+        return k + (k & 1)
+    k = max(even(-(-D // (32 * warps))), even(-(-(PATH_MAX_D + 1)
+                                                // (32 * warps))),
+            even(-(-D // (32 * 32))))
+    k = min(k, 16)
+    return -(-D // (32 * k)), k
+
+
+def deep_slices(D: int, warps: int = DEEP_WARPS) -> list:
+    """Each warp's (first depth, depths) of a chain in `sgm_deep_kernel`
+    (``deep_slice`` in the source): the ceil(D / K) lane runs of K depths
+    spread evenly over the W warps of `deep_shape`, the first (runs % W)
+    warps one run more."""
+    W, K = deep_shape(D, warps)
+    runs = -(-D // K)
+    q, rem = divmod(runs, W)
+    out = []
+    for w in range(W):
+        first = (w * q + min(w, rem)) * K
+        out.append((first, min((q + (w < rem)) * K, D - first)))
+    return out
+
+
 def _align16(x: int) -> int:
     return (x + 15) & ~15
 
@@ -355,8 +394,9 @@ def path_kernel(D: int) -> str:
     """The kernel that runs one path per launch at D depths: "path"
     (`sgm_path_kernel`, one warp per chain, each with a private ring of
     scan positions filled by cp.async ahead of the walk) up to
-    ``PATH_MAX_D``, "deep" (`sgm_deep_kernel`, a block of ceil(D / 512)
-    warps per chain) above."""
+    ``PATH_MAX_D``, "deep" (`sgm_deep_kernel`, a block of `deep_shape`'s
+    W warps per chain, each walking its slice of the depths with its own
+    ring) above."""
     return "path" if D <= PATH_MAX_D else "deep"
 
 

@@ -253,6 +253,35 @@ def test_deep_sweep_stand_in():
     assert cuda_agg.deep_sweep_smem_bytes(5, 2048) == 206848
 
 
+@pytest.mark.parametrize("D", [513, 520, 640, 1024, 1025, 2048, 4097, 10241,
+                               16384])
+def test_deep_shape(D):
+    """`sgm_deep_kernel`'s warps a chain and depths a lane: K even and at
+    most 16, W at most 32 (at most the launch bound's 4 below 16 depths a
+    lane), W x 32 x K >= D, the default's (3, 6), (4, 8) and (4, 16) at
+    513, 1024 and 2048 depths as `deep_sweep_shape` gives them with a
+    diagonal; and the warps' slices (`deep_slices`) cover the D depths in
+    order, each at most 32 K, none fewer than half of another's. The
+    probes' 8 and 16 warps a chain keep the same rules."""
+    assert cuda_agg.deep_shape(D) == cuda_agg.deep_sweep_shape(D, diag=True)
+    for warps in (cuda_agg.DEEP_WARPS, 8, 16):
+        W, K = cuda_agg.deep_shape(D, warps)
+        assert K % 2 == 0 and 2 <= K <= 16 and 1 <= W <= 32, (warps, W, K)
+        assert K == 16 or W <= warps
+        assert W * 32 * K >= D
+        slices = cuda_agg.deep_slices(D, warps)
+        assert len(slices) == W
+        first = 0
+        for f, n in slices:
+            assert f == first and f % K == 0 and 0 < n <= 32 * K
+            first += n
+        assert first == D
+        sizes = [n for _, n in slices]
+        assert 2 * min(sizes) >= max(sizes), (warps, sizes)
+    assert [cuda_agg.deep_shape(d) for d in (513, 1024, 2048, 16384)] == [
+        (3, 6), (4, 8), (4, 16), (32, 16)]
+
+
 @pytest.mark.parametrize("B, L, lines, sms, want", [
     (1, 640, 5, 132, [(0, 1, 5)]),
     (2, 640, 5, 132, [(0, 1, 5), (1, 1, 5)]),

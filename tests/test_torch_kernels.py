@@ -17,7 +17,10 @@ depths every entry point is held to its plan's launches and bit-equal to
 plain on `sgm_deep_sweep_kernel` (several lines a block, many blocks, a
 ragged last block, odd and aligned D) and on `sgm_deep_kernel` where a
 problem does not fit, and a repeated 3-path sweep catches a race in the
-hand-off between blocks.
+hand-off between blocks. `sgm_deep_kernel` alone is held in its three
+storage modes at odd, unaligned and aligned D with a ragged last warp, on
+volumes that start one element into their storage, and repeated to catch
+a race in its warps' exchange.
 
 These tests need a CUDA device and skip without one. This file imports
 neither JAX nor the JAX package, so on the GPU machine it runs without
@@ -263,7 +266,7 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 
 # 129-512: sgm_line_kernel and sgm_sweep3_kernel with 8 or 16 depths a
 # lane; 513-16384: sgm_deep_sweep_kernel for a sweep of distinct shifts
-# that fits, else sgm_deep_kernel, one block of ceil(D / 512) warps a
+# that fits, else sgm_deep_kernel, one block of `deep_shape`'s warps a
 # chain per path.
 DEEP = [129, 192, 256, 512, 513, 1024, 2048, 4608, 16384]
 
@@ -683,6 +686,86 @@ def test_deep_sweep_repeats_bit_equal(cuda):
         got = cuda_agg.fused_pass(cost, inten, acc, False, (0, 1, -1), 6, 96)
         assert cuda_agg.kernel_launches["deep_sweep"] == 1
         assert torch.equal(got.to(torch.int32), want), f"repetition {rep}"
+
+
+# sgm_deep_kernel: a block of `deep_shape`'s W warps a chain, each warp a
+# slice of the depths (`deep_slices`) through its own cp.async ring. D =
+# 513, 2049 and 4097 are odd (every ring takes the 4-byte words that cover
+# a run, and a row may start one element early); 520 and 1000 give slices
+# that do not start or end on 16 bytes (174 and 248 depths) next to ones
+# that do; 1024 and 16384 fill every lane with 16-byte pieces; at 1000,
+# 2049 and 4097 the last warp's last lane holds part of a run (a ragged
+# tail); 16384 is the 32-warp form.
+DEEP_CHAIN = [513, 520, 1000, 1024, 2049, 4097, 16384]
+
+
+@pytest.mark.parametrize("mode", ["add", "write", "write32"])
+@pytest.mark.parametrize("D", DEEP_CHAIN)
+def test_deep_kernel_equals_plain(cuda, D, mode):
+    """One `sgm_deep_kernel` launch over [B, A, C, D] in each storage mode
+    (int16 adding in place, int16 writing, int32 writing), with shifts 0,
+    +1 and -1, forward and reverse, scanning axis 1 and axis 2 (a chain's
+    positions strided by D, a diagonal's by D +- C D); bit-equal to the
+    plain version."""
+    shape = (2, 5, 6, D) if D < 4096 else (1, 4, 5, D)
+    cost, inten, acc = _path_volumes(shape, D + len(mode), cuda, mode)
+    for scan in (1, 2):
+        for shift in (0, 1, -1):
+            for reverse in (False, True):
+                plan = [cuda_agg.Launch("deep", scan, reverse, mode[:5],
+                                        (shift,), "fused_pass", 0, shape[0])]
+                a = acc if mode == "add" else None
+                cuda_agg.reset_launches()
+                got = cuda_agg.run_plan(plan, cost, inten, a, 6, 96)
+                torch.cuda.synchronize()
+                assert cuda_agg.kernel_launches["deep"] == 1
+                want = cuda_agg.plain_run_plan(plan, cost, inten, a, 6, 96)
+                assert got.dtype == cost.dtype
+                assert torch.equal(got, want), (scan, shift, reverse)
+
+
+@pytest.mark.parametrize("D", [513, 1024, 2049])
+def test_deep_kernel_takes_volumes_at_an_odd_element(cuda, D):
+    """Volumes that start one element into their storage: no run of the
+    cost or the accumulator starts on 16 bytes, and at int16 every other
+    one on the odd half of a word, so each ring row holds its run from one
+    element early and the staged writes start mid-piece; every mode and
+    scan axis, bit-equal to plain."""
+    shape = (2, 7, 5, D)
+    for mode, shift in (("add", 1), ("write", -1), ("write32", 0)):
+        cost, inten, acc = _path_volumes(shape, D + 5, cuda, mode)
+        cost, acc = _at_odd_element(cost), _at_odd_element(acc)
+        for scan in (1, 2):
+            plan = [cuda_agg.Launch("deep", scan, True, mode[:5], (shift,),
+                                    "fused_pass", 0, shape[0])]
+            a = acc if mode == "add" else None
+            got = cuda_agg.run_plan(plan, cost, inten, a, 6, 96)
+            want = cuda_agg.plain_run_plan(plan, cost, inten, a, 6, 96)
+            assert torch.equal(got, want), (mode, scan)
+
+
+def test_deep_kernel_repeats_bit_equal(cuda):
+    """A race in the warps' exchange shows as a rare mismatch: row 5 at
+    [64, 640, 513] and a repeated shift adding in place at [64, 640, 1024]
+    (two `sgm_deep_kernel` launches), each 20 times, each run bit-equal to
+    the plain version."""
+    g = torch.Generator(device="cpu").manual_seed(46)
+    cost32 = (torch.randint(0, 127, (64, 640, 513), generator=g,
+                            dtype=torch.int32) * 300).to(cuda)
+    inten32 = torch.randint(0, 255, (64, 640), generator=g,
+                            dtype=torch.int32).to(cuda)
+    want32 = cuda_agg.plain_scan_direction(cost32, inten32, 1, 6, 96)
+    cost, inten = _volume((64, 640, 1024), seed=47, device=cuda)
+    acc, _ = _volume(cost.shape, seed=48, device=cuda, hi=500)
+    want = cuda_agg.plain_fused_pass_batch(cost[None], inten[None], acc[None],
+                                           False, (1, 1), 6, 96)[0]
+    for rep in range(20):
+        cuda_agg.reset_launches()
+        got = cuda_agg.scan_direction(cost32, inten32, 1, 6, 96)
+        assert torch.equal(got, want32), f"row 5, repetition {rep}"
+        got = cuda_agg.fused_pass(cost, inten, acc, False, (1, 1), 6, 96)
+        assert torch.equal(got.to(torch.int32), want), f"add, repetition {rep}"
+        assert cuda_agg.kernel_launches["deep"] == 3
 
 
 # The line and sweep kernels at 8 and 16 depths a lane, on [X, L, D]: L >

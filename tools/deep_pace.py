@@ -7,11 +7,13 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python tools/deep_pace.py [--reps 10] [--depths 513 1024 2048]
     python tools/deep_pace.py --depths 129 192 256 512 [--root PARENT]
     python tools/deep_pace.py --row5 [--depths 256 512 2048] [--root PARENT]
+    python tools/deep_pace.py --probe-deep [--root PARENT] [--knobs ...]
 
 At [640, 640, D] int16 (the deep-plane shapes of `chip_smoke.py`) it
 builds the kernels (printing ptxas' registers and spills of every
 instantiation of `sgm_line_kernel`, `sgm_sweep3_kernel`,
-`sgm_deep_sweep_kernel` and `sgm_path_kernel`, one line each) and times
+`sgm_deep_sweep_kernel`, `sgm_path_kernel` and `sgm_deep_kernel`, one line
+each) and times
 `aggregate`'s plan with CUDA events:
 
 - the plan `cuda_agg.plan_route` gives (two straight sweeps and two
@@ -32,6 +34,14 @@ kernels from its own source (its ptxas report too) and times its per-path
 route in the same turns (new, old, parent, parent, old, new), so that two
 trees' one-path-per-launch kernels are compared in one process on one
 card, bit for bit as well as by time.
+
+``--probe-deep`` builds `sgm_deep_kernel` with other knobs (warps a chain,
+ring bytes, staged stores, the ring's fill, the kind of barrier;
+`DEEP_VARIANTS`), prints
+each build's ptxas registers and spills for the kernel, and times its
+launches in turns with the ``--root`` checkout's: row 5 at [640, 640, D],
+D = 513, 1024 and 2048, a diagonal adding in place at D = 1024, and the
+per-path route of `aggregate` at D = 513.
 
 ``--row5`` times Pallas row 5 instead, `scan_direction`'s one launch
 (`sgm_path_kernel` to 512 depths, `sgm_deep_kernel` beyond) on int32
@@ -343,6 +353,109 @@ def probe_path(reps: int, parent, knobs=None) -> dict:
     return out
 
 
+# `sgm_deep_kernel` built with other knobs (the -D defines at the head of
+# `csrc/sgm_agg.cu`): about how many warps walk a chain (so the depths a
+# lane: `cuda_agg.deep_shape`), ring bytes a warp below 16 depths a lane
+# and at 16, when a lane's result goes out through the ring stage (0
+# never, 1 where its run is wider than 16 bytes, 2 also where it is not
+# one aligned piece of 4, 8 or 16 bytes), how a warp fills its ring (0
+# 16-byte pieces where its slice is aligned, else 4-byte words; 1 the
+# 16-byte pieces that cover the slice; 2 the first for int32, the second
+# for int16), and the step's barrier (0 __syncthreads, 1 a named barrier
+# of the chain's threads); for --probe-deep. The first is the default
+# build, the second the first design tried, each other one moves one knob
+# from the default.
+DEEP_KNOBS = [  # (warps, ring bytes, at 16 a lane, stage out, fill, barrier)
+    (4, 8192, 4096, 1, 2, 0), (4, 4096, 4096, 1, 0, 0),
+    (4, 8192, 4096, 1, 0, 0), (4, 8192, 4096, 1, 1, 0),
+    (4, 4096, 4096, 1, 2, 0), (4, 8192, 8192, 1, 2, 0),
+    (4, 8192, 4096, 2, 2, 0), (4, 8192, 4096, 0, 2, 0),
+    (8, 8192, 4096, 1, 2, 0), (4, 8192, 4096, 1, 2, 1)]
+DEEP_VARIANTS = {
+    f"{w} warps, ring {b / 1024:g}/{b16 / 1024:g} KB, stage {st}, fill {fl}, "
+    f"barrier {br}": (
+        f"SGM_DEEP_WARPS={w}", f"SGM_DEEP_RING_BYTES={b}",
+        f"SGM_DEEP_RING_BYTES_16={b16}", f"SGM_DEEP_STAGE_OUT={st}",
+        f"SGM_DEEP_FILL={fl}", f"SGM_DEEP_BARRIER={br}")
+    for w, b, b16, st, fl, br in DEEP_KNOBS}
+
+
+def probe_deep(reps: int, parent, knobs=None) -> dict:
+    """`sgm_deep_kernel` in every build of DEEP_VARIANTS named in
+    ``knobs`` (all by default; and the parent checkout's, if given), in
+    turns, each run bit-equal to plain, after each build's ptxas lines for
+    the kernel: row 5 (int32, shift 1) at [640, 640, D] for D = 513, 1024
+    and 2048, a diagonal adding into an int16 accumulator at [640, 640,
+    1024], and `aggregate`'s per-path route (8 launches) at [640, 640,
+    513]."""
+    variants = {k: v for k, v in DEEP_VARIANTS.items()
+                if knobs is None or k in knobs}
+    reports = {k: [] for k in variants}
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as ex:
+        paths = dict(zip(variants, ex.map(
+            lambda k: cuda_agg.build(defines=variants[k],
+                                     report=reports[k]), variants)))
+    out = {"ptxas": {}}
+    for k in variants:
+        rows = [r for r in ptxas_summary("".join(reports[k]))
+                if r.startswith("sgm_deep_kernel")]
+        out["ptxas"][k] = rows
+        print(f"{k}:\n  " + "\n  ".join(rows or ["(built before: no "
+                                                   "report)"]), flush=True)
+    libs = {k: cuda_agg.bind(ctypes.CDLL(v)) for k, v in paths.items()}
+    L = cuda_agg.Launch
+    g = torch.Generator(device="cuda").manual_seed(654)
+
+    def vol(D, dtype):
+        c = torch.randint(0, 127, (1, HW, HW, D), generator=g, device="cuda",
+                          dtype=torch.int32)
+        i = torch.randint(0, 256, (1, HW, HW), generator=g, device="cuda",
+                          dtype=torch.int32)
+        return (c * 300 if dtype == torch.int32 else c.to(dtype)), i
+
+    cases = {}
+    for D in (513, 1024, 2048):
+        c, i = vol(D, torch.int32)
+        cases[f"row 5 [640, 640, {D}] shift 1"] = (
+            [L("deep", 2, False, "write", (1,), "scan_direction", 0, 1)], c,
+            i, None)
+    c, i = vol(1024, torch.int16)
+    a = torch.randint(0, 500, c.shape, generator=g, device="cuda",
+                      dtype=torch.int16)
+    cases["diagonal add [640, 640, 1024]"] = (
+        [L("deep", 1, False, "add", (1,), "fused_pass", 0, 1)], c, i, a)
+    c, i = vol(513, torch.int16)
+    plan = cuda_agg.per_path_plan(cuda_agg.plan_route(
+        "aggregate", 1, HW, **cuda_agg.plan_geometry(c)), 513)
+    cases["per-path aggregate [640, 640, 513]"] = (plan, c, i, None)
+    own = cuda_agg._library()
+    for name, (plan, c, i, a) in cases.items():
+        want = cuda_agg.plain_run_plan(plan, c, i, a, P1, P2)
+        runs = {}
+        for k, lib in libs.items():
+            def run(lib=lib, plan=plan, c=c, i=i, a=a):
+                cuda_agg._lib = lib
+                try:
+                    return run_timed(plan, c, i, a)
+                finally:
+                    cuda_agg._lib = own
+            runs[k] = run
+        if parent is not None:
+            pplan = [parent.Launch(*ln) for ln in plan]
+            runs["parent"] = (lambda pplan=pplan, c=c, i=i, a=a:
+                              run_timed(pplan, c, i, a, parent))
+        times = in_turns(runs, want, reps, name)
+        bound = cuda_agg.plan_bytes(plan, tuple(c.shape), c.element_size())
+        out[name] = {"bound_ms": bound / PEAK_BYTES_PER_S * 1e3,
+                     **{k: v["ms"] for k, v in times.items()}}
+        print(f"probe {name}: bound {out[name]['bound_ms']:.4f} ms"
+              + ("" if len(plan) == 1 else " (the plan's bytes)") + "; "
+              + "; ".join(f"{k} {v['ms']:.3f}" for k, v in times.items()),
+              flush=True)
+        del want
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=10)
@@ -358,9 +471,13 @@ def main() -> int:
     ap.add_argument("--probe-path", action="store_true",
                     help="time single sgm_path_kernel launches built with "
                     "other ring sizes, warps and output paths")
+    ap.add_argument("--probe-deep", action="store_true",
+                    help="time single sgm_deep_kernel launches built with "
+                    "other warps a chain, ring sizes, output paths and "
+                    "barriers")
     ap.add_argument("--knobs", nargs="+", default=None,
-                    help="with --probe-path: the PATH_VARIANTS to build "
-                    "(default: all)")
+                    help="with --probe-path or --probe-deep: the "
+                    "PATH_VARIANTS or DEEP_VARIANTS to build (default: all)")
     ap.add_argument("--row5", action="store_true",
                     help="time Pallas row 5 (scan_direction) instead of "
                     "aggregate")
@@ -388,6 +505,10 @@ def main() -> int:
         return 0
     if args.probe_path:
         res["probe_path"] = probe_path(args.reps, parent, args.knobs)
+        print(json.dumps(res), flush=True)
+        return 0
+    if args.probe_deep:
+        res["probe_deep"] = probe_deep(args.reps, parent, args.knobs)
         print(json.dumps(res), flush=True)
         return 0
     if args.row5:
