@@ -19,8 +19,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launch through `sgm_line_kernel` and through `sgm_path_kernel` (the
    same ring design walking a chain), in turns, both bit-equal to plain;
 4. kernel rows 3-5 the same way at the general path's per-direction shape
-   [1440, 1440, 128]: `aggregate` (4 launches) and `fused_pass_bidir` (2
-   launches, row 3), `fused_pass(loop=True)` (row 4), `scan_direction` on
+   [1440, 1440, 128]: `aggregate` (3 launches: 2 `sgm_line_kernel` and
+   one of `sgm_sweep3_kernel`'s two-walk form, which carries the forward
+   and the backward vertical sweep) and `fused_pass_bidir` (1 launch of
+   that form, row 3), both also at [640, 640, 128] (the forward-motion
+   CLI's SGM size), each beside its bound and its plan's bytes floor,
+   `fused_pass(loop=True)` (row 4), `scan_direction` on
    int32 costs above 2^15 with shifts 0, 1 and -1 (row 5,
    `sgm_path_kernel`); then `aggregate_batch` on [1, 8, W, 16]
    with W one tile more than the vertical sweep kernel's resident blocks
@@ -47,7 +51,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    pairs do not rectify: the chain CLI -> `reconstruct_auto_multi` ->
    `reconstruct_auto`'s general-warp fallback -> `reconstruct` ->
    `aggregate`, with row-3 launches > 0 and no row 1-2 launch, and limits
-   set the same way (`tools/jax_cpu_reference.py forward`);
+   set the same way (`tools/jax_cpu_reference.py forward`); the shapes
+   `aggregate` took there and its row-3 launches, 3 a call (48 for its
+   16 calls; 4 a call before the two-walk form) are logged;
 9. the SGM kernels beyond their first reach: a repeated shift through
    `fused_pass` and `fused_pass(loop=True)` (one `sgm_path_kernel` launch
    per listed path), every entry point at D = 129, 192, 256 and 512
@@ -194,7 +200,9 @@ dicts among them), one `{"oracle": {...}}` line with phase 18's, one
 every phase's seconds, the card's name and power limit again, one
 `{"kernels": [...]}` line with the five TPU kernel rows, each naming the
 CUDA kernel that serves it (`sgm_sweep3_kernel` for rows 1 and 4,
-`sgm_line_kernel` for row 2, both for row 3, `sgm_path_kernel` for row
+`sgm_line_kernel` for row 2, `sgm_line_kernel` and
+`sgm_sweep3_kernel<bidir>` for row 3, whose entry lists time, bound,
+plan floor and launches at both of phase 4's shapes, `sgm_path_kernel` for row
 5, whose entry lists its time, bound and share of the bound at every
 shape timed: `by_shape`), the 129-512 route (`sgm_line_kernel` + `sgm_sweep3_kernel` at 8 and
 16 depths a lane), timed on `aggregate` at D = 256 with its launches
@@ -263,6 +271,9 @@ PEAK_BYTES_PER_S = 3.35e12
 SHAPE = (2, 1440, 1696, 128)  # both SGM directions at the main path's size
 MAIN_W = 1440  # the main problem's real width; the rest is INVALID padding
 GEN_SHAPE = (1440, 1440, 128)  # one direction of the general-warp path
+# Row 3 is timed at these [hw, hw, 128] shapes: the general path's, and
+# the forward-motion CLI's SGM on 1280^2 views at the default scale.
+ROW3_HW = (1440, 640)
 
 # Limits of the general-warp path at dim 1440, from the JAX package's own
 # result on this scene at dim 720 on the CPU (coverage 0.8681, median
@@ -444,7 +455,7 @@ REPLACES = {
 # The CUDA kernel that serves each row (at D <= 128).
 KERNEL = {"fused_pass": "sgm_sweep3_kernel",
           "fused_pass_batch": "sgm_line_kernel",
-          "fused_pass_bidir": "sgm_line_kernel + sgm_sweep3_kernel",
+          "fused_pass_bidir": "sgm_line_kernel + sgm_sweep3_kernel<bidir>",
           "fused_pass_loop": "sgm_sweep3_kernel",
           "scan_direction": "sgm_path_kernel"}
 REPS = 10  # timed repetitions of each kernel, each checked bit-equal
@@ -702,31 +713,63 @@ def phase_kernel_rectified() -> dict:
     return rows
 
 
-def phase_kernel_general() -> dict:
-    """Rows 3-5 at the general path's per-direction shape."""
-    cost, inten = _seeded(GEN_SHAPE, 4321)
-    acc = torch.zeros_like(cost)
+def plan_floor_ms(entry: str, cost, **kw) -> float:
+    """The bytes floor of ``entry``'s plan on ``cost`` (`cuda_agg.
+    plan_bytes`), with the copy of acc where the plan adds into one."""
+    plan = cuda_agg.plan_route(entry, 1, cost.shape[1],
+                               **cuda_agg.plan_geometry(cost), **kw)
+    copy = (2 * cost.numel() * cost.element_size()
+            if entry != "aggregate" and plan[0].mode == "add" else 0)
+    return (cuda_agg.plan_bytes(plan, (1,) + tuple(cost.shape))
+            + copy) / PEAK_BYTES_PER_S * 1e3
 
-    cuda_agg.reset_launches()
-    cuda_agg.aggregate(cost, inten, P1, P2)
-    if cuda_agg.launches["fused_pass_bidir"] != 4:
-        raise RuntimeError("aggregate did not launch 4 kernels")
-    cuda_agg.reset_launches()
-    cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1), P1, P2)
-    if cuda_agg.launches["fused_pass_bidir"] != 2:
-        raise RuntimeError("fused_pass_bidir did not launch 2 kernels")
-    agg = compare("aggregate (row 3, 4 launches)",
+
+def row3_at(hw: int, seed: int) -> dict:
+    """Row 3 at [hw, hw, 128]: `aggregate` (3 launches) and
+    `fused_pass_bidir` (1), each launch count checked first, then each
+    held bit-equal and timed beside its bound and plan floor."""
+    cost, inten = _seeded((hw, hw, 128), seed)
+    acc = torch.zeros_like(cost)
+    for name, fn, want in (
+            ("aggregate", lambda: cuda_agg.aggregate(cost, inten, P1, P2),
+             3),
+            ("fused_pass_bidir",
+             lambda: cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1),
+                                               P1, P2), 1)):
+        cuda_agg.reset_launches()
+        fn()
+        kernels = {k: v for k, v in cuda_agg.kernel_launches.items() if v}
+        if cuda_agg.launches["fused_pass_bidir"] != want or \
+                kernels.get("sweep3_bidir") != 1:
+            raise RuntimeError(f"{name} at [{hw}, {hw}, 128] launched "
+                               f"{kernels}, not {want} with one two-walk "
+                               "sweep")
+    agg = compare(f"aggregate [{hw}, {hw}, 128] (row 3, 3 launches)",
                   lambda: cuda_agg.aggregate(cost, inten, P1, P2),
                   lambda: cuda_agg.plain_aggregate(cost, inten, P1, P2),
                   acc_in=False)
+    agg.update(launches_per_call=3,
+               plan_floor_ms=plan_floor_ms("aggregate", cost))
+    pair = compare(
+        f"fused_pass_bidir [{hw}, {hw}, 128] (row 3, 1 launch)",
+        lambda: cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1),
+                                          P1, P2),
+        lambda: cuda_agg.plain_fused_pass_bidir(cost, inten, acc,
+                                                (0, 1, -1), P1, P2),
+        acc_in=True)
+    pair.update(launches_per_call=1, plan_floor_ms=plan_floor_ms(
+        "fused_pass_bidir", cost, shifts=(0, 1, -1)))
+    return {"aggregate": agg, "fused_pass_bidir": pair}
+
+
+def phase_kernel_general() -> dict:
+    """Rows 3-5 at the general path's per-direction shape (row 3 also at
+    [640, 640, 128])."""
+    row3 = {hw: row3_at(hw, 4321 + hw - 1440) for hw in ROW3_HW}
+    cost, inten = _seeded(GEN_SHAPE, 4321)
+    acc = torch.zeros_like(cost)
     rows = {
-        "fused_pass_bidir": compare(
-            "fused_pass_bidir (row 3)",
-            lambda: cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1),
-                                              P1, P2),
-            lambda: cuda_agg.plain_fused_pass_bidir(cost, inten, acc,
-                                                    (0, 1, -1), P1, P2),
-            acc_in=True),
+        "fused_pass_bidir": dict(row3[GEN_SHAPE[0]]["fused_pass_bidir"]),
         "fused_pass_loop": compare(
             "fused_pass(loop=True) (row 4)",
             lambda: cuda_agg.fused_pass(cost, inten, acc, False, (0, 1, -1),
@@ -736,7 +779,13 @@ def phase_kernel_general() -> dict:
                 P2)[0],
             acc_in=True),
     }
-    rows["fused_pass_bidir"]["aggregate"] = agg
+    rows["fused_pass_bidir"]["aggregate"] = row3[GEN_SHAPE[0]]["aggregate"]
+    rows["fused_pass_bidir"]["by_shape"] = {
+        f"[{hw}, {hw}, 128]": {
+            k: {f: v[k][f] for f in ("ms", "bound_ms", "plan_floor_ms",
+                                     "launches_per_call", "bit_equal_runs")}
+            for k in ("fused_pass_bidir", "aggregate")}
+        for hw, v in row3.items()}
     # Row 5 in int32, costs above 2^15 (as the TPU kernel's tests use);
     # shift 0 is the row's entry, the diagonals beside it.
     cost32 = cost.to(torch.int32) * 300
@@ -927,6 +976,22 @@ def run_cli(label: str, path: str, scene, flags: tuple, ply: str,
             "faces": faces, "median_fused_rel_err": err,
             "launches": launches, "kernel_launches": kernels, "text": text,
             "colors": ps.colors}
+
+
+@contextlib.contextmanager
+def aggregate_shapes():
+    """The shape of every `cuda_agg.aggregate` call made while open."""
+    fn, shapes = cuda_agg.aggregate, []
+
+    def recorded(cost, *args, **kw):
+        shapes.append(tuple(cost.shape))
+        return fn(cost, *args, **kw)
+
+    cuda_agg.aggregate = recorded
+    try:
+        yield shapes
+    finally:
+        cuda_agg.aggregate = fn
 
 
 def phase_cli(label: str, cameras, min_share: float, max_err: float,
@@ -2444,9 +2509,16 @@ def main() -> int:
     phase_cli("cli", None, CLI_MIN_POINT_SHARE, CLI_MAX_ERR,
               ("fused_pass", "fused_pass_batch"))
     lap("7 cli")
-    forward = phase_cli("cli forward", syn.forward_cameras(),
-                        FORWARD_MIN_POINT_SHARE, FORWARD_MAX_ERR,
-                        ("fused_pass_bidir",))
+    with aggregate_shapes() as shapes:
+        forward = phase_cli("cli forward", syn.forward_cameras(),
+                            FORWARD_MIN_POINT_SHARE, FORWARD_MAX_ERR,
+                            ("fused_pass_bidir",))
+    log(f"cli forward: aggregate took {dict(collections.Counter(shapes))} "
+        f"({len(shapes)} calls); {forward['fused_pass_bidir']} row-3 "
+        f"launches, 3 a call ({4 * len(shapes)} at 4 a call before the "
+        "two-walk form)")
+    if forward["fused_pass_bidir"] != 3 * len(shapes):
+        raise RuntimeError("cli forward: not 3 row-3 launches an aggregate")
     lap("8 cli forward")
     phase_deep(rows)
     lap("9 kernels beyond 128 planes")

@@ -24,7 +24,9 @@
 // - sgm_sweep3_kernel: rows 1 and 4, and every sweep of rows 2 and 3
 //   with distinct shifts that include a diagonal, up to 512 depths, whose
 //   problem fits the resident blocks (the vertical sweeps of
-//   aggregate_batch and aggregate);
+//   aggregate_batch and aggregate); its two-walk form (kBidir) takes row
+//   3's vertical pair, both directions in one launch, at D <= 128 (the
+//   vertical sweeps of aggregate, and fused_pass_bidir);
 // - sgm_path_kernel: row 5, and one launch per path of a sweep that the
 //   other two cannot take (a repeated shift, in any row; or a problem
 //   wider than the resident blocks of sgm_sweep3_kernel), up to 512
@@ -132,6 +134,17 @@
 //   the line kernel does; each depth's step is sgm_step. The K <= 4
 //   instantiations keep kTile lines a block, two blocks an SM and their
 //   layout, byte for byte.
+// - Both walks (kBidir, K <= 4: row 3's vertical pair). One direction of
+//   a [1440, 1440, 128] sweep is 90 blocks of 16 lines and of [640, 640,
+//   128] 40, so a pair of one-walk launches leaves 42 and 92 SMs idle
+//   for two sweeps' steps. As the Pallas kernel's grid step advances the
+//   forward recurrence at x and the backward one at X - 1 - x, a block of
+//   the two-walk form owns kBidirMaxLines (8) lines and walks them both
+//   ways with 16 warps, so one launch of 180 or 80 blocks takes one
+//   sweep's steps. Each walk keeps its own parity buffers, ring rows,
+//   intensities and edge slots; the in-place adds of the two walks to one
+//   position are ordered by the block's barriers (the kernel's comment
+//   says how), so the result is the two one-walk launches' bit for bit.
 //
 // sgm_path_kernel: one launch per path and direction, one warp per chain
 // (a straight chain is a line; a diagonal chain walks (x, l0 + s*k) from
@@ -292,6 +305,9 @@ constexpr int kBig = 1 << 24;
 // a block holds at K = 8 and 16 (Sweep3).
 constexpr int kTile = 16;
 constexpr int kEdge = 128;          // words per edge line at K <= 4
+// Lines a block of the sweep kernel's two-walk form holds (kBidir, K <=
+// 4): each line is walked by two warps, so at most kTile warps a block.
+constexpr int kBidirMaxLines = kTile / 2;
 // Depths the line, sweep and path kernels take (32 lanes x K <= 16).
 constexpr int kPathMaxD = 512;
 constexpr int kSweepMaxD = 128;     // K <= 4: the main path's instantiations
@@ -694,16 +710,17 @@ __device__ __forceinline__ void copy_words(int16_t* dst, const int16_t* src,
 }
 
 // Shared memory of a sweep block of `lines` lines (byte offsets), K depths
-// a lane and S ring stages: the new diagonal lines by step parity, int32
-// [parity][+1, -1][lines + 2][32 K] (row w + 1 is warp w's line; rows 0
-// and lines + 1 hold the neighbouring blocks' edge lines, which the edge
-// warps copy in); a ring of S scan positions, int16 [S][lines][cost,
-// acc][ring_row]: 32 K depths, and at K >= 8 the word that copy_words
-// adds at an odd start, padded to 16 bytes (32 K + 8); the intensities of
-// the block's lines and the one line past each end, int32 [S][lines + 2];
-// P2a by |dI| below 256. At K <= 4 and kTile lines this is the main
-// path's layout, byte for byte. The plan mirrors it
-// (cuda_agg.sweep_smem_bytes).
+// a lane, S ring stages and `walks` walks (1, or 2 for the form that walks
+// both scan directions): the new diagonal lines by step parity, int32
+// [walk][parity][+1, -1][lines + 2][32 K] (row w + 1 is the walk's warp
+// w's line; rows 0 and lines + 1 hold the neighbouring blocks' edge lines,
+// which the edge warps copy in); a ring of S scan positions, int16
+// [S][walk][lines][cost, acc][ring_row]: 32 K depths, and at K >= 8 the
+// word that copy_words adds at an odd start, padded to 16 bytes (32 K +
+// 8); the intensities of the block's lines and the one line past each end,
+// int32 [S][walk][lines + 2]; P2a by |dI| below 256. At K <= 4, kTile
+// lines and one walk this is the main path's layout, byte for byte. The
+// plan mirrors it (cuda_agg.sweep_smem_bytes).
 struct Sweep3Layout {
   int diag, line, inten, p2a, bytes;
 };
@@ -713,13 +730,13 @@ __host__ __device__ inline int sweep3_ring_row(int K) {
 }
 
 __host__ __device__ inline Sweep3Layout sweep3_layout(int lines, int K,
-                                                      int S) {
+                                                      int S, int walks = 1) {
   const int row = 32 * K;
   Sweep3Layout s;
   s.diag = 0;
-  s.line = 2 * 2 * (lines + 2) * row * 4;
-  s.inten = s.line + S * lines * 2 * sweep3_ring_row(K) * 2;
-  s.p2a = s.inten + S * (lines + 2) * 4;
+  s.line = walks * 2 * 2 * (lines + 2) * row * 4;
+  s.inten = s.line + S * walks * lines * 2 * sweep3_ring_row(K) * 2;
+  s.p2a = s.inten + S * walks * (lines + 2) * 4;
   s.bytes = s.p2a + 256 * 4;
   return s;
 }
@@ -732,7 +749,24 @@ __host__ __device__ inline Sweep3Layout sweep3_layout(int lines, int K,
 // Sweep3<K>::kEdgeWords] tagged words, all -1 before the launch. async16:
 // every line's depth run is 16-byte aligned and D % 8 == 0, so the ring is
 // filled by cp.async in 16-byte pieces; otherwise by plain loads.
-template <int K>
+//
+// kBidir (K <= 4; Pallas row 3's vertical pair): the forward and the
+// backward sweep in one launch, `reverse` not read. A block owns
+// `lines_arg` (<= kBidirMaxLines) lines in both walks: warps [0, lines)
+// walk them forward, warps [lines, 2 lines) backward, and at step s the
+// forward walk is at position s, the backward one at X - 1 - s. Each walk
+// has its own parity buffers, ring rows, intensities and edge slots (edge:
+// [B, tiles, walk, parity, (+1, -1), kEdgeWords]); the walks share the
+// block's one barrier a step. Both add into `out` in place: position p is
+// visited at steps p and X - 1 - p, g = |X - 1 - 2p| steps apart, and the
+// ring reads out[p] for the second visit S - 1 steps before it. So where
+// 0 < g < S the second visit reads out[p] itself, after the barrier that
+// follows the first visit's store, and its ring stage takes the cost
+// alone; at g = 0 (X odd: the middle position, at the middle step) the
+// backward walk adds after a second barrier that follows the forward
+// walk's store. int16 sums wrap, so the adds' order does not change the
+// bits; what matters is that no two of them overlap.
+template <int K, bool kBidir = false>
 __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
     sgm_sweep3_kernel(const int16_t* __restrict__ cost,
                       const int32_t* __restrict__ inten,
@@ -742,29 +776,40 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
                       long long ib, long long ix, long long il, int reverse,
                       int paths, int p1, int p2, bool vec, bool async16,
                       int lines_arg) {
+  static_assert(!kBidir || Sweep3<K>::kFixed, "both walks at K <= 4 only");
   constexpr int S = Sweep3<K>::kStages;
   constexpr int kRow = 32 * K;
+  constexpr int kWalks = kBidir ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lines = Sweep3<K>::kFixed ? kTile : lines_arg;
-  const Sweep3Layout lay = sweep3_layout(lines, K, S);
+  const int lines = Sweep3<K>::kFixed && !kBidir ? kTile : lines_arg;
+  const Sweep3Layout lay = sweep3_layout(lines, K, S, kWalks);
   int* s_diag = reinterpret_cast<int*>(smem_raw + lay.diag);
   int16_t* s_line = reinterpret_cast<int16_t*>(smem_raw + lay.line);
   int* s_inten = reinterpret_cast<int*>(smem_raw + lay.inten);
   int* s_p2a = reinterpret_cast<int*>(smem_raw + lay.p2a);
-  // [parity][+1, -1][row][d], [stage][warp][cost, acc][d], [stage][line]
-  auto diag_row = [&](int par, int dir, int row) {
-    return s_diag + ((par * 2 + dir) * (lines + 2) + row) * kRow;
-  };
-  auto ring = [&](int q, int warp, int which) {
-    return s_line + ((q * lines + warp) * 2 + which) * sweep3_ring_row(K);
-  };
-  auto inten_at = [&](int q, int i) { return s_inten + q * (lines + 2) + i; };
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
+  // This warp's walk (1: the backward one of a kBidir block), its line in
+  // the tile, and its direction.
+  const int walk = kBidir && w >= lines ? 1 : 0;
+  const int lw = w - walk * lines;
+  const int rev = kBidir ? walk : reverse;
+  // [walk][parity][+1, -1][row][d], [stage][walk, warp][cost, acc][d],
+  // [stage][walk][line]
+  auto diag_row = [&](int par, int dir, int row) {
+    return s_diag + (((walk * 2 + par) * 2 + dir) * (lines + 2) + row) * kRow;
+  };
+  auto ring = [&](int q, int warp, int which) {
+    return s_line +
+           ((q * kWalks * lines + warp) * 2 + which) * sweep3_ring_row(K);
+  };
+  auto inten_at = [&](int q, int i) {
+    return s_inten + (q * kWalks + walk) * (lines + 2) + i;
+  };
   const int tiles = (L + lines - 1) / lines;
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
-  const int l = tile * lines + w;
+  const int l = tile * lines + lw;
   const bool active = l < L;
   const int last = min(lines, L - tile * lines) - 1;  // warp of the last line
   const bool straight = paths & 1, plus = paths & 2, minus = paths & 4;
@@ -774,8 +819,8 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
   // its neighbour's edge of step t - 1 before it writes its own of step t,
   // so it cannot overwrite a slot (step parity) that the neighbour has not
   // read yet.
-  const bool left = diag && w == 0 && tile > 0;
-  const bool right = diag && w == last && tile + 1 < tiles;
+  const bool left = diag && lw == 0 && tile > 0;
+  const bool right = diag && lw == last && tile + 1 < tiles;
   const int d0 = lane * K;
   const int p2min = p1 * 3 / 2;
   const int16_t* cb = cost + b * vb;
@@ -785,10 +830,18 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
   const int16_t* cend = cost + vend;  // the launch's volumes' ends
   const int16_t* oend = out + vend;
   // Edge line (tile, parity, direction 0: +1 of the last line, 1: -1 of
-  // the first line).
+  // the first line) of this warp's walk.
   auto edge_line = [&](int tl, int par, int dir) {
-    return edge + ((static_cast<long long>(b) * tiles + tl) * 4 + par * 2 +
-                   dir) * Sweep3<K>::kEdgeWords;
+    return edge + (((static_cast<long long>(b) * tiles + tl) * kWalks +
+                    walk) * 4 + par * 2 + dir) * Sweep3<K>::kEdgeWords;
+  };
+  // Whether this warp takes out at step s from out itself, not from its
+  // ring: a kBidir walk's second visit of a position 0 < g = 2 s + 1 - X <
+  // S steps after the first, and the backward walk's visit of the middle
+  // position (g = 0).
+  auto from_out = [&](int s) {
+    const int g = 2 * s + 1 - X;
+    return kBidir && (g > 0 ? g < S : g == 0 && walk == 1);
   };
 
   // Fill the ring stage of scan step s, S - 1 steps ahead of its use; one
@@ -796,14 +849,15 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
   auto fill = [&](int s) {
     if (s < X) {
       const int q = s % S;
-      const int xs = reverse ? X - 1 - s : s;
+      const int xs = rev ? X - 1 - s : s;
       if (active) {
         const long long go = xs * vx + l * vl;
         int16_t* rc = ring(q, w, 0);
         int16_t* ra = ring(q, w, 1);
+        const bool with_acc = !from_out(s);
         if (async16) {
           const int chunks = D / 8;
-          for (int c = lane; c < 2 * chunks; c += 32) {
+          for (int c = lane; c < (with_acc ? 2 : 1) * chunks; c += 32) {
             if (c < chunks)
               cp_async16(rc + c * 8, cb + go + c * 8);
             else
@@ -816,12 +870,12 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
         } else {
           for (int d = lane; d < D; d += 32) {
             rc[d] = cb[go + d];
-            ra[d] = ob[go + d];
+            if (with_acc) ra[d] = ob[go + d];
           }
         }
       }
       const int li = tile * lines - 1 + lane;
-      if (w == 0 && lane < lines + 2 && li >= 0 && li < L)
+      if (lw == 0 && lane < lines + 2 && li >= 0 && li < L)
         cp_async4(inten_at(q, lane), ibase + xs * ix + li * il);
     }
     cp_async_commit();
@@ -846,8 +900,14 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
     const int q = t % S;
     const int par = t & 1;
     const int pp = par ^ 1;
+    // Both walks of a kBidir block at the middle position: the backward
+    // walk adds after the forward walk's store.
+    const bool middle = kBidir && 2 * t + 1 == X;
+    const bool late = middle && walk == 1;
+    int16_t* op = ob + (rev ? X - 1 - t : t) * vx + l * vl + d0;
+    int av[K];
     if (active) {
-      int cur[K], av[K], nv[K], nb[K];
+      int cur[K], nv[K], nb[K];
       if (t > 0) {  // the neighbours' edge lines of step t - 1
         if (left) {
           poll_edge<K>(edge_line(tile - 1, pp, 0), lane, t - 1, nb);
@@ -863,14 +923,21 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
       int sc = 0, sa = 0;
       if constexpr (K >= 8) {
         if (!async16) {
-          const long long go = (reverse ? X - 1 - t : t) * vx + l * vl;
+          const long long go = (rev ? X - 1 - t : t) * vx + l * vl;
           sc = odd_start(cb + go);
           sa = odd_start(ob + go);
         }
       }
       load_k<int16_t, K>(ring(q, w, 0) + sc + d0, cur, d0, D, sc == 0);
-      load_k<int16_t, K>(ring(q, w, 1) + sa + d0, av, d0, D, sa == 0);
-      const int it = *inten_at(q, w + 1);
+      if (late) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) av[k] = 0;
+      } else if (from_out(t)) {
+        load_k<int16_t, K>(op, av, d0, D, vec);
+      } else {
+        load_k<int16_t, K>(ring(q, w, 1) + sa + d0, av, d0, D, sa == 0);
+      }
+      const int it = *inten_at(q, lw + 1);
       if (straight) {
         if (t == 0) {
 #pragma unroll
@@ -890,7 +957,7 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
 #pragma unroll
           for (int k = 0; k < K; ++k) nv[k] = cur[k];
         } else {
-          get_line<K>(diag_row(pp, 0, w), lane, nb);  // line l - 1
+          get_line<K>(diag_row(pp, 0, lw), lane, nb);  // line l - 1
           min_plus<K, true>(nb, cur, lane, p1, p2a_of(it, prev_il), nv);
         }
 #pragma unroll
@@ -898,7 +965,7 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
           if (d0 + k >= D) nv[k] = kBig;
           av[k] += nv[k];
         }
-        put_line<K>(diag_row(par, 0, w + 1), lane, nv);
+        put_line<K>(diag_row(par, 0, lw + 1), lane, nv);
         if (right) publish_edge<K>(edge_line(tile, par, 0), lane, t, nv);
       } else if (right) {
         publish_edge<K>(edge_line(tile, par, 0), lane, t, cur);  // no +1
@@ -908,7 +975,7 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
 #pragma unroll
           for (int k = 0; k < K; ++k) nv[k] = cur[k];
         } else {
-          get_line<K>(diag_row(pp, 1, w + 2), lane, nb);  // line l + 1
+          get_line<K>(diag_row(pp, 1, lw + 2), lane, nb);  // line l + 1
           min_plus<K, true>(nb, cur, lane, p1, p2a_of(it, prev_ir), nv);
         }
 #pragma unroll
@@ -916,16 +983,25 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
           if (d0 + k >= D) nv[k] = kBig;
           av[k] += nv[k];
         }
-        put_line<K>(diag_row(par, 1, w + 1), lane, nv);
+        put_line<K>(diag_row(par, 1, lw + 1), lane, nv);
         if (left) publish_edge<K>(edge_line(tile, par, 1), lane, t, nv);
       } else if (left) {
         publish_edge<K>(edge_line(tile, par, 1), lane, t, cur);  // no -1
       }
-      const int xt = reverse ? X - 1 - t : t;
-      store_k<int16_t, K>(ob + xt * vx + l * vl + d0, av, d0, D, vec);
+      if (!late) store_k<int16_t, K>(op, av, d0, D, vec);
       prev_i = it;
-      prev_il = *inten_at(q, w);
-      prev_ir = *inten_at(q, w + 2);
+      prev_il = *inten_at(q, lw);
+      prev_ir = *inten_at(q, lw + 2);
+    }
+    if (middle) {
+      __syncthreads();  // after the forward walk's store of the position
+      if (active && late) {
+        int o[K];
+        load_k<int16_t, K>(op, o, d0, D, vec);
+#pragma unroll
+        for (int k = 0; k < K; ++k) av[k] += o[k];
+        store_k<int16_t, K>(op, av, d0, D, vec);
+      }
     }
     cp_async_wait<S - 2>();  // this thread's copies for step t + 1
     __syncthreads();
@@ -933,11 +1009,11 @@ __global__ void __launch_bounds__(kTile * 32, Sweep3<K>::kMinBlocks)
 }
 
 // The sweep kernel's shared memory for `lines` lines a block (kTile at
-// K <= 4), allowed to the kernel.
-template <int K>
+// K <= 4 in one walk), allowed to the kernel.
+template <int K, bool kBidir = false>
 cudaError_t sweep3_smem(int lines, int* bytes) {
-  *bytes = sweep3_layout(lines, K, Sweep3<K>::kStages).bytes;
-  return cudaFuncSetAttribute(sgm_sweep3_kernel<K>,
+  *bytes = sweep3_layout(lines, K, Sweep3<K>::kStages, kBidir ? 2 : 1).bytes;
+  return cudaFuncSetAttribute(sgm_sweep3_kernel<K, kBidir>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               *bytes);
 }
@@ -958,7 +1034,7 @@ bool sweep_vec(const void* out, int D, long long vb, long long vx,
          vl % K == 0 && reinterpret_cast<uintptr_t>(out) % align == 0;
 }
 
-template <int K>
+template <int K, bool kBidir = false>
 cudaError_t launch_sweep3(const void* cost, const void* inten, void* out,
                           void* edge, int B, int X, int L,
                           int D, long long vb, long long vx, long long vl,
@@ -969,9 +1045,9 @@ cudaError_t launch_sweep3(const void* cost, const void* inten, void* out,
   bool async16 = D % 8 == 0 && vb % 8 == 0 && vx % 8 == 0 && vl % 8 == 0 &&
                  reinterpret_cast<uintptr_t>(cost) % 16 == 0 &&
                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (Sweep3<K>::kFixed) lines = kTile;
+  if (Sweep3<K>::kFixed && !kBidir) lines = kTile;
   int smem = 0;
-  const cudaError_t e = sweep3_smem<K>(lines, &smem);
+  const cudaError_t e = sweep3_smem<K, kBidir>(lines, &smem);
   if (e != cudaSuccess) return e;
   const int16_t* c = static_cast<const int16_t*>(cost);
   const int32_t* i = static_cast<const int32_t*>(inten);
@@ -982,19 +1058,20 @@ cudaError_t launch_sweep3(const void* cost, const void* inten, void* out,
                   &p2, &vec, &async16, &lines};
   const int tiles = (L + lines - 1) / lines;
   return cudaLaunchCooperativeKernel(
-      (const void*)sgm_sweep3_kernel<K>,
-      dim3(static_cast<unsigned>(B) * tiles), dim3(lines * 32), args, smem,
-      stream);
+      (const void*)sgm_sweep3_kernel<K, kBidir>,
+      dim3(static_cast<unsigned>(B) * tiles),
+      dim3((kBidir ? 2 : 1) * lines * 32), args, smem, stream);
 }
 
 // Blocks of `lines` lines an SM holds at once.
-template <int K>
+template <int K, bool kBidir = false>
 cudaError_t sweep3_per_sm(int lines, int* per_sm) {
   int smem = 0;
-  const cudaError_t e = sweep3_smem<K>(lines, &smem);
+  const cudaError_t e = sweep3_smem<K, kBidir>(lines, &smem);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, sgm_sweep3_kernel<K>, lines * 32, smem);
+      per_sm, sgm_sweep3_kernel<K, kBidir>, (kBidir ? 2 : 1) * lines * 32,
+      smem);
 }
 
 // A depth run of n elements from src into a ring row by cp.async, in
@@ -2708,6 +2785,60 @@ extern "C" int sgm_agg_sweep3(const void* cost, const void* inten, void* out,
     case 5: case 6: case 7: case 8:
       return static_cast<int>(launch_sweep3<8>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, s));
     default: return static_cast<int>(launch_sweep3<16>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, reverse, paths, p1, p2, lines, s));
+  }
+}
+
+// The two-walk form of the vertical sweep kernel (kBidir) at D <=
+// kSweepMaxD on the current device: edge-buffer words per block (both
+// walks' slots), and the most blocks of `lines` lines (1 to
+// kBidirMaxLines) it keeps resident at once (the largest cooperative
+// grid).
+extern "C" int sgm_sweep3_bidir_geometry(int D, int lines, int* edge_words,
+                                         int* resident) {
+  if (D < 1 || D > kSweepMaxD || lines < 1 || lines > kBidirMaxLines)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  switch ((D + 31) / 32) {
+    case 1: e = sweep3_per_sm<1, true>(lines, &per_sm); break;
+    case 2: e = sweep3_per_sm<2, true>(lines, &per_sm); break;
+    case 3: e = sweep3_per_sm<3, true>(lines, &per_sm); break;
+    default: e = sweep3_per_sm<4, true>(lines, &per_sm); break;
+  }
+  *edge_words = 2 * 2 * 2 * kEdge;
+  *resident = per_sm * sms;
+  return static_cast<int>(e);
+}
+
+// The forward and the backward sweep of the distinct shifts in `paths`
+// (bit 0: 0, bit 1: +1, bit 2: -1) over B int16 problems at D <=
+// kSweepMaxD, out += both sweeps' path costs in place (row 3), as one
+// cooperative launch of B * ceil(L / lines) blocks of `lines` lines (1 to
+// kBidirMaxLines) walked in both directions, which must all be resident
+// (sgm_sweep3_bidir_geometry). Strides as for sgm_agg_path; edge as
+// sgm_sweep3_kernel describes it for kBidir (all -1). Returns the
+// cudaError_t of the launch.
+extern "C" int sgm_agg_sweep3_bidir(const void* cost, const void* inten,
+                                    void* out, void* edge, int B, int X,
+                                    int L, int D, long long vb, long long vx,
+                                    long long vl, long long ib, long long ix,
+                                    long long il, int paths, int p1, int p2,
+                                    int lines, void* stream) {
+  if (B < 1 || X < 1 || L < 1 || D < 1 || D > kSweepMaxD || paths < 1 ||
+      paths > 7 || lines < 1 || lines > kBidirMaxLines)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((D + 31) / 32) {
+    case 1: return static_cast<int>(launch_sweep3<1, true>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, 0, paths, p1, p2, lines, s));
+    case 2: return static_cast<int>(launch_sweep3<2, true>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, 0, paths, p1, p2, lines, s));
+    case 3: return static_cast<int>(launch_sweep3<3, true>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, 0, paths, p1, p2, lines, s));
+    default: return static_cast<int>(launch_sweep3<4, true>(cost, inten, out, edge, B, X, L, D, vb, vx, vl, ib, ix, il, 0, paths, p1, p2, lines, s));
   }
 }
 

@@ -35,10 +35,14 @@ with a diagonal cooperatively, in chunks of problems whose lines the card
 holds at once), and `sgm_deep_kernel`, one launch per path with one
 chain's depths split evenly across the warps of a block (`deep_shape`,
 `deep_slices`), each filling its own cp.async ring, the rest (a repeated
-shift, a problem too wide, row 5). `aggregate_batch` makes 2 line
-launches (row 2) and 2 sweep launches (row 1); `aggregate` the same 4,
-counted as row 3; `fused_pass_bidir` 2; so do they at 129 to 2048 depths
-on [640, 640, D]. The sweeps of one call add
+shift, a problem too wide, row 5). Row 3's vertical pair (the forward
+and the backward sweep of distinct shifts with a diagonal) at D <= 128
+takes one launch of `sgm_sweep3_kernel`'s two-walk form, whose blocks
+walk their lines both ways at once, where all its blocks are resident.
+`aggregate_batch` makes 2 line launches (row 2) and 2 sweep launches (row
+1); `aggregate` 2 line launches and one two-walk launch, counted as row 3;
+`fused_pass_bidir` 1 (2 for shifts (0,)); at 129 to 2048 depths on [640,
+640, D] `aggregate` takes 4 and `fused_pass_bidir` 2. The sweeps of one call add
 into one int16 accumulator in place: int16 sums wrap modulo 2^16, so
 their order does not change the bits, and no second volume or copy is
 needed.
@@ -85,11 +89,13 @@ ROWS = ("fused_pass", "fused_pass_batch", "fused_pass_bidir",
 launches = dict.fromkeys(ROWS, 0)  # kernel launches per row
 # The CUDA kernels of `csrc/sgm_agg.cu` by their name in a plan (`Launch`).
 KERNELS = {"line": "sgm_line_kernel", "sweep3": "sgm_sweep3_kernel",
+           "sweep3_bidir": "sgm_sweep3_kernel<bidir>",
            "path": "sgm_path_kernel", "deep": "sgm_deep_kernel",
            "deep_sweep": "sgm_deep_sweep_kernel"}
 kernel_launches = dict.fromkeys(KERNELS, 0)  # launches per CUDA kernel
 _lib = None
 _sweep_geometry_cache = {}  # (device, D) -> (tile, edge_words, resident)
+_bidir_geometry_cache = {}  # (device, D, lines) -> (edge_words, resident)
 _deep_geometry_cache = {}  # (device, D) -> (max_lines, edge_words, sms)
 
 # Lines per block of sgm_sweep3_kernel (kTile in the source): every
@@ -105,6 +111,13 @@ MAX_D = 16384
 # Blocks of sgm_sweep3_kernel the H100 keeps resident at once (two per SM,
 # `sweep_geometry` at D = 128). CPU tensors are planned as for that card.
 CPU_RESIDENT = 264
+# The most lines a block of sgm_sweep3_kernel's two-walk form
+# ("sweep3_bidir" in a plan, D <= 128) holds (kBidirMaxLines in the
+# source): each line walked forward by one warp and backward by another,
+# so 16 warps, as a block of the one-walk form, which the H100 also keeps
+# two an SM (CPU_RESIDENT, the stand-in CPU tensors are planned with).
+# `bidir_lines` chooses the lines a block from L.
+BIDIR_LINES = 8
 # The H100's SMs, shared memory a block may take, and sgm_deep_sweep_kernel's
 # threads a block with a diagonal (kDeepSweepDiagThreads): the stand-in for
 # `deep_sweep_geometry` that CPU tensors are planned with.
@@ -122,12 +135,14 @@ WIDE_SWEEP_STAGES = {8: 4, 16: 3}
 UNSET = 0x2AAA
 
 # One kernel launch of a plan (`plan_route`). kernel: "line", "sweep3",
+# "sweep3_bidir" (both directions of a scan-1 sweep in one launch),
 # "path", "deep" or "deep_sweep"; scan: the axis of the [B, A, C, D] volume
 # it scans (1 or 2; its lines run along the other); reverse: the
-# direction; mode: "write" (out = path costs), "into" (out = acc + path
-# costs) or "add" (out += path costs in place); shifts: its paths; row: the
-# TPU kernel row it counts under; b0, nb: the problems it takes; lines:
-# lines per block of "deep_sweep", and of "sweep3" beyond 128 depths (0
+# direction (False for "sweep3_bidir": forward, then backward); mode:
+# "write" (out = path costs), "into" (out = acc + path costs) or "add"
+# (out += path costs in place); shifts: its paths; row: the TPU kernel row
+# it counts under; b0, nb: the problems it takes; lines: lines per block
+# of "deep_sweep" and "sweep3_bidir", and of "sweep3" beyond 128 depths (0
 # where the kernel fixes its own).
 Launch = collections.namedtuple(
     "Launch", "kernel scan reverse mode shifts row b0 nb lines",
@@ -209,11 +224,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sgm_agg_sweep3.argtypes = ([ptr] * 4 + [i32] * 4 + [i64] * 6
                                    + [i32] * 5 + [ptr])
     lib.sgm_sweep3_geometry.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+    lib.sgm_agg_sweep3_bidir.argtypes = ([ptr] * 4 + [i32] * 4 + [i64] * 6
+                                         + [i32] * 4 + [ptr])
+    lib.sgm_sweep3_bidir_geometry.argtypes = ([i32] * 2
+                                              + [ctypes.POINTER(i32)] * 2)
     lib.sgm_agg_deep_sweep.argtypes = ([ptr] * 5 + [i32] * 4 + [i64] * 6
                                        + [i32] * 5 + [ptr])
     lib.sgm_deep_sweep_geometry.argtypes = lib.sgm_sweep3_geometry.argtypes
     for fn in (lib.sgm_agg_path, lib.sgm_agg_deep, lib.sgm_agg_line,
                lib.sgm_agg_sweep3, lib.sgm_sweep3_geometry,
+               lib.sgm_agg_sweep3_bidir, lib.sgm_sweep3_bidir_geometry,
                lib.sgm_agg_deep_sweep, lib.sgm_deep_sweep_geometry):
         fn.restype = i32
     return lib
@@ -243,6 +263,39 @@ def sweep_geometry(device: torch.device, D: int) -> tuple:
                                f"{err}")
         _sweep_geometry_cache[key] = tuple(v.value for v in vals)
     return _sweep_geometry_cache[key]
+
+
+def bidir_lines(L: int, sms: int) -> int:
+    """Lines a block of the two-walk form for a problem of L lines on a
+    card of ``sms`` SMs: the lines spread evenly over one block an SM, or
+    over two where one block would hold more than ``BIDIR_LINES``; 0 where
+    two blocks an SM cannot hold them. What paces the form is a step's work
+    on the busiest SM (`tools/bidir_pace.py`: at [1440, 1440, 128], 6 lines
+    a block, 240 blocks, took 3.244 ms against 4.056 for 8 lines, 180
+    blocks)."""
+    for per_sm in (1, 2):
+        lines = -(-L // (per_sm * sms))
+        if lines <= BIDIR_LINES:
+            return lines
+    return 0
+
+
+def bidir_geometry(device: torch.device, D: int,
+                   lines: int = BIDIR_LINES) -> tuple:
+    """(edge-buffer words per block, most blocks resident at once) of the
+    vertical sweep kernel's two-walk form with ``lines`` lines a block at
+    D <= ``SWEEP_MAX_D`` depths on ``device`` (its own occupancy query)."""
+    key = (device, D, lines)
+    if key not in _bidir_geometry_cache:
+        vals = [ctypes.c_int() for _ in range(2)]
+        with torch.cuda.device(device):
+            err = _library().sgm_sweep3_bidir_geometry(
+                D, lines, *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"sgm_sweep3_bidir_geometry failed: CUDA "
+                               f"error {err}")
+        _bidir_geometry_cache[key] = tuple(v.value for v in vals)
+    return _bidir_geometry_cache[key]
 
 
 def wide_sweep_k(D: int) -> int:
@@ -366,8 +419,8 @@ def deep_sweep_geometry(device: torch.device, D: int) -> tuple:
 
 
 def plan_geometry(cost: torch.Tensor) -> dict:
-    """``plan_route``'s ``resident``, ``tile``, ``D``, ``wide`` and
-    ``deep`` for ``cost``'s device and depth count."""
+    """``plan_route``'s ``resident``, ``tile``, ``D``, ``wide``, ``deep``
+    and ``bidir`` for ``cost``'s device and depth count."""
     D = cost.shape[-1]
     cpu = cost.device.type == "cpu"
     geo = {"resident": CPU_RESIDENT, "tile": TILE, "D": D}
@@ -383,6 +436,13 @@ def plan_geometry(cost: torch.Tensor) -> dict:
         geo["wide"] = (lines, sms)
     elif not cpu:
         geo["tile"], _, geo["resident"] = sweep_geometry(cost.device, D)
+        # The two-walk form's blocks resident at the lines a block it takes
+        # for the scan-1 sweeps' lines (the volume's second-last axis).
+        sms = torch.cuda.get_device_properties(
+            cost.device).multi_processor_count
+        lines = bidir_lines(cost.shape[-2], sms)
+        geo["bidir"] = (sms, bidir_geometry(cost.device, D, lines)[1]
+                        if lines else 0)
     return geo
 
 
@@ -431,7 +491,8 @@ def plan_chunks(B: int, tiles: int, resident: int) -> list:
 def plan_route(entry: str, B: int, L: int, resident: int,
                shifts: tuple | None = None, reverse: bool = False,
                tile: int = TILE, D: int = SWEEP_MAX_D,
-               wide: tuple | None = None, deep: tuple | None = None) -> list:
+               wide: tuple | None = None, deep: tuple | None = None,
+               bidir: tuple | None = None) -> list:
     """The kernel launches (`Launch`) of one call of the entry point
     ``entry``, in order, chosen from the shape alone.
 
@@ -443,7 +504,10 @@ def plan_route(entry: str, B: int, L: int, resident: int,
     depths; ``wide`` = (most lines a `sgm_sweep3_kernel` block holds, SMs)
     at 128 < D <= 512, and ``deep`` = (most lines a block of
     `sgm_deep_sweep_kernel` with a diagonal holds, SMs) beyond, by default
-    the H100's (`sweep_stand_in`, `deep_sweep_stand_in`).
+    the H100's (`sweep_stand_in`, `deep_sweep_stand_in`); ``bidir`` =
+    (SMs, blocks of `sgm_sweep3_kernel`'s two-walk form resident at once
+    at the lines a block `bidir_lines` gives for L) at D <= 128, by
+    default (``H100_SMS``, ``CPU_RESIDENT``).
 
     A straight-only sweep takes `sgm_line_kernel` (row 1 keeps its sweep
     kernel); distinct shifts take `sgm_sweep3_kernel` where one problem
@@ -453,8 +517,12 @@ def plan_route(entry: str, B: int, L: int, resident: int,
     distinct shifts takes one `sgm_deep_sweep_kernel` launch (straight
     only: every problem; with a diagonal: per chunk of problems whose lines
     the card holds at once, `deep_sweep_chunks`), and anything else one
-    `sgm_deep_kernel` launch per path. The first launch on a problem may
-    write ("write" or "into"), or add into a copy of acc ("add"); every
+    `sgm_deep_kernel` launch per path. Row 3's vertical pair (both
+    directions of distinct shifts with a diagonal: `fused_pass_bidir`, and
+    `aggregate`'s vertical sweeps) at D <= 128 takes one launch of the
+    two-walk form ("sweep3_bidir") where all its blocks are resident at
+    once, and the two sweeps above otherwise. The first launch on a problem
+    may write ("write" or "into"), or add into a copy of acc ("add"); every
     later one adds in place. The sgm_path and sgm_deep kernels and
     `sgm_sweep3_kernel` only add, so where they take a sweep that starts
     with "into", they add into a copy.
@@ -466,6 +534,8 @@ def plan_route(entry: str, B: int, L: int, resident: int,
         deep = deep_sweep_stand_in(D)[::2]
     if SWEEP_MAX_D < D <= PATH_MAX_D and wide is None:
         wide = sweep_stand_in(D)[::2]
+    if bidir is None:
+        bidir = (H100_SMS, CPU_RESIDENT)
 
     def sweep(row, scan, rev, paths, first, line=True):
         if D > PATH_MAX_D and len(set(paths)) == len(paths):
@@ -494,12 +564,27 @@ def plan_route(entry: str, B: int, L: int, resident: int,
                        "write" if first == "write" and i == 0 else "add",
                        (s,), row, 0, B) for i, s in enumerate(paths)]
 
-    if entry in ("aggregate_batch", "aggregate"):
-        h, v = (("fused_pass_batch", "fused_pass")
-                if entry == "aggregate_batch" else ("fused_pass_bidir",) * 2)
+    def both(row, paths, first):
+        """The forward and the backward scan-1 sweep of ``paths``."""
+        sms, held = bidir
+        lines = bidir_lines(L, sms)
+        if (lines and D <= SWEEP_MAX_D and any(paths)
+                and len(set(paths)) == len(paths) and -(-L // lines) <= held):
+            return [Launch("sweep3_bidir", 1, False, "add", paths, row, b0,
+                           nb, lines)
+                    for b0, nb in plan_chunks(B, -(-L // lines), held)]
+        return (sweep(row, 1, False, paths, first)
+                + sweep(row, 1, True, paths, "add"))
+
+    if entry == "aggregate_batch":
+        h, v = "fused_pass_batch", "fused_pass"
         return (sweep(h, 2, False, (0,), "write") + sweep(h, 2, True, (0,), "add")
                 + sweep(v, 1, False, (0, 1, -1), "add")
                 + sweep(v, 1, True, (0, 1, -1), "add"))
+    if entry == "aggregate":
+        r = "fused_pass_bidir"
+        return (sweep(r, 2, False, (0,), "write") + sweep(r, 2, True, (0,), "add")
+                + both(r, (0, 1, -1), "add"))
     shifts = tuple(shifts)
     valid = set(shifts) <= {0, 1, -1}
     if not shifts or not valid:
@@ -510,8 +595,7 @@ def plan_route(entry: str, B: int, L: int, resident: int,
     if entry == "fused_pass_batch":
         return sweep(entry, 1, reverse, shifts, "into")
     if entry == "fused_pass_bidir":
-        return (sweep(entry, 1, False, shifts, "into")
-                + sweep(entry, 1, True, shifts, "add"))
+        return both(entry, shifts, "into")
     raise ValueError(f"no route for the entry point {entry!r}")
 
 
@@ -522,22 +606,25 @@ def per_path_plan(plan: list, D: int) -> list:
     first "into" becomes an "add" into a copy of acc."""
     out = []
     for ln in plan:
-        for i, s in enumerate(ln.shifts):
-            mode = ln.mode if ln.mode == "write" and i == 0 else "add"
-            out.append(Launch(path_kernel(D), ln.scan, ln.reverse, mode, (s,),
-                              ln.row, ln.b0, ln.nb))
+        dirs = (False, True) if ln.kernel == "sweep3_bidir" else (ln.reverse,)
+        for j, rev in enumerate(dirs):
+            for i, s in enumerate(ln.shifts):
+                mode = ln.mode if ln.mode == "write" and i + j == 0 else "add"
+                out.append(Launch(path_kernel(D), ln.scan, rev, mode, (s,),
+                                  ln.row, ln.b0, ln.nb))
     return out
 
 
 def plan_bytes(plan: list, shape: tuple, elem: int = 2) -> int:
     """Bytes the launches of ``plan`` over a [B, A, C, D] volume of
-    ``elem``-byte elements must move: each launch reads its problems' cost
-    and int32 intensities once, its accumulator once unless it writes, and
-    writes its result once."""
+    ``elem``-byte elements must move: each sweep of a launch (two for
+    "sweep3_bidir") reads its problems' cost and int32 intensities once,
+    its accumulator once unless it writes, and writes its result once."""
     B, A, C, D = shape
     per = A * C * D
-    return sum(ln.nb * (per * elem * (2 + (ln.mode != "write"))
-                        + 4 * A * C) for ln in plan)
+    return sum(ln.nb * (1 + (ln.kernel == "sweep3_bidir"))
+               * (per * elem * (2 + (ln.mode != "write")) + 4 * A * C)
+               for ln in plan)
 
 
 def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
@@ -602,6 +689,15 @@ def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
                     out.data_ptr() + voff,
                     None if edge is None else edge.data_ptr(), *dims, paths,
                     int(p1), int(p2), ln.lines, stream)
+            elif ln.kernel == "sweep3_bidir":
+                edge_words, _ = bidir_geometry(cost.device, D, ln.lines)
+                # Each word carries the scan step that wrote it; -1 is none.
+                edge = torch.full((ln.nb * -(-L // ln.lines) * edge_words,),
+                                  -1, dtype=torch.int64, device=cost.device)
+                paths = sum({0: 1, 1: 2, -1: 4}[s] for s in ln.shifts)
+                err = lib.sgm_agg_sweep3_bidir(
+                    *ptrs, out.data_ptr() + voff, edge.data_ptr(), *dims[:-1],
+                    paths, int(p1), int(p2), ln.lines, stream)
             elif ln.kernel == "sweep3":
                 tile, edge_words, _ = sweep_geometry(cost.device, D)
                 lines = ln.lines or tile
@@ -633,8 +729,9 @@ def run_plan(plan: list, cost, inten, acc, p1: int, p2: int,
 
 
 def plain_run_plan(plan, cost, inten, acc, p1, p2) -> torch.Tensor:
-    """Plain version of `run_plan`: the plain sweep for each launch, in
-    its mode, in int32 (int16 sums wrap to the same bits at the end)."""
+    """Plain version of `run_plan`: the plain sweep for each launch (the
+    forward and the backward one for "sweep3_bidir"), in its mode, in int32
+    (int16 sums wrap to the same bits at the end)."""
     if plan[0].mode == "add":
         out = acc.to(torch.int32, copy=True)
     else:
@@ -646,6 +743,8 @@ def plain_run_plan(plan, cost, inten, acc, p1, p2) -> torch.Tensor:
         if ln.scan == 2:
             c, i = c.transpose(1, 2), i.transpose(1, 2)
         path = plain_paths(c, i, ln.reverse, ln.shifts, p1, p2)
+        if ln.kernel == "sweep3_bidir":  # forward, then backward
+            path += plain_paths(c, i, True, ln.shifts, p1, p2)
         if ln.scan == 2:
             path = path.transpose(1, 2)
         if ln.mode == "write":
@@ -837,10 +936,13 @@ def fused_pass_bidir(cost: torch.Tensor, inten: torch.Tensor,
     int16 volume scanned along X (inten [X, L] int32); returns acc plus the
     forward and the backward paths as a new int16 tensor.
 
-    On the card: the forward sweep, then the backward one adding into the
+    On the card: distinct shifts with a diagonal at D <= 128 take one
+    launch of `sgm_sweep3_kernel`'s two-walk form (both directions adding
+    into a copy of acc in place) where its blocks are all resident;
+    otherwise the forward sweep, then the backward one adding into the
     same result in place (2 launches for (0,) or distinct shifts with a
-    diagonal, at D > 128 where the card holds the problem's lines at once;
-    one launch per path and direction otherwise).
+    diagonal where the card holds the problem's lines at once; one launch
+    per path and direction otherwise).
     """
     _check(cost, inten, acc, 3)
     X, L, D = cost.shape
@@ -855,10 +957,14 @@ def aggregate(cost: torch.Tensor, intensity: torch.Tensor, p1: int, p2: int
     intensities [H, W]; returns the int16 8-path sum.
 
     Casts like the JAX entry point (cost to int16, intensity to int32).
-    On the card: `aggregate_batch`'s 4 launches for one problem, counted
-    as row 3 (at D > 512 all four `sgm_deep_sweep_kernel`), where the
-    card holds the W lines at once; else the vertical sweeps take one
-    launch per path (`sgm_path_kernel`, beyond 512 `sgm_deep_kernel`).
+    On the card, counted as row 3: the two horizontal `sgm_line_kernel`
+    launches and, at D <= 128, one launch of `sgm_sweep3_kernel`'s
+    two-walk form for both vertical sweeps, 3 launches; beyond 128 depths
+    (or W lines wider than the two-walk form's resident blocks)
+    `aggregate_batch`'s 4 launches for one problem (at D > 512 all four
+    `sgm_deep_sweep_kernel`), where the card holds the W lines at once;
+    else the vertical sweeps take one launch per path (`sgm_path_kernel`,
+    beyond 512 `sgm_deep_kernel`).
     """
     cost = cost.to(torch.int16).contiguous()
     intensity = intensity.to(torch.int32).contiguous()

@@ -147,13 +147,14 @@ def test_deep_routes_take_the_path_kernel(case, D):
 @pytest.mark.parametrize("case", list(DEEP_ROUTES))
 def test_routes_at_128_depths_are_unchanged(case):
     """At D = 128 no sweep takes the path kernel: the launch counts of
-    `aggregate_batch` (2 + 2), `aggregate` (4) and `fused_pass_bidir` (2)
-    stay as they were."""
+    `aggregate_batch` (2 + 2) and `fused_pass_bidir` (0,) (2) stay as they
+    were; `aggregate` takes 3 (its vertical pair one launch of the
+    two-walk form since it was added; 4 before)."""
     (entry, B, L, kw), _ = DEEP_ROUTES[case]
     plan = cuda_agg.plan_route(entry, B, L, R, D=128, **kw)
     assert plan == cuda_agg.plan_route(entry, B, L, R, **kw)
     assert "path" not in {ln.kernel for ln in plan}
-    n = {"aggregate_batch": 4, "aggregate": 4, "bidir (0,)": 2}.get(case, 1)
+    n = {"aggregate_batch": 4, "aggregate": 3, "bidir (0,)": 2}.get(case, 1)
     assert len(plan) == n
 
 

@@ -20,7 +20,13 @@ problem does not fit, and a repeated 3-path sweep catches a race in the
 hand-off between blocks. `sgm_deep_kernel` alone is held in its three
 storage modes at odd, unaligned and aligned D with a ragged last warp, on
 volumes that start one element into their storage, and repeated to catch
-a race in its warps' exchange.
+a race in its warps' exchange. The vertical sweep kernel's two-walk form
+(row 3's vertical pair at D <= 128, both directions in one launch) is held
+at 1-9 scan positions (odd and even, below and around its ring's depth,
+where the two walks' adds to one position cross), with a ragged last tile,
+fewer lines than a block and one line, at D with and without 16-byte
+copies, at other lines a block and on volumes one element into their
+storage, repeated 20 times, and where its blocks do not all fit.
 
 These tests need a CUDA device and skip without one. This file imports
 neither JAX nor the JAX package, so on the GPU machine it runs without
@@ -335,11 +341,14 @@ def test_deep_sweeps_equal_plain(cuda, D):
 @pytest.mark.parametrize("shape", [(11, 13, 16), (10, 12, 24),
                                    (37, 53, 128), (9, 7, 40)])
 def test_aggregate_equals_plain(cuda, shape):
+    """Two horizontal `sgm_line_kernel` launches and one launch of
+    `sgm_sweep3_kernel`'s two-walk form for the vertical pair."""
     cost, inten = _volume(shape, seed=sum(shape), device=cuda)
     cuda_agg.reset_launches()
     got = cuda_agg.aggregate(cost, inten, 6, 96)
     torch.cuda.synchronize()
-    assert cuda_agg.launches["fused_pass_bidir"] == 4
+    assert cuda_agg.launches["fused_pass_bidir"] == 3
+    assert _launched()[1] == {"line": 2, "sweep3_bidir": 1}
     want = cuda_agg.plain_aggregate(cost, inten, 6, 96)
     assert got.dtype == torch.int16
     assert torch.equal(got.to(torch.int32), want)
@@ -347,11 +356,14 @@ def test_aggregate_equals_plain(cuda, shape):
 
 @pytest.mark.parametrize("shifts", [(0,), (0, 1, -1)])
 def test_fused_pass_bidir_equals_plain(cuda, shifts):
+    """Shifts (0,): two `sgm_line_kernel` launches; (0, 1, -1): one launch
+    of `sgm_sweep3_kernel`'s two-walk form."""
     cost, inten = _volume((21, 34, 128), seed=8, device=cuda)
     acc, _ = _volume((21, 34, 128), seed=9, device=cuda, hi=500)
     cuda_agg.reset_launches()
     got = cuda_agg.fused_pass_bidir(cost, inten, acc, shifts, 6, 96)
-    assert cuda_agg.launches["fused_pass_bidir"] == 2
+    assert cuda_agg.launches["fused_pass_bidir"] == (2 if shifts == (0,)
+                                                     else 1)
     want = cuda_agg.plain_fused_pass_bidir(cost, inten, acc, shifts, 6, 96)
     assert torch.equal(got.to(torch.int32), want)
 
@@ -908,3 +920,94 @@ def test_sweep_geometry_matches_the_stand_in(cuda):
             cuda_agg.sweep_stand_in(D), D
     assert cuda_agg.sweep_geometry(cuda, 128) == (
         cuda_agg.TILE, 512, cuda_agg.CPU_RESIDENT)
+
+
+# sgm_sweep3_kernel's two-walk form (row 3's vertical pair at D <= 128):
+# X = 1-9 scan positions, below, at and past the ring's 4 stages, odd
+# (both walks at the middle position in one step) and even; L with a
+# ragged last tile, fewer lines than a block, and one line; D with and
+# without 16-byte copies.
+BIDIR_SHAPES = [(X, L, D) for X in range(1, 10)
+                for L, D in ((19, 128), (5, 40))] + [
+    (7, 1, 16), (12, 35, 33), (31, 64, 100), (4, 9, 1), (40, 120, 64)]
+
+
+@pytest.mark.parametrize("shifts", [(0, 1, -1), (1, -1), (1,), (-1, 0)])
+@pytest.mark.parametrize("shape", BIDIR_SHAPES)
+def test_bidir_sweep_equals_plain(cuda, shape, shifts):
+    """One launch of the two-walk form per `fused_pass_bidir` call,
+    bit-equal to plain (acc plus the forward and the backward sweep); and
+    the same launch with 3 lines a block (a ragged last tile, the lines'
+    diagonals handed on inside a block) and with 8."""
+    cost, inten = _volume(shape, seed=sum(shape) + len(shifts), device=cuda)
+    acc, _ = _volume(shape, seed=sum(shape) + 11, device=cuda, hi=500)
+    cuda_agg.reset_launches()
+    got = cuda_agg.fused_pass_bidir(cost, inten, acc, shifts, 6, 96)
+    torch.cuda.synchronize()
+    assert _launched() == ({"fused_pass_bidir": 1}, {"sweep3_bidir": 1})
+    want = cuda_agg.plain_fused_pass_bidir(cost, inten, acc, shifts, 6, 96)
+    assert torch.equal(got.to(torch.int32), want)
+    for lines in (3, 8):
+        plan = [cuda_agg.Launch("sweep3_bidir", 1, False, "add", shifts,
+                                "fused_pass_bidir", 0, 1, lines)]
+        got = cuda_agg.run_plan(plan, cost[None], inten[None], acc[None], 6,
+                                96)[0]
+        assert torch.equal(got.to(torch.int32), want), lines
+
+
+@pytest.mark.parametrize("lines", [1, 3, 5, 8])
+@pytest.mark.parametrize("shape", [(2, 9, 37, 128), (1, 8, 21, 33),
+                                   (3, 5, 7, 64)])
+def test_bidir_sweep_lines_and_odd_elements_equal_plain(cuda, shape, lines):
+    """The form with other lines a block (as the probe runs it), over B
+    problems, on volumes that start one element into their storage (no
+    16-byte copies, unaligned runs) and on aligned ones, adding in place
+    into an accumulator."""
+    cost, inten = _volume(shape, seed=sum(shape) + lines, device=cuda)
+    acc, _ = _volume(shape, seed=lines, device=cuda, hi=500)
+    plan = [cuda_agg.Launch("sweep3_bidir", 1, False, "add", (0, 1, -1),
+                            "fused_pass_bidir", 0, shape[0], lines)]
+    want = cuda_agg.plain_run_plan(plan, cost, inten, acc, 6, 96)
+    for c, a in ((cost, acc), (_at_odd_element(cost), _at_odd_element(acc))):
+        got = cuda_agg.run_plan(plan, c, inten, a, 6, 96)
+        assert torch.equal(got, want)
+
+
+def test_bidir_sweep_repeats_bit_equal(cuda):
+    """A race between the two walks' adds, or in the hand-off between
+    blocks, shows as a rare mismatch: the two-walk sweep 20 times on one
+    input with an odd and an even X, each bit-equal to plain."""
+    for shape in ((301, 400, 128), (300, 400, 128)):
+        cost, inten = _volume(shape, seed=shape[0], device=cuda)
+        acc, _ = _volume(shape, seed=23, device=cuda, hi=500)
+        want = cuda_agg.plain_fused_pass_bidir(cost, inten, acc, (0, 1, -1),
+                                               6, 96)
+        for rep in range(20):
+            got = cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1), 6,
+                                            96)
+            assert torch.equal(got.to(torch.int32), want), (shape, rep)
+
+
+def test_bidir_sweep_beyond_its_resident_blocks_takes_two_sweeps(cuda):
+    """One line more than two two-walk blocks an SM hold: the two one-walk
+    sweeps (their blocks hold twice the lines), bit-equal."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    L = 2 * sms * cuda_agg.BIDIR_LINES + 1
+    cost, inten = _volume((3, L, 16), seed=46, device=cuda)
+    acc, _ = _volume(cost.shape, seed=47, device=cuda, hi=500)
+    cuda_agg.reset_launches()
+    got = cuda_agg.fused_pass_bidir(cost, inten, acc, (0, 1, -1), 6, 96)
+    assert _launched()[1] == {"sweep3": 2}
+    want = cuda_agg.plain_fused_pass_bidir(cost, inten, acc, (0, 1, -1), 6,
+                                           96)
+    assert torch.equal(got.to(torch.int32), want)
+
+
+def test_bidir_geometry_matches_the_stand_in(cuda):
+    """On an H100 SXM the two-walk form keeps two blocks of 8 lines an SM,
+    the stand-in CPU tensors are planned with."""
+    if cuda_agg.deep_sweep_geometry(cuda, 2048)[2] != cuda_agg.H100_SMS:
+        pytest.skip("not an H100 SXM")
+    for D in (16, 128):
+        assert cuda_agg.bidir_geometry(cuda, D) == (1024,
+                                                    cuda_agg.CPU_RESIDENT)

@@ -1,9 +1,10 @@
 """The routes of the SGM aggregation entry points, on the CPU.
 
 `cuda_agg.plan_route` decides from the shape alone which kernel runs each
-sweep of a call (`sgm_line_kernel`, `sgm_sweep3_kernel` or one
-`sgm_path_kernel` launch per path), in which direction, and whether it
-writes the path cost, writes acc + path elsewhere, or adds in place. The
+sweep of a call (`sgm_line_kernel`, `sgm_sweep3_kernel`, its two-walk form
+for row 3's vertical pair, or one `sgm_path_kernel` launch per path), in
+which direction, and whether it writes the path cost, writes acc + path
+elsewhere, or adds in place. The
 cases below hold that plan for every entry point. On the CPU the entry
 points run the same plan through the plain sweep, each launch in its mode
 (`cuda_agg.run_plan`), so holding them bit for bit against the TPU
@@ -24,13 +25,22 @@ from torch_threads import one_torch_thread  # noqa: F401
 P1, P2 = 6, 96
 R = 264  # sgm_sweep3_kernel's resident blocks on the H100
 WIDE = R * 16 + 1  # one line more than R blocks of 16 lines hold
+PAIR = R * 8 + 1  # one line more than two two-walk blocks an SM hold
 B1, B2 = "fused_pass", "fused_pass_batch"  # rows 1 and 2
 B3 = "fused_pass_bidir"  # row 3
 F, T = False, True  # directions
 
 
-def _l(kernel, scan, reverse, mode, shifts, row, b0=0, nb=1):
-    return cuda_agg.Launch(kernel, scan, reverse, mode, shifts, row, b0, nb)
+def _l(kernel, scan, reverse, mode, shifts, row, b0=0, nb=1, lines=0):
+    return cuda_agg.Launch(kernel, scan, reverse, mode, shifts, row, b0, nb,
+                           lines)
+
+
+def _pair(shifts, lines=6):
+    """Row 3's vertical pair in one launch of the two-walk form: 1440 lines
+    spread over two blocks an SM of the H100's 132, 6 lines a block (640
+    lines: one block an SM, 5 lines)."""
+    return _l("sweep3_bidir", 1, F, "add", shifts, B3, lines=lines)
 
 
 ROUTES = {
@@ -70,12 +80,33 @@ ROUTES = {
         [_l("line", 1, F, "into", (0,), B3), _l("line", 1, T, "add", (0,), B3)]),
     "bidir (0, 1, -1)": (
         ("fused_pass_bidir", 1, 1440, dict(shifts=(0, 1, -1))),
-        [_l("sweep3", 1, F, "add", (0, 1, -1), B3),
-         _l("sweep3", 1, T, "add", (0, 1, -1), B3)]),
+        [_pair((0, 1, -1))]),
+    "bidir (0, 1, -1) at 640 lines": (
+        ("fused_pass_bidir", 1, 640, dict(shifts=(0, 1, -1))),
+        [_pair((0, 1, -1), 5)]),
     "bidir (1,)": (
         ("fused_pass_bidir", 1, 1440, dict(shifts=(1,))),
-        [_l("sweep3", 1, F, "add", (1,), B3),
-         _l("sweep3", 1, T, "add", (1,), B3)]),
+        [_pair((1,))]),
+    "bidir (1, -1)": (
+        ("fused_pass_bidir", 1, 1440, dict(shifts=(1, -1))),
+        [_pair((1, -1))]),
+    "bidir beyond the two-walk blocks": (
+        ("fused_pass_bidir", 1, PAIR, dict(shifts=(0, 1, -1))),
+        [_l("sweep3", 1, F, "add", (0, 1, -1), B3),
+         _l("sweep3", 1, T, "add", (0, 1, -1), B3)]),
+    "bidir few two-walk blocks": (  # 240 blocks of 6 lines, 179 resident
+        ("fused_pass_bidir", 1, 1440, dict(shifts=(0, 1, -1),
+                                           bidir=(132, 179))),
+        [_l("sweep3", 1, F, "add", (0, 1, -1), B3),
+         _l("sweep3", 1, T, "add", (0, 1, -1), B3)]),
+    "bidir on 100 SMs": (  # 1440 lines: 8 a block, two blocks an SM
+        ("fused_pass_bidir", 1, 1440, dict(shifts=(-1, 0),
+                                           bidir=(100, 200))),
+        [_l("sweep3_bidir", 1, F, "add", (-1, 0), B3, lines=8)]),
+    "bidir D > 128": (
+        ("fused_pass_bidir", 1, 1440, dict(shifts=(0, 1, -1), D=129)),
+        [_l("sweep3", 1, F, "add", (0, 1, -1), B3, lines=11),
+         _l("sweep3", 1, T, "add", (0, 1, -1), B3, lines=11)]),
     "bidir repeated": (
         ("fused_pass_bidir", 1, 40, dict(shifts=(0, 0))),
         [_l("path", 1, F, "add", (0,), B3)] * 2
@@ -98,8 +129,21 @@ ROUTES = {
     "aggregate": (
         ("aggregate", 1, 1440, {}),
         [_l("line", 2, F, "write", (0,), B3), _l("line", 2, T, "add", (0,), B3),
+         _pair((0, 1, -1))]),
+    "aggregate at 640 lines": (
+        ("aggregate", 1, 640, {}),
+        [_l("line", 2, F, "write", (0,), B3), _l("line", 2, T, "add", (0,), B3),
+         _pair((0, 1, -1), 5)]),
+    "aggregate beyond the two-walk blocks": (
+        ("aggregate", 1, PAIR, {}),
+        [_l("line", 2, F, "write", (0,), B3), _l("line", 2, T, "add", (0,), B3),
          _l("sweep3", 1, F, "add", (0, 1, -1), B3),
          _l("sweep3", 1, T, "add", (0, 1, -1), B3)]),
+    "aggregate D > 128": (
+        ("aggregate", 1, 1440, dict(D=256)),
+        [_l("line", 2, F, "write", (0,), B3), _l("line", 2, T, "add", (0,), B3),
+         _l("sweep3", 1, F, "add", (0, 1, -1), B3, lines=11),
+         _l("sweep3", 1, T, "add", (0, 1, -1), B3, lines=11)]),
     "aggregate wide": (
         ("aggregate", 1, WIDE, {}),
         [_l("line", 2, F, "write", (0,), B3), _l("line", 2, T, "add", (0,), B3)]
@@ -168,6 +212,59 @@ def test_fused_pass_bidir_plan_matches_pallas(shifts, D):
         *_j(cost, inten, acc), shifts, P1, P2, interpret=True))
     got = cuda_agg.fused_pass_bidir(*_t(cost, inten, acc), shifts, P1, P2)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("X", [1, 2, 3, 8, 9])
+@pytest.mark.parametrize("D", [16, 24, 40])
+def test_bidir_pair_plans_match_pallas(D, X):
+    """Row 3's vertical pair in one launch of the two-walk form, run
+    through the plain sweep: `fused_pass_bidir` and `aggregate` bit-equal
+    to the TPU kernels in interpret mode at odd and even X, down to one
+    scan position."""
+    cost, inten = _volume((X, 13, D), seed=D + X)
+    acc, _ = _volume((X, 13, D), seed=D + X + 1, hi=500)
+    for shifts in ((0, 1, -1), (1, -1)):
+        assert [ln.kernel for ln in cuda_agg.plan_route(
+            "fused_pass_bidir", 1, 13, R, shifts=shifts)] == ["sweep3_bidir"]
+        want = np.asarray(pallas_agg._fused_pass_bidir(
+            *_j(cost, inten, acc), shifts, P1, P2, interpret=True))
+        got = cuda_agg.fused_pass_bidir(*_t(cost, inten, acc), shifts, P1,
+                                        P2)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert [ln.kernel for ln in cuda_agg.plan_route("aggregate", 1, 13, R)
+            ] == ["line", "line", "sweep3_bidir"]
+    want = np.asarray(pallas_agg.aggregate(*_j(cost, inten), P1, P2,
+                                           interpret=True))
+    got = cuda_agg.aggregate(*_t(cost, inten), P1, P2)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("L, sms, lines", [
+    (1440, 132, 6), (640, 132, 5), (132, 132, 1), (13, 132, 1),
+    (1056, 132, 8), (1057, 132, 5), (2112, 132, 8), (2113, 132, 0),
+    (1440, 100, 8), (1696, 132, 7)])
+def test_bidir_lines(L, sms, lines):
+    """The two-walk form's lines a block: L spread over one block an SM
+    while a block holds at most 8 lines, else over two, else none."""
+    assert cuda_agg.bidir_lines(L, sms) == lines
+
+
+def test_bidir_pair_plan_bytes():
+    """The two-walk launch moves each direction's bytes once: the cost and
+    the accumulator read and the accumulator written per direction, 6
+    volumes and the intensities twice; `aggregate`'s plan the same 11
+    volumes as its four one-walk launches."""
+    shape = (1, 1440, 1440, 128)
+    V, inten = 1440 * 1440 * 128 * 2, 4 * 1440 * 1440
+    pair = cuda_agg.plan_route("fused_pass_bidir", 1, 1440, R,
+                               shifts=(0, 1, -1))
+    assert cuda_agg.plan_bytes(pair, shape) == 6 * V + 2 * inten
+    agg = cuda_agg.plan_route("aggregate", 1, 1440, R)
+    four = cuda_agg.plan_route("aggregate", 1, 1440, R, bidir=(132, 1))
+    assert len(agg) == 3 and len(four) == 4
+    assert cuda_agg.plan_bytes(agg, shape) == cuda_agg.plan_bytes(
+        four, shape) == 11 * V + 4 * inten
+    assert len(cuda_agg.per_path_plan(pair, 128)) == 6
 
 
 @pytest.mark.parametrize("reverse", [False, True])
