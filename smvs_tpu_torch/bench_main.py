@@ -30,8 +30,6 @@ import time
 import numpy as np
 import torch
 
-from torch.profiler import record_function
-
 from smvs_tpu_torch.core.synthetic import (make_plane_scene,
                                            make_two_view_scene)
 from smvs_tpu_torch.device import device_name, resolve_device, synchronize
@@ -39,8 +37,9 @@ from smvs_tpu_torch.pipeline import optimizer as O
 from smvs_tpu_torch.pipeline.views import make_view
 from smvs_tpu_torch.sgm import stereo as sgm
 
-# Profiler spans around the two stages, read by `profile`.
-SPANS = ("run_once.sgm", "run_once.optimizer")
+# The program's spans of the two stages (`utils.timing`), read by
+# `profile`, with the names of its keys.
+SPANS = {"sgm.pair": "sgm", "opt.view": "optimizer"}
 
 
 def run_once(dim: int, min_scale: int,
@@ -69,22 +68,20 @@ def run_once(dim: int, min_scale: int,
     synchronize(dev)  # images resident before the clock starts
 
     t0 = time.perf_counter()
-    with record_function(SPANS[0]):
-        sgm_depth = sgm.reconstruct_auto(
-            scene.cameras[1], scene.cameras[0], main_v.image * 255.0,
-            sub_v.image * 255.0, range_main=(3.5, 9.5),
-            range_nbr=(3.5, 9.5), device=dev)
-        synchronize(dev)
+    sgm_depth = sgm.reconstruct_auto(
+        scene.cameras[1], scene.cameras[0], main_v.image * 255.0,
+        sub_v.image * 255.0, range_main=(3.5, 9.5), range_nbr=(3.5, 9.5),
+        device=dev)
+    synchronize(dev)
     t_sgm = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     opts = O.OptimizerOptions(regularization=0.01, num_iterations=5,
                               min_scale=min_scale, use_sgm=True,
                               debug_lvl=2 if sync_stages else 0)
-    with record_function(SPANS[1]):
-        result = O.optimize_view(main_v, [sub_v], opts, sgm_depth=sgm_depth,
-                                 device=dev, log=log)
-        synchronize(dev)
+    result = O.optimize_view(main_v, [sub_v], opts, sgm_depth=sgm_depth,
+                             device=dev, log=log)
+    synchronize(dev)
     t_opt = time.perf_counter() - t0
     if details is not None:
         details.update(main=main_v, subs=[sub_v], sgm_depth=sgm_depth,
@@ -120,12 +117,11 @@ def run_shading_once(dim: int, min_scale: int,
     synchronize(dev)  # images resident before the clock starts
 
     t0 = time.perf_counter()
-    with record_function(SPANS[0]):
-        sgm_depth = sgm.reconstruct_auto_multi(
-            scene.cameras[1], [scene.cameras[s.view_id] for s in subs],
-            main_v.image * 255.0, [s.image * 255.0 for s in subs],
-            (3.4, 6.6), [(3.4, 6.6)] * len(subs), device=dev)
-        synchronize(dev)
+    sgm_depth = sgm.reconstruct_auto_multi(
+        scene.cameras[1], [scene.cameras[s.view_id] for s in subs],
+        main_v.image * 255.0, [s.image * 255.0 for s in subs],
+        (3.4, 6.6), [(3.4, 6.6)] * len(subs), device=dev)
+    synchronize(dev)
     t_sgm = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -133,10 +129,9 @@ def run_shading_once(dim: int, min_scale: int,
         regularization=0.01, light_surf_regularization=0.0,
         num_iterations=5, min_scale=min_scale, use_sgm=True,
         use_shading=True, debug_lvl=2 if sync_stages else 0)
-    with record_function(SPANS[1]):
-        result = O.optimize_view(main_v, subs, opts, sgm_depth=sgm_depth,
-                                 device=dev, log=log)
-        synchronize(dev)
+    result = O.optimize_view(main_v, subs, opts, sgm_depth=sgm_depth,
+                             device=dev, log=log)
+    synchronize(dev)
     t_opt = time.perf_counter() - t0
     if details is not None:
         details.update(result=result, main=main_v, subs=subs, opts=opts)
@@ -166,7 +161,8 @@ def profile(dim: int, min_scale: int, device: torch.device, out_dir: str
     Writes the table of device time by operation to
     ``out_dir/profile_<dim>.txt`` and returns, for the SGM and the
     optimizer span, the seconds the device was busy (kernels and copies)
-    and its idle share of the span. The profiler slows the host side, so
+    and its idle share of the span (the program's spans `SPANS`, which a
+    running profiler turns on). The profiler slows the host side, so
     the spans are longer and the idle shares higher than untraced.
     """
     from torch.autograd import DeviceType
@@ -182,17 +178,19 @@ def profile(dim: int, min_scale: int, device: torch.device, out_dir: str
         run_once(dim, min_scale, device)
     events = prof.events()
     # Device work: kernels and copies. Left out are the device-side copies
-    # of the SPANS annotations and "Command Buffer Full" (the host waiting
-    # for a free launch slot).
+    # of the host annotations (the program's spans) and "Command Buffer
+    # Full" (the host waiting for a free launch slot).
+    annotations = {e.name for e in events if e.device_type == DeviceType.CPU
+                   and getattr(e, "is_user_annotation", False)}
     device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in (*SPANS, "Command Buffer Full")]
+              and e.name not in annotations | {"Command Buffer Full"}]
     spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     out = {}
     for e in events:
         if e.name in SPANS and e.device_type == DeviceType.CPU:
             lo, hi = e.time_range.start, e.time_range.end
             busy = _busy_us(spans, lo, hi)
-            key = e.name.split(".")[1]
+            key = SPANS[e.name]
             out[f"{key}_traced_s"] = (hi - lo) / 1e6
             out[f"{key}_device_busy_s"] = busy / 1e6
             out[f"{key}_idle_share"] = 1.0 - busy / (hi - lo)

@@ -52,7 +52,8 @@ from smvs_tpu_torch.pipeline import optimizer as O
 from smvs_tpu_torch.pipeline import view_selection as vs
 from smvs_tpu_torch.pipeline.views import make_view
 from smvs_tpu_torch.sgm import stereo as sgm
-from smvs_tpu_torch.utils.timing import StageTimer
+from smvs_tpu_torch.utils import timing
+from smvs_tpu_torch.utils.timing import span
 
 # Working megapixels of one batched group at most: the default of the JAX
 # CLI's SMVS_BATCH_MP, so that both CLIs form the same groups.
@@ -345,17 +346,11 @@ def main(argv=None) -> int:
     )
     log = print if conf.debug_lvl > 0 else None
 
-    # Host-clock stage times; each stage ends in a copy to the host, which
-    # waits for the device.
-    timer = StageTimer()
-
     def prepare_init(i, oh, ow, main_v):
         """(sgm_depth, init_depth) of view i on its canvas; one is None."""
         if use_sgm:
-            with timer.stage("sgm"):
-                return prepare_sgm(i, oh, ow, main_v.height,
-                                   main_v.width), None
-        with timer.stage("splat"):
+            return prepare_sgm(i, oh, ow, main_v.height, main_v.width), None
+        with span("cli.splat"):
             return None, prepare_splat(i, oh, ow, main_v.height, main_v.width)
 
     def debug_sink(i):
@@ -363,6 +358,35 @@ def main(argv=None) -> int:
         def sink(name, img):
             by_id[i].set_image(name, img.cpu().numpy().astype(np.float32))
         return sink if conf.debug_lvl > 1 else None
+
+    def run_group(group, key):
+        """One group of views: views, SGM or splats, then the optimizer;
+        writes each view's result."""
+        t0 = time.time()
+        dims = [working_dims(i) for i in group]
+        mains = [stereo_view(i) for i in group]
+        subs_list = [[stereo_view(n) for n in neighbors[i]] for i in group]
+        inits = [prepare_init(i, oh, ow, m)
+                 for i, (oh, ow), m in zip(group, dims, mains)]
+        batched = len(group) >= 2 and conf.debug_lvl <= 1
+        with span("cli.optimize"):
+            if batched:
+                results = VB.optimize_view_batch(
+                    mains, subs_list, opts,
+                    sgm_depths=[s for s, _ in inits] if use_sgm else None,
+                    init_depths=None if use_sgm else [d for _, d in inits],
+                    log=log, device=dev)
+            else:
+                results = [O.optimize_view(
+                    m, subs, opts, sgm_d, device=dev, log=log,
+                    init_depth=init_d, debug_sink=debug_sink(i))
+                    for i, m, subs, (sgm_d, init_d)
+                    in zip(group, mains, subs_list, inits)]
+            for i, result, (oh, ow) in zip(group, results, dims):
+                write_result(i, result, oh, ow)
+        print(f"Views {group} done in {time.time()-t0:.1f}s "
+              f"({key[2]} neighbors, "
+              f"{'batched' if batched else 'sequential'})")
 
     # Group views into buckets of one shape (the padded working dims and
     # the neighbor count, as the JAX CLI keys them); a group of two or
@@ -372,46 +396,33 @@ def main(argv=None) -> int:
     for i in recon_list:
         buckets.setdefault((*padded_dims(*working_dims(i)),
                             len(neighbors[i])), []).append(i)
-    t_all = time.time()
-    for key, ids in buckets.items():
-        for group in VB.group_views(ids, key, conf.batch_views, BATCH_MP):
-            t0 = time.time()
-            dims = [working_dims(i) for i in group]
-            with timer.stage("views"):
-                mains = [stereo_view(i) for i in group]
-                subs_list = [[stereo_view(n) for n in neighbors[i]]
-                             for i in group]
-            inits = [prepare_init(i, oh, ow, m)
-                     for i, (oh, ow), m in zip(group, dims, mains)]
-            batched = len(group) >= 2 and conf.debug_lvl <= 1
-            with timer.stage("optimize"):
-                if batched:
-                    results = VB.optimize_view_batch(
-                        mains, subs_list, opts,
-                        sgm_depths=[s for s, _ in inits] if use_sgm else None,
-                        init_depths=None if use_sgm else [d for _, d in inits],
-                        log=log, device=dev)
-                else:
-                    results = [O.optimize_view(
-                        m, subs, opts, sgm_d, device=dev, log=log,
-                        init_depth=init_d, debug_sink=debug_sink(i))
-                        for i, m, subs, (sgm_d, init_d)
-                        in zip(group, mains, subs_list, inits)]
-                for i, result, (oh, ow) in zip(group, results, dims):
-                    write_result(i, result, oh, ow)
-            print(f"Views {group} done in {time.time()-t0:.1f}s "
-                  f"({key[2]} neighbors, "
-                  f"{'batched' if batched else 'sequential'})")
-    print(f"Reconstruction took {time.time()-t_all:.1f}s")
+    # The run is traced for its stage times (the spans' host clock; each
+    # stage ends in a copy to the host, which waits for the device).
+    with timing.recording() as spans:
+        t_all = time.time()
+        for key, ids in buckets.items():
+            for group in VB.group_views(ids, key, conf.batch_views,
+                                        BATCH_MP):
+                with span("cli.group"):
+                    run_group(group, key)
+        print(f"Reconstruction took {time.time()-t_all:.1f}s")
 
-    if not conf.recon_only:
-        with timer.stage("fuse"):
-            fuse(conf, scene, by_id, neighbors, output_name, load_image)
-    print("Stage seconds: " + ", ".join(
-        f"{name} {timer.totals[name]:.3f} ({timer.counts[name]} runs)"
-        for name in ("views", "sgm", "splat", "optimize", "fuse")
-        if name in timer.totals))
+        if not conf.recon_only:
+            with span("cli.fuse"):
+                fuse(conf, scene, by_id, neighbors, output_name, load_image)
+    print(stage_seconds(spans))
     return 0
+
+
+def stage_seconds(spans) -> str:
+    """The ``Stage seconds:`` line of a run's span records: the host
+    seconds and count of each `cli.` stage that ran."""
+    stages = timing.totals(spans)
+    return "Stage seconds: " + ", ".join(
+        f"{name} {stages['cli.' + name][0]:.3f} "
+        f"({stages['cli.' + name][1]} runs)"
+        for name in ("views", "sgm", "splat", "optimize", "fuse")
+        if "cli." + name in stages)
 
 
 def fuse(conf, scene, by_id, neighbors, output_name, load_image) -> None:
@@ -450,8 +461,16 @@ def reconstruct_sgm(conf, i, nbrs, padded_image, bundle, sgm_range,
     """SGM of up to 2 neighbors, averaged (reference
     `app/smvsrecon.cc:347-384`), on the shared padded canvas
     (`padded_image` returns the gray image + exactly adjusted camera).
-    Returns the z-depth map at the SGM scale."""
+    Returns the z-depth map at the SGM scale. The whole of it is the span
+    ``cli.sgm``: the images' scaling, the depth ranges from the bundle and
+    the read of the map to the host."""
+    with span("cli.sgm"):
+        return _reconstruct_sgm(conf, i, nbrs, padded_image, bundle,
+                                sgm_range, device)
 
+
+def _reconstruct_sgm(conf, i, nbrs, padded_image, bundle, sgm_range,
+                     device: torch.device) -> np.ndarray:
     def at_sgm_scale(img):
         x = torch.as_tensor(img * 255.0, device=device)
         for _ in range(conf.sgm_scale):

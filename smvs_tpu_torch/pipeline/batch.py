@@ -54,7 +54,7 @@ from smvs_tpu_torch.pipeline.views import StereoViewState
 from smvs_tpu_torch.shading.lighting import fit_lighting
 from smvs_tpu_torch.solver import gn
 from smvs_tpu_torch.surface import state as S
-from smvs_tpu_torch.utils.timing import StageTimer
+from smvs_tpu_torch.utils import timing
 
 
 def bucket_key(main: StereoViewState, subs: Sequence[StereoViewState]):
@@ -111,7 +111,20 @@ def optimize_view_batch(
 def _optimize_batch(mains, subs_list, opts, sgm_depths, init_depths, log,
                     device, layout) -> list[O.DepthResult]:
     """`optimize_view_batch` on one rank, or one ``views`` row of ranks,
-    its Newton systems solved in ``layout``."""
+    its Newton systems solved in ``layout``; under -d 1 and above the
+    stage report reads the call's spans."""
+    with timing.recording(log is not None) as spans, \
+            timing.span("opt.batch"):
+        results = _run_batch(mains, subs_list, opts, sgm_depths,
+                             init_depths, log, device, layout)
+    if log:
+        log(timing.report(spans))
+    return results
+
+
+def _run_batch(mains, subs_list, opts, sgm_depths, init_depths, log,
+               device, layout) -> list[O.DepthResult]:
+    """`_optimize_batch`'s body."""
     V = len(mains)
     keys = {bucket_key(m, s) for m, s in zip(mains, subs_list)}
     if len(keys) != 1:
@@ -144,7 +157,7 @@ def _optimize_batch(mains, subs_list, opts, sgm_depths, init_depths, log,
     layout.for_rows(bsurf.nodes.shape[1])  # a grid too small raises here
     bfill = torch.stack(fill_srcs)
     inv_flens = [1.0 / m.flen() for m in mains]
-    timer = StageTimer(sync_device=dev if opts.debug_lvl >= 2 else None)
+    sync = dev if opts.debug_lvl >= 2 else None
     sgm_zbs = None
     lighting = None
 
@@ -154,7 +167,7 @@ def _optimize_batch(mains, subs_list, opts, sgm_depths, init_depths, log,
         if log:
             log(f"### batch of {V}: scale {scale}: "
                 f"{bsurf.patch_valid.sum((1, 2)).tolist()} patches")
-        with timer.stage(f"viewset@s{scale}"):
+        with timing.stage("opt.viewset", sync, scale=scale):
             views = [O._build_viewset(m, list(subs), scale, dtype,
                                       bf16_gather=opts.bf16_gather,
                                       use_shading=opts.use_shading)
@@ -168,28 +181,28 @@ def _optimize_batch(mains, subs_list, opts, sgm_depths, init_depths, log,
             sgm_zbs = [O.zbuffer_scatter(v, src)
                        for v, src in zip(views, fill_srcs)]
         if opts.use_shading and scale < 4:
-            with timer.stage(f"lighting@s{scale}"):
+            with timing.stage("opt.lighting", sync, scale=scale):
                 shading = torch.stack([m.shading_images()[0].to(dtype)
                                        for m in mains])
                 lighting = fit_lighting(S.normal_map(bsurf, inv_flens),
                                         shading)
         return O.run_newton_iterations_batch(
             bsurf, list(mains), gn.stack_viewsets(views), opts, sgm_zbs,
-            log=log, timer=timer, lighting=lighting, ncc_images=ncc_images,
+            log=log, sync=sync, lighting=lighting, ncc_images=ncc_images,
             layout=layout)
 
-    bsurf = run_scale(bsurf)
+    with timing.stage("opt.scale", sync, scale=bsurf.scale):
+        bsurf = run_scale(bsurf)
     while bsurf.scale > opts.min_scale and bsurf.scale > 0:
-        with timer.stage(f"subdivide@s{bsurf.scale}"):
+        with timing.stage("opt.subdivide", sync, scale=bsurf.scale):
             bsurf = S.subdivide(bsurf)
             bsurf = S.fill_patches_from_depth(bsurf, bfill)
-        bsurf = run_scale(bsurf)
+        with timing.stage("opt.scale", sync, scale=bsurf.scale):
+            bsurf = run_scale(bsurf)
 
-    with timer.stage("extract"):
+    with timing.stage("opt.extract", sync):
         depth = S.depth_map(bsurf)
         normals = S.normal_map(bsurf, inv_flens)
-    if log:
-        log(timer.report())
     return [O.DepthResult(depth=depth[i], normals=normals[i],
                           surface=S.unstack_surface(bsurf, i),
                           lighting=None if lighting is None else lighting[i])

@@ -35,8 +35,9 @@ from smvs_tpu_torch.shading.lighting import fit_lighting
 from smvs_tpu_torch.solver import cg, gn, mg, stencil
 from smvs_tpu_torch.surface import bicubic
 from smvs_tpu_torch.surface import state as S
+from smvs_tpu_torch.utils import timing
 from smvs_tpu_torch.utils.perview import per_view, rows_matmul
-from smvs_tpu_torch.utils.timing import StageTimer, host_reads
+from smvs_tpu_torch.utils.timing import host_reads, span
 
 _F32 = np.float32  # host-side scalar tests round like the device's float32
 
@@ -324,6 +325,7 @@ def cut_boundaries(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
 
     delete = (cut_depth | cut_border) & surf.patch_valid
     deleted = int(delete.sum())
+    host_reads["cut"] += 1
     surf = S.delete_patches(surf, delete)
     return S.remove_nodes_without_patch(surf), deleted
 
@@ -347,6 +349,7 @@ def patch_mse(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
     compact = capacity is not None and capacity < B
     if compact:
         idx = torch.nonzero(select.reshape(-1)).squeeze(1)[:capacity]
+        host_reads["cut"] += 1
         u, v, w, wdx, wdy = (a.reshape(B, P)[idx]
                              for a in (u, v, w, wdx, wdy))
         gm = gm.reshape(B, P, 2)[idx]
@@ -465,35 +468,40 @@ def _newton_step(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
     gn_opts = gn.GNOptions(
         regularization=opts.regularization,
         light_surf_regularization=opts.light_surf_regularization)
-    g, Hb = gn.assemble(s, view, vis, act, gn_opts, lighting)
-    if opts.precond == "mg":
-        levels = mg.build(Hb, act, damp_rows=lighting is None)
-        precond = lambda x: mg.apply(levels, x)  # noqa: E731
-    elif opts.precond == "jacobi":
-        P = stencil.block_jacobi_inverse(Hb, act)
-        precond = lambda x: stencil.apply_block_diag(P, x)  # noqa: E731
-    else:
-        raise ValueError(f"precond is 'mg' or 'jacobi', not {opts.precond!r}")
+    with span("opt.assemble"):
+        g, Hb = gn.assemble(s, view, vis, act, gn_opts, lighting)
+    with span("opt.mg_build"):
+        if opts.precond == "mg":
+            levels = mg.build(Hb, act, damp_rows=lighting is None)
+            precond = lambda x: mg.apply(levels, x)  # noqa: E731
+        elif opts.precond == "jacobi":
+            P = stencil.block_jacobi_inverse(Hb, act)
+            precond = lambda x: stencil.apply_block_diag(P, x)  # noqa: E731
+        else:
+            raise ValueError("precond is 'mg' or 'jacobi', not "
+                             f"{opts.precond!r}")
     gnorm = torch.linalg.vector_norm(g.reshape(-1))
     res = cg.solve(lambda x: stencil.spmv(Hb, x), -g, precond=precond,
                    max_iterations=200, error_tolerance=gnorm * 0.01,
                    q_tolerance=1e-3)
-    delta = torch.movedim(res.x, 0, -1)  # [ny1, nx1, 4]
-    bad = ~torch.isfinite(delta).all()
-    delta = torch.where(bad, 0.0, delta)
+    with span("opt.update"):
+        delta = torch.movedim(res.x, 0, -1)  # [ny1, nx1, 4]
+        bad = ~torch.isfinite(delta).all()
+        delta = torch.where(bad, 0.0, delta)
 
-    s2 = S.update_nodes(s, delta)
-    avg, new_active = _step_motion(s, s2, view, vis, act)
+        s2 = S.update_nodes(s, delta)
+        avg, new_active = _step_motion(s, s2, view, vis, act)
 
-    f_safe = torch.clamp(torch.abs(s.nodes[..., 0]), min=1e-6)
-    rel_step = torch.amax(torch.where(s.node_valid,
-                                      torch.abs(delta[..., 0]) / f_safe, 0.0))
-    # One read-back for the loop's scalars (float64 holds each exactly).
-    bad_h, avg_h, rel_h, n_act = torch.stack([
-        bad.to(torch.float64), avg.to(torch.float64),
-        rel_step.to(torch.float64), new_active.sum().to(torch.float64),
-    ]).tolist()
-    host_reads["newton"] += 1
+        f_safe = torch.clamp(torch.abs(s.nodes[..., 0]), min=1e-6)
+        rel_step = torch.amax(torch.where(
+            s.node_valid, torch.abs(delta[..., 0]) / f_safe, 0.0))
+        # One read-back for the loop's scalars (float64 holds each
+        # exactly).
+        bad_h, avg_h, rel_h, n_act = torch.stack([
+            bad.to(torch.float64), avg.to(torch.float64),
+            rel_step.to(torch.float64), new_active.sum().to(torch.float64),
+        ]).tolist()
+        host_reads["newton"] += 1
     real = np.float64 if s.nodes.dtype == torch.float64 else _F32
     return _StepResult(s2.nodes, new_active, bool(bad_h), real(avg_h),
                        real(rel_h), int(n_act), res.iterations)
@@ -511,6 +519,7 @@ def _newton_loop(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
     num_initial = int((active & surf.node_valid).sum())
     nodes, active_ = surf.nodes, active
     n_active = int(active_.sum())
+    host_reads["active"] += 2
     steps = 0
     done = False
     best_act = num_initial + 1
@@ -521,8 +530,9 @@ def _newton_loop(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
         if not (opts.fixed_newton_steps or full) and \
                 n_active <= num_initial // 20:
             break
-        st = _newton_step(dataclasses.replace(surf, nodes=nodes), view, vis,
-                          active_, opts, lighting)
+        with span("opt.newton_step"):
+            st = _newton_step(dataclasses.replace(surf, nodes=nodes), view,
+                              vis, active_, opts, lighting)
         converged = st.rel_step < _F32(1e-4)  # depth changed by < 0.01%
         improved = (st.n_active < best_act) or (st.avg < _F32(0.9) * best_avg)
         stall = 0 if improved else stall + 1
@@ -566,13 +576,16 @@ def scale_program(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
     Returns (surface, stats [[steps, patches, cg_iters] per iteration])."""
     stats = []
     prev_count = int(surf.patch_valid.sum())
+    host_reads["patches"] += 1
     for _ in range(opts.num_iterations):
         nodes, _, steps, cg_total = _newton_loop(surf, view, vis,
                                                  surf.node_valid, opts,
                                                  lighting)
-        surf, vis = _cleanup_view(dataclasses.replace(surf, nodes=nodes),
-                                  view, vis, inv_cal, opts, ncc_images)
-        new_count = int(surf.patch_valid.sum())
+        with span("opt.cleanup"):
+            surf, vis = _cleanup_view(dataclasses.replace(surf, nodes=nodes),
+                                      view, vis, inv_cal, opts, ncc_images)
+            new_count = int(surf.patch_valid.sum())
+            host_reads["patches"] += 1
         lo = min(new_count, prev_count)
         hi = max(new_count, prev_count, 1)
         change = _F32(1.0) - _F32(lo) / _F32(hi)
@@ -588,24 +601,22 @@ def scale_program(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
 def run_newton_iterations(surf: S.Surface, main: StereoViewState,
                           view: gn.ViewSet, opts: OptimizerOptions,
                           sgm_zbuffer: torch.Tensor | None, log=None,
-                          timer: StageTimer | None = None,
+                          sync: torch.device | None = None,
                           lighting: torch.Tensor | None = None,
                           ncc_images: tuple | None = None) -> S.Surface:
     """Reference `DepthOptimizer::run_newton_iterations` (:164-358):
     initial visibility and boundary cutting, then the outer loop.
     ``ncc_images`` (main [H, W], neighbors [N, H, W] at the surface's
     scale) turn on the visibility's NCC test, as the optimizer does
-    without SGM."""
+    without SGM. ``sync``: the device each stage waits for at its end."""
     inv_cal = torch.as_tensor(
         main.camera.inverse_calibration(main.width, main.height),
         dtype=torch.float64, device=main.device)
-    timer = timer or StageTimer()
-    with timer.stage(f"visibility@s{surf.scale}"):
+    with timing.stage("opt.visibility", sync, scale=surf.scale):
         surf, vis = compute_visibility(surf, view, sgm_zbuffer, ncc_images)
         surf, vis = cut_boundaries_loop(surf, view, vis, inv_cal)
-    with timer.stage(f"iterations@s{surf.scale}"):
-        surf, stats = scale_program(surf, view, vis, inv_cal, opts,
-                                    lighting, ncc_images)
+    surf, stats = scale_program(surf, view, vis, inv_cal, opts, lighting,
+                                ncc_images)
     if log:
         for it, (steps, count, cg_total) in enumerate(stats):
             log(f"  iter {it}: {steps} newton steps, {count} patches, "
@@ -699,36 +710,41 @@ def _newton_step_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
     gn_opts = gn.GNOptions(
         regularization=opts.regularization,
         light_surf_regularization=opts.light_surf_regularization)
-    g, Hb = lay.assemble(s, view, vis, act, gn_opts, lighting)
-    if opts.precond == "mg":
-        levels = lay.build_mg(Hb, lay.rows(act), lighting is None)
-        precond = lambda x: mg.apply(levels, x)  # noqa: E731
-    elif opts.precond == "jacobi":
-        P = stencil.block_jacobi_inverse(Hb, lay.rows(act))
-        precond = lambda x: stencil.apply_block_diag(P, x)  # noqa: E731
-    else:
-        raise ValueError(f"precond is 'mg' or 'jacobi', not {opts.precond!r}")
+    with span("opt.assemble"):
+        g, Hb = lay.assemble(s, view, vis, act, gn_opts, lighting)
+    with span("opt.mg_build"):
+        if opts.precond == "mg":
+            levels = lay.build_mg(Hb, lay.rows(act), lighting is None)
+            precond = lambda x: mg.apply(levels, x)  # noqa: E731
+        elif opts.precond == "jacobi":
+            P = stencil.block_jacobi_inverse(Hb, lay.rows(act))
+            precond = lambda x: stencil.apply_block_diag(P, x)  # noqa: E731
+        else:
+            raise ValueError("precond is 'mg' or 'jacobi', not "
+                             f"{opts.precond!r}")
     res = cg.solve_batch(lay.spmv(Hb), -g, precond=precond,
                          max_iterations=200,
                          error_tolerance=lay.grad_norm(g) * 0.01,
                          q_tolerance=1e-3, running=running,
                          reduce=lay.reduce)
-    delta = torch.movedim(lay.gather(res.x), 0, -1)  # [V, ny1, nx1, 4]
-    bad = ~torch.isfinite(delta).flatten(1).all(1)
-    delta = torch.where(bad[:, None, None, None], 0.0, delta)
+    with span("opt.update"):
+        delta = torch.movedim(lay.gather(res.x), 0, -1)  # [V, ny1, nx1, 4]
+        bad = ~torch.isfinite(delta).flatten(1).all(1)
+        delta = torch.where(bad[:, None, None, None], 0.0, delta)
 
-    s2 = S.update_nodes(s, delta)
-    avg, new_active = _step_motion(s, s2, view, vis, act)
+        s2 = S.update_nodes(s, delta)
+        avg, new_active = _step_motion(s, s2, view, vis, act)
 
-    f_safe = torch.clamp(torch.abs(s.nodes[..., 0]), min=1e-6)
-    rel_step = torch.amax(torch.where(s.node_valid,
-                                      torch.abs(delta[..., 0]) / f_safe, 0.0),
-                          dim=(1, 2))
-    host = torch.stack([
-        bad.to(torch.float64), avg.to(torch.float64),
-        rel_step.to(torch.float64), new_active.sum((1, 2)).to(torch.float64),
-    ], dim=1).cpu().numpy()  # [V, 4]
-    host_reads["newton"] += 1
+        f_safe = torch.clamp(torch.abs(s.nodes[..., 0]), min=1e-6)
+        rel_step = torch.amax(torch.where(
+            s.node_valid, torch.abs(delta[..., 0]) / f_safe, 0.0),
+            dim=(1, 2))
+        host = torch.stack([
+            bad.to(torch.float64), avg.to(torch.float64),
+            rel_step.to(torch.float64),
+            new_active.sum((1, 2)).to(torch.float64),
+        ], dim=1).cpu().numpy()  # [V, 4]
+        host_reads["newton"] += 1
     real = np.float64 if s.nodes.dtype == torch.float64 else _F32
     return _BatchStepResult(s2.nodes, new_active, host[:, 0] > 0,
                             host[:, 1].astype(real), host[:, 2].astype(real),
@@ -748,6 +764,7 @@ def _newton_loop_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
     full = opts.full_optimization
     counts = torch.stack([(active & surf.node_valid).sum((1, 2)),
                           active.sum((1, 2))]).cpu().numpy()
+    host_reads["active"] += 1
     num_initial, n_active = counts[0].astype(np.int64), counts[1]
     nodes, active_ = surf.nodes, active
     steps = np.zeros(V, np.int64)
@@ -765,8 +782,10 @@ def _newton_loop_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
         if done.all():
             break
         run = ~done
-        st = _newton_step_batch(dataclasses.replace(surf, nodes=nodes), view,
-                                vis, active_, opts, lighting, run, layout)
+        with span("opt.newton_step"):
+            st = _newton_step_batch(dataclasses.replace(surf, nodes=nodes),
+                                    view, vis, active_, opts, lighting, run,
+                                    layout)
         converged = st.rel_step < _F32(1e-4)
         improved = (st.n_active < best_act) | (st.avg < _F32(0.9) * best_avg)
         stall = np.where(run, np.where(improved, 0, stall + 1), stall)
@@ -799,28 +818,31 @@ def scale_program_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
     V = surf.nodes.shape[0]
     stats = [[] for _ in range(V)]
     prev = surf.patch_valid.sum((1, 2)).cpu().numpy().astype(np.int64)
+    host_reads["patches"] += 1
     alive = np.ones(V, bool)
     for _ in range(opts.num_iterations):
         nodes, _, steps, cg_total = _newton_loop_batch(
             surf, view, vis, surf.node_valid, opts, lighting, alive, layout)
-        surf = dataclasses.replace(surf, nodes=nodes)
-        surfs = [S.unstack_surface(surf, i) for i in range(V)]
-        viss = list(vis)
-        for i in np.flatnonzero(alive):
-            surfs[i], viss[i] = _cleanup_view(
-                surfs[i], gn.viewset_at(view, i), viss[i], inv_cals[i], opts,
-                None if ncc_images is None else ncc_images[i])
-            new_count = int(surfs[i].patch_valid.sum())
-            lo = min(new_count, prev[i])
-            hi = max(new_count, prev[i], 1)
-            change = _F32(1.0) - _F32(lo) / _F32(hi)
-            stats[i].append((int(steps[i]), new_count, int(cg_total[i])))
-            if new_count <= prev[i] or change < _F32(0.05 * surf.scale):
-                alive[i] = False
-            else:
-                prev[i] = new_count
-        surf = S.stack_surfaces(surfs)
-        vis = torch.stack(viss)
+        with span("opt.cleanup"):
+            surf = dataclasses.replace(surf, nodes=nodes)
+            surfs = [S.unstack_surface(surf, i) for i in range(V)]
+            viss = list(vis)
+            for i in np.flatnonzero(alive):
+                surfs[i], viss[i] = _cleanup_view(
+                    surfs[i], gn.viewset_at(view, i), viss[i], inv_cals[i],
+                    opts, None if ncc_images is None else ncc_images[i])
+                new_count = int(surfs[i].patch_valid.sum())
+                host_reads["patches"] += 1
+                lo = min(new_count, prev[i])
+                hi = max(new_count, prev[i], 1)
+                change = _F32(1.0) - _F32(lo) / _F32(hi)
+                stats[i].append((int(steps[i]), new_count, int(cg_total[i])))
+                if new_count <= prev[i] or change < _F32(0.05 * surf.scale):
+                    alive[i] = False
+                else:
+                    prev[i] = new_count
+            surf = S.stack_surfaces(surfs)
+            vis = torch.stack(viss)
         if not alive.any():
             break
     return surf, stats
@@ -829,20 +851,19 @@ def scale_program_batch(surf: S.Surface, view: gn.ViewSet, vis: torch.Tensor,
 def run_newton_iterations_batch(surf: S.Surface, mains: list,
                                 view: gn.ViewSet, opts: OptimizerOptions,
                                 sgm_zbuffers: list | None, log=None,
-                                timer: StageTimer | None = None,
+                                sync: torch.device | None = None,
                                 lighting: torch.Tensor | None = None,
                                 ncc_images: list | None = None,
                                 layout: WholeGrid = WHOLE_GRID
                                 ) -> S.Surface:
     """`run_newton_iterations` for a batch of views: visibility and the
     first boundary cuts view by view, then `scale_program_batch`, its
-    Newton systems solved in ``layout``."""
+    Newton systems solved in ``layout``; ``sync`` as there."""
     V = surf.nodes.shape[0]
     inv_cals = [torch.as_tensor(
         m.camera.inverse_calibration(m.width, m.height),
         dtype=torch.float64, device=m.device) for m in mains]
-    timer = timer or StageTimer()
-    with timer.stage(f"visibility@s{surf.scale}"):
+    with timing.stage("opt.visibility", sync, scale=surf.scale):
         surfs, viss = [], []
         for i in range(V):
             vi = gn.viewset_at(view, i)
@@ -854,9 +875,8 @@ def run_newton_iterations_batch(surf: S.Surface, mains: list,
             surfs.append(si)
             viss.append(visi)
         surf, vis = S.stack_surfaces(surfs), torch.stack(viss)
-    with timer.stage(f"iterations@s{surf.scale}"):
-        surf, stats = scale_program_batch(surf, view, vis, inv_cals, opts,
-                                          lighting, ncc_images, layout)
+    surf, stats = scale_program_batch(surf, view, vis, inv_cals, opts,
+                                      lighting, ncc_images, layout)
     if log:
         for i, rows in enumerate(stats):
             log(f"  view {mains[i].view_id} s{surf.scale}: " + " ".join(
@@ -904,6 +924,18 @@ def optimize_view(main: StereoViewState, subs: list[StereoViewState],
         if v.device != dev:
             raise ValueError(f"view {v.view_id} lives on {v.device}, "
                              f"not on {dev}")
+    # Under -d 1 and above the stage report reads the call's spans.
+    with timing.recording(log is not None) as spans, span("opt.view"):
+        result = _optimize_view(main, subs, opts, sgm_depth, dev, log,
+                                init_depth, init_surface, debug_sink)
+    if log:
+        log(timing.report(spans))
+    return result
+
+
+def _optimize_view(main, subs, opts, sgm_depth, dev, log, init_depth,
+                   init_surface, debug_sink) -> DepthResult:
+    """`optimize_view`'s body on its resolved device."""
     if debug_sink is None or opts.debug_lvl <= 1:
         debug_sink = lambda name, img: None  # noqa: E731
     dtype = torch.float32
@@ -929,7 +961,7 @@ def optimize_view(main: StereoViewState, subs: list[StereoViewState],
                              "init_depth")
         fill_src = torch.as_tensor(init_depth, device=dev).to(dtype)
         surf = S.create_from_depth(fill_src, scale0 + 1)
-    timer = StageTimer(sync_device=dev if opts.debug_lvl >= 2 else None)
+    sync = dev if opts.debug_lvl >= 2 else None
     sgm_zb = None
     lighting = None
 
@@ -937,7 +969,7 @@ def optimize_view(main: StereoViewState, subs: list[StereoViewState],
         nonlocal sgm_zb, lighting
         if log:
             log(f"### scale {surf.scale}: {surf.num_valid_patches()} patches")
-        with timer.stage(f"viewset@s{surf.scale}"):
+        with timing.stage("opt.viewset", sync, scale=surf.scale):
             view = _build_viewset(main, subs, surf.scale, surf.nodes.dtype,
                                   bf16_gather=opts.bf16_gather,
                                   use_shading=opts.use_shading)
@@ -952,29 +984,29 @@ def optimize_view(main: StereoViewState, subs: list[StereoViewState],
         if opts.use_shading and surf.scale < 4:
             # Refit the lighting to this scale's (subdivided) surface; the
             # coarser scales run without the shading term.
-            with timer.stage(f"lighting@s{surf.scale}"):
+            with timing.stage("opt.lighting", sync, scale=surf.scale):
                 shading_img, _ = main.shading_images()
                 nmap = S.normal_map(surf, 1.0 / main.flen())
                 lighting = fit_lighting(nmap,
                                         shading_img.to(surf.nodes.dtype))
         return run_newton_iterations(surf, main, view, opts, sgm_zb,
-                                     log=log, timer=timer, lighting=lighting,
+                                     log=log, sync=sync, lighting=lighting,
                                      ncc_images=ncc_images)
 
     debug_sink("smvs-initial", S.depth_map(surf))
-    surf = run_scale(surf)
+    with timing.stage("opt.scale", sync, scale=surf.scale):
+        surf = run_scale(surf)
     while surf.scale > opts.min_scale and surf.scale > 0:
-        with timer.stage(f"subdivide@s{surf.scale}"):
+        with timing.stage("opt.subdivide", sync, scale=surf.scale):
             surf = S.subdivide(surf)
             if fill_src is not None:
                 surf = S.fill_patches_from_depth(surf, fill_src)
-        surf = run_scale(surf)
+        with timing.stage("opt.scale", sync, scale=surf.scale):
+            surf = run_scale(surf)
 
-    with timer.stage("extract"):
+    with timing.stage("opt.extract", sync):
         depth = S.depth_map(surf)
         normals = S.normal_map(surf, 1.0 / main.flen())
-    if log:
-        log(timer.report())
     if lighting is not None:
         shaded = L.render_normal_map(lighting, normals)
         debug_sink("smvs-shaded", shaded)

@@ -18,6 +18,7 @@ from smvs_tpu_torch.core.camera import Camera
 from smvs_tpu_torch.device import resolve_device
 from smvs_tpu_torch.image import gradients as igrad
 from smvs_tpu_torch.image import ops as iops
+from smvs_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass
@@ -89,15 +90,17 @@ def make_view(camera: Camera, image, view_id: int = 0,
               ) -> StereoViewState:
     """A view from a gray [H, W] or color [H, W, 3] image on ``device``
     (the GPU unless ``"cpu"`` is passed); a color view's gray image is its
-    luminance. ``gamma_correction`` sRGB-decodes the shading image."""
+    luminance. ``gamma_correction`` sRGB-decodes the shading image. The
+    build is the command line's ``cli.views`` stage, a span a view."""
     dev = resolve_device(device)
-    if isinstance(image, torch.Tensor):
-        img = image.to(device=dev, dtype=dtype)
-    else:
-        img = torch.as_tensor(np.asarray(image), dtype=dtype, device=dev)
-    color = None
-    if img.ndim == 3:
-        color, img = img, iops.luminance(img)
+    with span("cli.views"):
+        if isinstance(image, torch.Tensor):
+            img = image.to(device=dev, dtype=dtype)
+        else:
+            img = torch.as_tensor(np.asarray(image), dtype=dtype, device=dev)
+        color = None
+        if img.ndim == 3:
+            color, img = img, iops.luminance(img)
     return StereoViewState(camera=camera, image=img, color=color,
                            view_id=view_id,
                            gamma_correction=gamma_correction)

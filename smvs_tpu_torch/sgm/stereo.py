@@ -31,6 +31,7 @@ from smvs_tpu_torch.device import resolve_device
 from smvs_tpu_torch.image import ops as iops
 from smvs_tpu_torch.sgm import cuda_agg
 from smvs_tpu_torch.sgm import rectify as R
+from smvs_tpu_torch.utils.timing import host_reads, span
 
 INVALID_COST = 255  # reference fills missing warps with 255 (:216-221)
 
@@ -130,6 +131,7 @@ def _disparity_cost(m_census: torch.Tensor, nbr_img: torch.Tensor,
     si = torch.floor(shifts).to(torch.int32)
     frac = (shifts - si.to(shifts.dtype)).to(nbr_img.dtype)
     starts = torch.clamp(P - si, 1, P + wn).tolist()
+    host_reads["shifts"] += 1
     if out is None:
         out = torch.empty((h, w, D), dtype=torch.int16, device=nbr_img.device)
     for c0 in range(0, D, _PLANE_CHUNK):
@@ -162,6 +164,7 @@ def _disparity_cost_interp(m_census: torch.Tensor, nbr_img: torch.Tensor,
     si = torch.floor(shifts).to(torch.int32)
     frac = shifts - si.to(shifts.dtype)
     starts = torch.clamp(P - si, 1, P + wn).tolist()
+    host_reads["shifts"] += 1
     if out is None:
         out = torch.empty((h, w, D), dtype=torch.int16, device=nbr_img.device)
     for c0 in range(0, D, _PLANE_CHUNK):
@@ -256,11 +259,14 @@ def run_sgm(main_img: torch.Tensor, neighbor_img: torch.Tensor,
     depths = torch.as_tensor(
         depth_planes(min_depth, max_depth, opts.num_steps),
         device=main_img.device)
-    cost = cost_volume(main_img, neighbor_img, M, t, depths)
-    agg = cuda_agg.aggregate(cost, main_img.to(torch.int32), opts.penalty1,
-                             opts.penalty2)
+    with span("sgm.cost"):
+        cost = cost_volume(main_img, neighbor_img, M, t, depths)
+    with span("sgm.aggregate"):
+        agg = cuda_agg.aggregate(cost, main_img.to(torch.int32),
+                                 opts.penalty1, opts.penalty2)
     del cost
-    return winner_take_all(agg, main_img, depths)
+    with span("sgm.wta"):
+        return winner_take_all(agg, main_img, depths)
 
 
 def consistency_filter(d_main: torch.Tensor, d_neig: torch.Tensor,
@@ -306,7 +312,8 @@ def reconstruct(main_img: torch.Tensor, neighbor_img: torch.Tensor,
     d_main = run_sgm(main_img, neighbor_img, M_mn, t_mn, *range_main, opts)
     d_neig = run_sgm(neighbor_img, main_img, M_nm, t_nm, *range_neighbor,
                      opts)
-    return consistency_filter(d_main, d_neig, M_mn, t_mn)
+    with span("sgm.consistency"):
+        return consistency_filter(d_main, d_neig, M_mn, t_mn)
 
 
 def depth_range_from_features(feature_depths: np.ndarray
@@ -363,29 +370,43 @@ def _rectified_sgm(main_r, nbr_r, hinv_nbr, H_main, L_main, fB, off,
     """
     h, w = main_r.shape
     wn = nbr_r.shape[1]
-    f32 = main_r.dtype
     D = shifts.shape[0]
     dev = main_r.device
 
-    m_c = census_transform(main_r)
-    n_c = census_transform(nbr_r)
+    with span("sgm.cost"):
+        m_c = census_transform(main_r)
+        n_c = census_transform(nbr_r)
 
-    # Both directions ride one batched aggregation; the main problem is
-    # padded to the widened neighbor canvas with INVALID columns, which
-    # leave the real columns' path costs unchanged (a uniform previous
-    # line restarts the recurrence).
-    vol = torch.full((2, h, wn, D), INVALID_COST, dtype=torch.int16,
-                     device=dev)
-    cost_fn = _disparity_cost_interp if cost_interp else _disparity_cost
-    cost_fn(m_c, nbr_r, shifts, out=vol[0, :, :w])
-    cost_fn(n_c, main_r, -shifts, out=vol[1])
-    im = torch.nn.functional.pad(main_r, (0, wn - w))
-    inten = torch.stack([im, nbr_r]).to(torch.int32)
-    agg2 = cuda_agg.aggregate_batch(vol, inten, p1, p2)
-    disp_m, ok_m = _wta_subpixel(agg2[0, :, :w], vol[0, :, :w], main_r,
-                                 disp0, dstep)
-    disp_n, ok_n = _wta_subpixel(agg2[1], vol[1], nbr_r, disp0, dstep)
+        # Both directions ride one batched aggregation; the main problem
+        # is padded to the widened neighbor canvas with INVALID columns,
+        # which leave the real columns' path costs unchanged (a uniform
+        # previous line restarts the recurrence).
+        vol = torch.full((2, h, wn, D), INVALID_COST, dtype=torch.int16,
+                         device=dev)
+        cost_fn = _disparity_cost_interp if cost_interp else _disparity_cost
+        cost_fn(m_c, nbr_r, shifts, out=vol[0, :, :w])
+        cost_fn(n_c, main_r, -shifts, out=vol[1])
+    with span("sgm.aggregate"):
+        im = torch.nn.functional.pad(main_r, (0, wn - w))
+        inten = torch.stack([im, nbr_r]).to(torch.int32)
+        agg2 = cuda_agg.aggregate_batch(vol, inten, p1, p2)
+    with span("sgm.wta"):
+        disp_m, ok_m = _wta_subpixel(agg2[0, :, :w], vol[0, :, :w], main_r,
+                                     disp0, dstep)
+        disp_n, ok_n = _wta_subpixel(agg2[1], vol[1], nbr_r, disp0, dstep)
     del agg2, vol
+    with span("sgm.consistency"):
+        return _consistent_depth(disp_m, ok_m, disp_n, ok_n, hinv_nbr,
+                                 H_main, L_main, fB, off, wn, main_r.dtype)
+
+
+def _consistent_depth(disp_m, ok_m, disp_n, ok_n, hinv_nbr, H_main, L_main,
+                      fB, off, wn: int, f32) -> torch.Tensor:
+    """`_rectified_sgm`'s bidirectional consistency test and un-rectify:
+    the main view's z-depth from both directions' disparities [H, W] and
+    [H, wn] and their validity, computed in ``f32``."""
+    h, w = disp_m.shape
+    dev = disp_m.device
 
     # Bidirectional consistency (reference `reconstruct`, :64-91): the
     # matched neighbor pixel must see a compatible depth (ratio >= 0.8)
@@ -478,9 +499,10 @@ def _rectified_sgm_packed(main_img, nbr_img, params, num_steps: int,
     h_main = params[18:27].reshape(3, 3)
     l_main = params[27:30]
     fB, off, disp0, dstep = params[30], params[31], params[32], params[33]
-    main_r = R.warp_homography(main_img, hinv_m)
-    nbr_r = R.warp_homography(nbr_img, hinv_n,
-                              out_width=main_img.shape[1] + 2 * nbr_pad)
+    with span("sgm.rectify"):
+        main_r = R.warp_homography(main_img, hinv_m)
+        nbr_r = R.warp_homography(nbr_img, hinv_n,
+                                  out_width=main_img.shape[1] + 2 * nbr_pad)
     shifts = iops.fma(dstep, torch.arange(num_steps, dtype=f32,
                                           device=main_img.device), disp0)
     return _rectified_sgm(main_r, nbr_r, hinv_n, h_main, l_main, fB, off,
@@ -544,8 +566,9 @@ def reconstruct_auto_multi(cam_main, cams_nbr, main_img, nbr_imgs,
     h, w = main_img.shape
     pad = None
     if all(tuple(n.shape) == (h, w) for n in nbr_imgs):
-        rps = [R.rectify_pair(cam_main, c, w, h, range_main, rn)
-               for c, rn in zip(cams_nbr, ranges_nbr)]
+        with span("sgm.rectify"):
+            rps = [R.rectify_pair(cam_main, c, w, h, range_main, rn)
+                   for c, rn in zip(cams_nbr, ranges_nbr)]
         if all(rp.valid for rp in rps):
             pad = max(rp.nbr_pad for rp in rps)
     acc = None
@@ -567,14 +590,24 @@ def reconstruct_auto(cam_main, cam_nbr, main_img, nbr_img,
     Runs on ``device`` (the GPU unless the caller passes ``"cpu"``): the
     rectified sweep when the pair geometry allows it, else the general
     warp (near-forward motion). ``nbr_pad`` fixes the rectified neighbor
-    canvas's padding (default: the pair's own).
+    canvas's padding (default: the pair's own). The call is the span
+    ``sgm.pair``.
     """
-    dev = resolve_device(device)
+    with span("sgm.pair"):
+        return _reconstruct_pair(cam_main, cam_nbr, main_img, nbr_img,
+                                 range_main, range_nbr, opts,
+                                 resolve_device(device), nbr_pad)
+
+
+def _reconstruct_pair(cam_main, cam_nbr, main_img, nbr_img, range_main,
+                      range_nbr, opts, dev, nbr_pad) -> torch.Tensor:
+    """`reconstruct_auto`'s body on its resolved device."""
     main_img = torch.as_tensor(main_img, device=dev)
     nbr_img = torch.as_tensor(nbr_img, device=dev)
     h, w = main_img.shape
-    rp = R.rectify_pair(cam_main, cam_nbr, w, h, range_main, range_nbr,
-                        nbr_pad=nbr_pad)
+    with span("sgm.rectify"):
+        rp = R.rectify_pair(cam_main, cam_nbr, w, h, range_main, range_nbr,
+                            nbr_pad=nbr_pad)
     if rp.valid:
         return reconstruct_rectified(rp, main_img, nbr_img, opts)
     hn, wn = nbr_img.shape

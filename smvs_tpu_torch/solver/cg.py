@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from smvs_tpu_torch.utils.perview import per_view
-from smvs_tpu_torch.utils.timing import host_reads
+from smvs_tpu_torch.utils.timing import host_reads, span
 
 
 class CGResult(NamedTuple):
@@ -102,8 +102,24 @@ def solve_batch(
     a SUM all-reduce over the ranks that share the views, so that each
     of them holds every view's whole dot products, reads the same exit
     flags and leaves the loop in the same iteration.
+
+    The solve is the span ``solver.pcg``; each pass of its loop the span
+    ``solver.pcg.iteration``, from the search direction's update (after
+    the first pass) to the read of the exit flags.
     """
-    P = precond if precond is not None else (lambda v: v)
+    with span("solver.pcg"):
+        return _solve_batch(A, b, P=precond if precond is not None
+                            else (lambda v: v),
+                            max_iterations=max_iterations,
+                            error_tolerance=error_tolerance,
+                            q_tolerance=q_tolerance, running=running,
+                            view_dim=view_dim, reduce=reduce,
+                            flexible=flexible)
+
+
+def _solve_batch(A, b, P, max_iterations, error_tolerance, q_tolerance,
+                 running, view_dim, reduce, flexible) -> CGBatchResult:
+    """`solve_batch`'s loop, with the preconditioner ``P``."""
     V = b.shape[view_dim]
     dev = b.device
     shape_v = [1] * b.ndim
@@ -138,29 +154,29 @@ def solve_batch(
     run = None if run_h.all() else torch.as_tensor(run_h, device=dev)
     i = 0
     while i < max_iterations and run_h.any():
-        Ad = A(d)
-        dAd = vdot(d, Ad)
-        alpha = torch.where(dAd != 0, rdr / dAd, 0.0).reshape(shape_v)
-        x = keep(run, x + alpha * d, x)
-        r_prev = r
-        r = keep(run, r - alpha * Ad, r)
-        new_rr = vdot(r, r)
-        q1 = -vdot(x, b + r)
-        zeta = (i + 1) * (q1 - q_prev) / torch.where(q1 != 0, q1, 1.0)
-        i += 1
-        iters += run_h
-        stop = (new_rr < tol) | (zeta < q_tolerance)
-        run_h = run_h & ~stop.cpu().numpy()
-        host_reads["cg"] += 1
-        if i >= max_iterations or not run_h.any():
-            break
-        if not run_h.all():
+        with span("solver.pcg.iteration"):
+            if i:  # the search direction from the last pass's residual
+                z = P(r)
+                new_rdr = vdot(z, r)
+                num = vdot(z, r - r_prev) if flexible else new_rdr
+                beta = torch.where(rdr != 0, num / rdr, 0.0).reshape(shape_v)
+                d = keep(run, z + beta * d, d)
+                rdr = keep(run, new_rdr, rdr)
+                q_prev = keep(run, q1, q_prev)
+            Ad = A(d)
+            dAd = vdot(d, Ad)
+            alpha = torch.where(dAd != 0, rdr / dAd, 0.0).reshape(shape_v)
+            x = keep(run, x + alpha * d, x)
+            r_prev = r
+            r = keep(run, r - alpha * Ad, r)
+            new_rr = vdot(r, r)
+            q1 = -vdot(x, b + r)
+            zeta = (i + 1) * (q1 - q_prev) / torch.where(q1 != 0, q1, 1.0)
+            i += 1
+            iters += run_h
+            stop = (new_rr < tol) | (zeta < q_tolerance)
+            run_h = run_h & ~stop.cpu().numpy()
+            host_reads["cg"] += 1
+        if i < max_iterations and run_h.any() and not run_h.all():
             run = ~stop if run is None else run & ~stop
-        z = P(r)
-        new_rdr = vdot(z, r)
-        num = vdot(z, r - r_prev) if flexible else new_rdr
-        beta = torch.where(rdr != 0, num / rdr, 0.0).reshape(shape_v)
-        d = keep(run, z + beta * d, d)
-        rdr = keep(run, new_rdr, rdr)
-        q_prev = keep(run, q1, q_prev)
     return CGBatchResult(x=x, iterations=iters, residual=vdot(r, r))

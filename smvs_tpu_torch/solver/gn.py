@@ -41,6 +41,7 @@ from smvs_tpu_torch.solver import stencil
 from smvs_tpu_torch.surface import bicubic
 from smvs_tpu_torch.surface.state import Surface, patch_params, unstack_surface
 from smvs_tpu_torch.utils.perview import rows_matmul, split_rows
+from smvs_tpu_torch.utils.timing import host_reads
 
 R_FACTOR = 1e-4  # IRLS-L1 floor, reference `lib/gauss_newton_step.cc:17`
 
@@ -771,6 +772,7 @@ def assemble(surf: Surface, view: ViewSet, vis: torch.Tensor,
               | active[..., 1:, :-1] | active[..., 1:, 1:]) & surf.patch_valid
         idx = torch.nonzero(ca.reshape(-1)).squeeze(1)
         counts = (ca.reshape(lead[0], B).sum(1).tolist() if lead else None)
+        host_reads["assemble"] += 2 if lead else 1
         gs, Hs = run(idx, counts)
         g_flat = torch.zeros((BT, 16), dtype=dtype, device=gs.device)
         H_flat = torch.zeros((BT, 16, 16), dtype=dtype, device=gs.device)

@@ -3,13 +3,11 @@ default path, each against the JAX package on the CPU: the cost-space
 interpolated SGM cost (`SGMOptions.cost_interp`), the debug sphere
 render of `-d` above 1 (the CLI's debug images are held in
 tests/test_torch_cli.py), the constant-OMEGA multigrid and the flexible
-PCG, `device_trace`, `degrade_scene`, `mean_curvature`, the bicubic
+PCG, `degrade_scene`, `mean_curvature`, the bicubic
 patch evaluation and power-basis fit, `Surface.num_valid_nodes` and the
 legacy `.mve` writer.
 """
 
-import json
-import os
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +38,6 @@ from smvs_tpu_torch.solver import mg as tmg
 from smvs_tpu_torch.solver import stencil as tstencil
 from smvs_tpu_torch.surface import bicubic as tbic
 from smvs_tpu_torch.surface import state as tS
-from smvs_tpu_torch.utils.timing import device_trace
 from test_torch_solver import _close, _problem, _t
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -175,25 +172,7 @@ def test_cg_flexible_matches_jax(system64, monkeypatch, policy):
 
 
 # ---------------------------------------------------------------------------
-# (d) device_trace
-
-
-def test_device_trace(tmp_path):
-    with device_trace(None):
-        x = torch.ones(4) * 2
-    assert float(x.sum()) == 8.0
-    out = tmp_path / "trace"
-    with device_trace(str(out)):
-        torch.mm(torch.ones(8, 8), torch.ones(8, 8))
-    files = os.listdir(out)
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(out / files[0]) as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
-
-
-# ---------------------------------------------------------------------------
-# (e) degrade_scene
+# (d) degrade_scene
 
 
 def test_degrade_scene_equals_jax():
@@ -235,7 +214,7 @@ def test_base_under_exposure_and_gamma():
 
 
 # ---------------------------------------------------------------------------
-# (f) mean_curvature, (g) the bicubic patch, (h) num_valid_nodes
+# (e) mean_curvature, (f) the bicubic patch, (g) num_valid_nodes
 
 
 def test_mean_curvature_matches_jax():
@@ -295,7 +274,7 @@ def test_num_valid_nodes_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# (i) the legacy .mve writer
+# (h) the legacy .mve writer
 
 
 def test_save_legacy_mve_equals_jax(tmp_path):

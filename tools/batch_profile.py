@@ -14,8 +14,9 @@ seconds, then one per traced run: the optimize stage's seconds (host clock,
 traced, so slower than untraced), the device's busy seconds (the sum of
 its kernels' times over the whole traced call) and its idle share of the
 call's wall time, the kernel launches, the solver's host read-backs (`utils.timing.host_reads`), the
-optimizer's per-stage seconds summed over groups (its `-d 1` report:
-`viewset`, `visibility`, `iterations`, `subdivide`, `extract` per scale)
+optimizer's per-span seconds summed over groups (its `-d 1` report of
+the program's spans: `opt.viewset`, `opt.visibility`, `opt.newton_step`,
+`solver.pcg`, `opt.cleanup`, `opt.subdivide`, ... per scale)
 and the ten ops with the most device time.
 
     python tools/batch_profile.py          # on a machine with the card
@@ -49,7 +50,7 @@ N_VIEWS = 8
 def _stage_split(text: str) -> dict:
     """Sum the optimizer's `-d 1` stage reports over the groups."""
     out = defaultdict(float)
-    for name, sec in re.findall(r"^\s+(\w+@s\d|extract)\s+([\d.]+)s", text,
+    for name, sec in re.findall(r"^\s+([\w.@]+)\s+([\d.]+)s  \(", text,
                                 re.M):
         out[name] += float(sec)
     return {k: round(v, 3) for k, v in sorted(out.items())}
