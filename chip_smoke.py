@@ -185,7 +185,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and in float32 with the optimizer's bf16 view set (the norms of g and
    H of both paths within rtol 0.1 of the float64 oracle's, phase 10's
    float32 bar); each assembly's median time of 5 and peak device memory,
-   beside the card's name and power limit. No kernel launches there.
+   beside the card's name and power limit. No kernel launches there;
+19. the PCG loop's CUDA graph (`solver.cg`: the first pass op by op, the
+   second captured, every later one replayed) against the same loop op by
+   op (an identity ``reduce``), on `solver.testing.GRAPH_CASES`' seeded
+   systems: the `dtu49` cells' fine grids of 37 x 49, 75 x 99 and 151 x
+   199 nodes as `cg.solve` takes one system, 151 x 199 in a batch of 4
+   whose views exit at different passes (one not running), `rect2mp`'s
+   finest grid of 359 x 359, the block-Jacobi preconditioner and the
+   flexible beta at 75 x 99: x, residual and iterations bit-equal on
+   every solve (two a path, in turns), one pass op by op, one capture and
+   the rest replayed, and the graph's pool given back by the solve's end;
+   each path's seconds a solve, `pcg_passes` and the bytes reserved above
+   what was held before, at most during a solve.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after (each phase's seconds are logged as it ends); the `launches`
@@ -196,6 +208,7 @@ the flagship and the CLI with `-S`. It prints one
 {...}}` line with phase 15's, one `{"split": {...}}` line with phase
 16's, one `{"drivers": {...}}` line with phase 17's (the three drivers'
 dicts among them), one `{"oracle": {...}}` line with phase 18's, one
+`{"pcg_graph": {...}}` line with phase 19's, one
 `{"general": {...}, "phase_seconds": {...}}` line with phase 6's runs and
 every phase's seconds, the card's name and power limit again, one
 `{"kernels": [...]}` line with the five TPU kernel rows, each naming the
@@ -259,8 +272,9 @@ from smvs_tpu_torch.sgm import cuda_agg  # noqa: E402
 from smvs_tpu_torch.sgm import stereo  # noqa: E402
 from smvs_tpu_torch.sgm.stereo import INVALID_COST  # noqa: E402
 from smvs_tpu_torch.solver import gn  # noqa: E402
+from smvs_tpu_torch.solver import testing as pcg_testing  # noqa: E402
 from smvs_tpu_torch.tools import simplify as simplify_tool  # noqa: E402
-from smvs_tpu_torch.utils.timing import host_reads  # noqa: E402
+from smvs_tpu_torch.utils.timing import host_reads, pcg_passes  # noqa: E402
 
 # H100 SXM memory bandwidth (NVIDIA data sheet; full 700 W power limit).
 # The data sheet gives no peak rate for integer min and add work, so the
@@ -1175,11 +1189,13 @@ def phase_cli_batch(captured: list) -> dict:
                 shutil.copytree(path, copy)
             cuda_agg.reset_launches()
             host_reads.clear()
+            pcg_passes.clear()
             torch.cuda.reset_peak_memory_stats()
             with _captured_batches(captured if where == path else []):
                 rc, text, seconds = _cli_quiet([where, *flags])
             launches = dict(cuda_agg.launches)
             reads = dict(host_reads)
+            passes = dict(pcg_passes)
             log("\n".join(f"  cli {label}: " + line
                           for line in text.splitlines()))
             if rc != 0:
@@ -1188,7 +1204,7 @@ def phase_cli_batch(captured: list) -> dict:
                 "seconds": seconds,
                 "stages": re.search(r"Stage seconds: (.*)", text).group(1),
                 "groups": _groups(text), "launches": launches,
-                "host_reads": reads,
+                "host_reads": reads, "pcg_passes": passes,
                 "kernel_launches": dict(cuda_agg.kernel_launches),
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
                 "input_scale": re.search(r"Automatic input scale: (\d+)",
@@ -1671,6 +1687,7 @@ def _dist_pipeline_rank(rank: int, world: int, dev: torch.device,
     data = torch.load(path, map_location=dev, weights_only=False)
     mesh = VB.make_view_mesh(world, patch_axis=1, device=dev)
     host_reads.clear()
+    pcg_passes.clear()
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1690,7 +1707,8 @@ def _dist_pipeline_rank(rank: int, world: int, dev: torch.device,
         if got.lighting is not None or want["lighting"] is not None:
             unequal.append((i, "lighting"))
     return {"share": view_share(len(out), mesh), "seconds": seconds,
-            "host_reads": dict(host_reads), "unequal": unequal,
+            "host_reads": dict(host_reads), "pcg_passes": dict(pcg_passes),
+            "unequal": unequal,
             "views": len(out),
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
 
@@ -1856,6 +1874,7 @@ def _split_rank(rank: int, world: int, dev: torch.device, path: str,
     out = {"share": list(view_share(len(data["mains"]), mesh))}
     for name, opts in data["opts"].items():
         host_reads.clear()
+        pcg_passes.clear()
         rows.collectives.clear()
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1875,7 +1894,7 @@ def _split_stats(seconds: float, dev) -> dict:
     pcg = host_reads.get("cg", 0)
     return {"seconds": seconds,
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-            "host_reads": dict(host_reads),
+            "host_reads": dict(host_reads), "pcg_passes": dict(pcg_passes),
             "collectives": dict(rows.collectives),
             "collectives_per_pcg_iteration":
                 sum(rows.collectives.values()) / max(pcg, 1)}
@@ -1941,6 +1960,7 @@ def phase_split_main(root: str, details: dict) -> dict:
     unsharded = {}
     for key, o in opts.items():
         host_reads.clear()
+        pcg_passes.clear()
         rows.collectives.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2481,6 +2501,23 @@ def deep_kernel_entries(rows: dict) -> list:
     return entries
 
 
+def phase_pcg_graph() -> dict:
+    """Phase 19: each of `solver.testing.GRAPH_CASES` solved on the graph
+    path and op by op, in turns (`testing.check_case` raises on a
+    difference); each case's passes, seconds a solve, `pcg_passes` and
+    most bytes reserved during a solve on both paths."""
+    out = {}
+    for name in pcg_testing.GRAPH_CASES:
+        r = out[name] = pcg_testing.check_case(name)
+        log(f"pcg graph {name}: passes {r['iterations']}, graph "
+            f"{r['path']['seconds'] * 1e3:.2f} ms {r['path']['pcg_passes']} "
+            f"{r['path']['reserved_peak_b'] / 2**20:.1f} MiB reserved at "
+            f"most, op by op {r['eager']['seconds'] * 1e3:.2f} ms "
+            f"{r['eager']['pcg_passes']} "
+            f"{r['eager']['reserved_peak_b'] / 2**20:.1f} MiB; bit-equal")
+    return out
+
+
 def main() -> int:
     set_cuda_precision()
     start = last = time.perf_counter()
@@ -2546,6 +2583,8 @@ def main() -> int:
     oracle = phase_oracle(main_details, shading_details, card)
     lap("18 oracle")
     del main_details, shading_details
+    pcg_graph = phase_pcg_graph()
+    lap("19 pcg graph")
     main_path = "bench_main.run_once(1440, 2): rectified SGM"
     path_launches = {  # (path, launches on it)
         "fused_pass": (main_path, main_launches["fused_pass"]),
@@ -2589,6 +2628,7 @@ def main() -> int:
     print(json.dumps({"split": split}, default=str), flush=True)
     print(json.dumps({"drivers": drivers}, default=str), flush=True)
     print(json.dumps({"oracle": oracle}), flush=True)
+    print(json.dumps({"pcg_graph": pcg_graph}), flush=True)
     print(json.dumps({"general": general,
                       "phase_seconds": phase_seconds}), flush=True)
     print(card, flush=True)  # beside the numbers of the lines around it

@@ -13,17 +13,31 @@ reads one flag per view back. Each view's dot products are the
 sequential solver's (`torch.dot` of the view's contiguous vectors,
 `utils.perview`), so each view's trajectory is the one it takes alone;
 `solve` is a batch of one, which rounds as a single system does.
+
+A pass of the loop is `_step` over the solve's state tensors, written in
+place, and reads no host value. On a CUDA device without ``reduce``, the
+first pass runs op by op, the second captures `_step` as one CUDA graph,
+and every pass from the second on replays it: one launch and one read of
+the exit flags a pass, where the ops of a V-cycle, a stencil product and
+the dot products were each launched by the host. The graph and its
+memory pool live for one solve: the pool's memory (one pass's
+temporaries and a cuBLAS workspace) goes back to the device when the
+solve ends. On the CPU, and with ``reduce`` (a system split over ranks,
+whose collectives stay out of a graph), every pass runs `_step` op by
+op. `utils.timing.pcg_passes` counts the passes each way and the
+captures.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from smvs_tpu_torch.utils.perview import per_view
-from smvs_tpu_torch.utils.timing import host_reads, span
+from smvs_tpu_torch.utils.timing import host_reads, pcg_passes, span
 
 
 class CGResult(NamedTuple):
@@ -105,7 +119,9 @@ def solve_batch(
 
     The solve is the span ``solver.pcg``; each pass of its loop the span
     ``solver.pcg.iteration``, from the search direction's update (after
-    the first pass) to the read of the exit flags.
+    the first pass) or the pass's graph launch to the read of the exit
+    flags; the capture of the graph before the second pass the span
+    ``solver.pcg.capture``.
     """
     with span("solver.pcg"):
         return _solve_batch(A, b, P=precond if precond is not None
@@ -115,6 +131,62 @@ def solve_batch(
                             q_tolerance=q_tolerance, running=running,
                             view_dim=view_dim, reduce=reduce,
                             flexible=flexible)
+
+
+class _State(NamedTuple):
+    """A solve's state, the tensors each pass reads and writes in place:
+    the iterate, the residual (and the last pass's, for ``flexible``),
+    the search direction, <z, r>, the quadratic model's value and its
+    value a pass before, the running mask, the pass counter (float32) and
+    the exit flags, each [V] or with the views on ``view_dim`` of b."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    r_prev: torch.Tensor | None
+    d: torch.Tensor
+    rdr: torch.Tensor
+    q1: torch.Tensor
+    q_prev: torch.Tensor
+    run: torch.Tensor
+    k: torch.Tensor
+    stop: torch.Tensor
+
+
+def _step(s: _State, A, P, b, tol, q_tolerance, vdot, shape_v, flexible,
+          first: bool) -> None:
+    """One pass of the loop over ``s``, in place: the search direction
+    from the last pass's residual (not on the ``first`` pass), the step
+    along it, the exit flags ``s.stop``, and the views that stop leave
+    ``s.run``. A view out of ``s.run`` keeps its state (``torch.where``,
+    so that its non-finite values cannot leak into the others); with
+    every view running, the mask's `torch.where` gives the new values
+    exactly. Reads no host value, so a CUDA graph can replay it."""
+
+    def keep(new, old):  # new where a view runs, else old; into old
+        m = s.run.reshape(shape_v) if new.ndim > 1 else s.run
+        torch.where(m, new, old, out=old)
+
+    if not first:
+        z = P(s.r)
+        new_rdr = vdot(z, s.r)
+        num = vdot(z, s.r - s.r_prev) if flexible else new_rdr
+        beta = torch.where(s.rdr != 0, num / s.rdr, 0.0).reshape(shape_v)
+        keep(z + beta * s.d, s.d)
+        keep(new_rdr, s.rdr)
+        keep(s.q1, s.q_prev)
+    Ad = A(s.d)
+    dAd = vdot(s.d, Ad)
+    alpha = torch.where(dAd != 0, s.rdr / dAd, 0.0).reshape(shape_v)
+    keep(s.x + alpha * s.d, s.x)
+    if flexible:
+        s.r_prev.copy_(s.r)
+    keep(s.r - alpha * Ad, s.r)
+    new_rr = vdot(s.r, s.r)
+    s.q1.copy_(-vdot(s.x, b + s.r))
+    s.k.add_(1)
+    zeta = s.k * (s.q1 - s.q_prev) / torch.where(s.q1 != 0, s.q1, 1.0)
+    torch.logical_or(new_rr < tol, zeta < q_tolerance, out=s.stop)
+    s.run.logical_and_(~s.stop)
 
 
 def _solve_batch(A, b, P, max_iterations, error_tolerance, q_tolerance,
@@ -134,49 +206,84 @@ def _solve_batch(A, b, P, max_iterations, error_tolerance, q_tolerance,
             out = per_view(_dot, a, c, dim=view_dim)
         return out if reduce is None else reduce(out)
 
-    def keep(m, new, old):  # new where a view runs (m None: all), else old
-        if m is None:
-            return new
-        return torch.where(m.reshape(shape_v) if new.ndim > 1 else m,
-                           new, old)
-
     run_h = (np.ones(V, bool) if running is None
              else np.asarray(running, bool).copy())
     iters = np.zeros(V, np.int64)
-    x = torch.zeros_like(b)
-    r = b
-    d = P(r)
-    rdr = vdot(d, r)
-    q_prev = torch.zeros((V,), dtype=b.dtype, device=dev)
+    r = b.clone()
+    d = P(r).clone()  # P may hand r back
+    s = _State(x=torch.zeros_like(b), r=r,
+               r_prev=torch.empty_like(b) if flexible else None, d=d,
+               rdr=vdot(d, r), q1=torch.zeros((V,), dtype=b.dtype, device=dev),
+               q_prev=torch.zeros((V,), dtype=b.dtype, device=dev),
+               run=(torch.ones((V,), dtype=torch.bool, device=dev)
+                    if run_h.all() else torch.tensor(run_h, device=dev)),
+               k=torch.zeros((), dtype=torch.float32, device=dev),
+               stop=torch.zeros((V,), dtype=torch.bool, device=dev))
     tol = torch.broadcast_to(torch.as_tensor(error_tolerance, dtype=b.dtype,
                                              device=dev), (V,))
-    # The running mask on the device, None while every view runs.
-    run = None if run_h.all() else torch.as_tensor(run_h, device=dev)
+    step = functools.partial(_step, s, A, P, b, tol, q_tolerance, vdot,
+                             shape_v, flexible)
+    graphed = dev.type == "cuda" and reduce is None
+    graph = pool = None
     i = 0
-    while i < max_iterations and run_h.any():
-        with span("solver.pcg.iteration"):
-            if i:  # the search direction from the last pass's residual
-                z = P(r)
-                new_rdr = vdot(z, r)
-                num = vdot(z, r - r_prev) if flexible else new_rdr
-                beta = torch.where(rdr != 0, num / rdr, 0.0).reshape(shape_v)
-                d = keep(run, z + beta * d, d)
-                rdr = keep(run, new_rdr, rdr)
-                q_prev = keep(run, q1, q_prev)
-            Ad = A(d)
-            dAd = vdot(d, Ad)
-            alpha = torch.where(dAd != 0, rdr / dAd, 0.0).reshape(shape_v)
-            x = keep(run, x + alpha * d, x)
-            r_prev = r
-            r = keep(run, r - alpha * Ad, r)
-            new_rr = vdot(r, r)
-            q1 = -vdot(x, b + r)
-            zeta = (i + 1) * (q1 - q_prev) / torch.where(q1 != 0, q1, 1.0)
-            i += 1
-            iters += run_h
-            stop = (new_rr < tol) | (zeta < q_tolerance)
-            run_h = run_h & ~stop.cpu().numpy()
-            host_reads["cg"] += 1
-        if i < max_iterations and run_h.any() and not run_h.all():
-            run = ~stop if run is None else run & ~stop
-    return CGBatchResult(x=x, iterations=iters, residual=vdot(r, r))
+    try:
+        while i < max_iterations and run_h.any():
+            if graphed and i == 1:
+                with span("solver.pcg.capture"):
+                    graph, pool = _capture(
+                        functools.partial(step, first=False), dev)
+                pcg_passes["captures"] += 1
+            with span("solver.pcg.iteration"):
+                if graph is None:
+                    step(first=i == 0)
+                    pcg_passes["eager"] += 1
+                else:
+                    graph.replay()
+                    pcg_passes["replayed"] += 1
+                i += 1
+                iters += run_h
+                run_h = run_h & ~s.stop.cpu().numpy()
+                host_reads["cg"] += 1
+    finally:
+        # The graph first, which hands the pool back; then the pool, whose
+        # memory goes back to the device. The last flags were read.
+        graph = None
+        pool = None
+    return CGBatchResult(x=s.x, iterations=iters, residual=vdot(s.r, s.r))
+
+
+def _capture(fn, device: torch.device) -> tuple:
+    """``fn``'s launches captured as one CUDA graph on a side stream of
+    ``device`` (a graph is not captured on the default stream), into a
+    memory pool of its own: (graph, pool). The graph replays on the
+    current stream. Drop the graph before the pool: the pool's memory goes
+    back to the device when both are gone.
+
+    The capture's cuBLAS calls (dot products, the transfers' small
+    products) take a workspace for the side stream, 32 MiB by default,
+    from the pool. Clearing cuBLAS's workspaces after the capture leaves
+    that block to the graph alone, so that the pool holds no allocation
+    when the solve drops it. (The current stream's workspace is dropped
+    too, and comes back from the allocator's cache at its next cuBLAS
+    call.)"""
+    with torch.cuda.device(device):
+        pool = torch.cuda.MemPool()
+        stream = torch.cuda.Stream(device)
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=pool.id,
+                                    capture_error_mode="thread_local")
+                try:
+                    fn()
+                finally:
+                    graph.capture_end()
+        except BaseException:
+            graph = None  # before its pool
+            raise
+        finally:
+            torch._C._cuda_clearCublasWorkspaces()
+        current.wait_stream(stream)
+    return graph, pool

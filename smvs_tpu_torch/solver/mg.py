@@ -69,7 +69,10 @@ def _weights_4_np():
     return wx, wy
 
 
+@functools.lru_cache(maxsize=None)
 def _weights_4(dtype, device):
+    """`_weights_4_np` as tensors, converted once per dtype and device: a
+    copy to the card at every transfer would wait for it."""
     wx, wy = _weights_4_np()
 
     def cvt(d):
@@ -211,6 +214,13 @@ def _galerkin_weight_np() -> np.ndarray:
     return G.reshape(9 * 16, 9 * 9 * 16)
 
 
+@functools.lru_cache(maxsize=None)
+def _galerkin_weight(dtype, device) -> torch.Tensor:
+    """`_galerkin_weight_np` as a tensor, converted once per dtype and
+    device."""
+    return torch.as_tensor(_galerkin_weight_np(), dtype=dtype, device=device)
+
+
 def galerkin_coarse(Hb: torch.Tensor) -> torch.Tensor:
     """Coarse stencil A_c = P^T A P in closed form, as one matmul of the
     constant weight tensor against the 9 strided windows of the fine
@@ -240,8 +250,7 @@ def _galerkin(Hp: torch.Tensor, s: int, ncy: int, ncx: int) -> torch.Tensor:
     win = torch.stack(
         [Hp[..., 1 + u::2, 1 + v::2][..., :ncy, :ncx]
          for u in (-1, 0, 1) for v in (-1, 0, 1)], dim=0)
-    G = torch.as_tensor(_galerkin_weight_np(), dtype=Hp.dtype,
-                        device=Hp.device)
+    G = _galerkin_weight(Hp.dtype, Hp.device)
     if not lead:
         out = G @ win.reshape(9 * 9 * 16, ncy * ncx)
     else:  # one product per view, as the view alone takes it

@@ -25,7 +25,10 @@ compaction and per-view counts), "active" (a Newton loop's initial
 working-set sizes), "patches" (a scale's patch counts), "cut" (the
 boundary cut's compaction and deleted count) and "shifts" (a rectified
 cost volume's plane offsets); one read serves every view of a batch.
-`host_reads.clear()` resets it.
+`host_reads.clear()` resets it. `pcg_passes` counts the PCG loop's passes
+by how they ran, "eager" (launched op by op) or "replayed" (from the
+solve's CUDA graph), and the graphs captured ("captures", one a solve
+that replays); `pcg_passes.clear()` resets it.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 import torch.autograd.profiler as _profiler
 
 host_reads: Counter = Counter()
+pcg_passes: Counter = Counter()
 records: list = []  # every `Span` made while tracing was on, in start order
 
 _on = False

@@ -26,6 +26,8 @@ from smvs_tpu_torch.solver import cg as tcg
 from smvs_tpu_torch.solver import gn as tgn
 from smvs_tpu_torch.solver import mg as tmg
 from smvs_tpu_torch.solver import stencil as tst
+from smvs_tpu_torch.solver import testing as tsys
+from smvs_tpu_torch.utils.perview import per_view
 from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-9
@@ -253,3 +255,120 @@ def test_newton_step_float64():
     assert got.cg_iters == int(want[6])
     assert got.n_active == int(want[5])
     np.testing.assert_allclose(float(got.avg), float(want[3]), rtol=RTOL)
+
+
+def _loop_before_graphs(A, b, precond=None, max_iterations=200,
+                        error_tolerance=1e-20, q_tolerance=1e-3,
+                        running=None, view_dim=1, reduce=None,
+                        flexible=False):
+    """`cg.solve_batch`'s loop as it was before its pass became `cg._step`
+    (new tensors each pass, the mask None while every view runs, the pass
+    number from the host), kept to hold `_step` to it."""
+    P = precond if precond is not None else (lambda v: v)
+    V = b.shape[view_dim]
+    dev = b.device
+    shape_v = [1] * b.ndim
+    shape_v[view_dim] = V
+
+    def vdot(a, c):
+        if V == 1:
+            out = tcg._dot(a, c).reshape(1)
+        elif a is c:
+            out = per_view(lambda v: tcg._dot(v, v), a, dim=view_dim)
+        else:
+            out = per_view(tcg._dot, a, c, dim=view_dim)
+        return out if reduce is None else reduce(out)
+
+    def keep(m, new, old):
+        if m is None:
+            return new
+        return torch.where(m.reshape(shape_v) if new.ndim > 1 else m,
+                           new, old)
+
+    run_h = (np.ones(V, bool) if running is None
+             else np.asarray(running, bool).copy())
+    iters = np.zeros(V, np.int64)
+    x = torch.zeros_like(b)
+    r = b
+    d = P(r)
+    rdr = vdot(d, r)
+    q_prev = torch.zeros((V,), dtype=b.dtype, device=dev)
+    tol = torch.broadcast_to(torch.as_tensor(error_tolerance, dtype=b.dtype,
+                                             device=dev), (V,))
+    run = None if run_h.all() else torch.as_tensor(run_h, device=dev)
+    i = 0
+    while i < max_iterations and run_h.any():
+        if i:
+            z = P(r)
+            new_rdr = vdot(z, r)
+            num = vdot(z, r - r_prev) if flexible else new_rdr
+            beta = torch.where(rdr != 0, num / rdr, 0.0).reshape(shape_v)
+            d = keep(run, z + beta * d, d)
+            rdr = keep(run, new_rdr, rdr)
+            q_prev = keep(run, q1, q_prev)
+        Ad = A(d)
+        dAd = vdot(d, Ad)
+        alpha = torch.where(dAd != 0, rdr / dAd, 0.0).reshape(shape_v)
+        x = keep(run, x + alpha * d, x)
+        r_prev = r
+        r = keep(run, r - alpha * Ad, r)
+        new_rr = vdot(r, r)
+        q1 = -vdot(x, b + r)
+        zeta = (i + 1) * (q1 - q_prev) / torch.where(q1 != 0, q1, 1.0)
+        i += 1
+        iters += run_h
+        stop = (new_rr < tol) | (zeta < q_tolerance)
+        run_h = run_h & ~stop.cpu().numpy()
+        if i < max_iterations and run_h.any() and not run_h.all():
+            run = ~stop if run is None else run & ~stop
+    return tcg.CGBatchResult(x=x, iterations=iters, residual=vdot(r, r))
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8).numpy()
+
+
+@pytest.mark.parametrize("flexible", [False, True])
+@pytest.mark.parametrize("precond", ["mg", "jacobi"])
+@pytest.mark.parametrize("views", [0, 4])
+def test_pcg_pass_matches_loop_before_graphs(monkeypatch, views, precond,
+                                             flexible):
+    """`cg._step`, run op by op as the CPU runs it (and a card runs pass 1
+    and every pass of a split system), gives the loop it replaced bit for
+    bit: x, the residual and each view's iterations. One system as
+    `cg.solve` takes it, and a batch of 4 whose views exit at different
+    passes, one of them not running."""
+    Hb, b, active = tsys.stencil_system(37, 49, views, seed=5)
+    kw = dict(precond=precond, flexible=flexible)
+    if views:
+        kw.update(tol_scale=[1.0, 1e-2, 1.0, 1e-4],
+                  running=np.array([True, True, False, True]))
+    got = tsys.solve(Hb, b, active, **kw)
+    monkeypatch.setattr(tcg, "solve_batch", _loop_before_graphs)
+    want = tsys.solve(Hb, b, active, **kw)
+    np.testing.assert_array_equal(got.iterations, want.iterations)
+    np.testing.assert_array_equal(_bits(got.x), _bits(want.x))
+    np.testing.assert_array_equal(_bits(got.residual), _bits(want.residual))
+    assert got.iterations.max() > 2
+    if views:  # the running views leave at different passes
+        assert got.iterations[2] == 0
+        assert len(set(got.iterations[[0, 1, 3]].tolist())) > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mg_weights_cached(dtype):
+    """The transfer and Galerkin weights are converted once per dtype and
+    device: a second call hands back the same tensors, of the numpy
+    constants' values."""
+    cpu = torch.device("cpu")
+    first = tmg._weights_4(dtype, cpu)
+    again = tmg._weights_4(dtype, cpu)
+    for got, same, want in zip(first, again, tmg._weights_4_np()):
+        for u in (-1, 0, 1):
+            assert same[u] is got[u] and got[u].dtype == dtype
+            np.testing.assert_array_equal(
+                got[u].numpy(), want[u].astype(got[u].numpy().dtype))
+    G = tmg._galerkin_weight(dtype, cpu)
+    assert tmg._galerkin_weight(dtype, cpu) is G and G.dtype == dtype
+    np.testing.assert_array_equal(
+        G.numpy(), tmg._galerkin_weight_np().astype(G.numpy().dtype))

@@ -13,7 +13,9 @@ under `torch.profiler`. Prints one JSON line with the untraced optimize
 seconds, then one per traced run: the optimize stage's seconds (host clock,
 traced, so slower than untraced), the device's busy seconds (the sum of
 its kernels' times over the whole traced call) and its idle share of the
-call's wall time, the kernel launches, the solver's host read-backs (`utils.timing.host_reads`), the
+call's wall time, the kernel launches, the solver's host read-backs
+(`utils.timing.host_reads`) and PCG passes by how they ran
+(`utils.timing.pcg_passes`), the
 optimizer's per-span seconds summed over groups (its `-d 1` report of
 the program's spans: `opt.viewset`, `opt.visibility`, `opt.newton_step`,
 `solver.pcg`, `opt.cleanup`, `opt.subdivide`, ... per scale)
@@ -41,7 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from smvs_tpu_torch import cli  # noqa: E402
 from smvs_tpu_torch.core import synthetic as syn  # noqa: E402
 from smvs_tpu_torch.device import set_cuda_precision  # noqa: E402
-from smvs_tpu_torch.utils.timing import host_reads  # noqa: E402
+from smvs_tpu_torch.utils.timing import host_reads, pcg_passes  # noqa: E402
 
 DIMS = (1440, 1280)
 N_VIEWS = 8
@@ -85,6 +87,7 @@ def untraced_runs(path: str, order=(4, 1, 1, 4, 4, 1)) -> dict:
 
 def profiled_run(path: str, batch_views: int) -> dict:
     host_reads.clear()
+    pcg_passes.clear()
     text = io.StringIO()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -106,7 +109,7 @@ def profiled_run(path: str, batch_views: int) -> dict:
         "device_busy_s": round(busy, 3),
         "idle_share": round(max(0.0, 1.0 - busy / wall), 4),
         "kernel_launches": len(kernels),
-        "host_reads": dict(host_reads),
+        "host_reads": dict(host_reads), "pcg_passes": dict(pcg_passes),
         "optimizer_stages_s": _stage_split(out),
         "groups": re.findall(r"Views \[.*", out),
         "top_device_ops": [(e.key, round(_self_device_us(e) / 1e6, 4),

@@ -49,7 +49,7 @@ import torch  # noqa: E402
 from benchmarks import drivers, run  # noqa: E402
 from smvs_tpu_torch.sgm import cuda_agg  # noqa: E402
 from smvs_tpu_torch.utils import timing  # noqa: E402
-from smvs_tpu_torch.utils.timing import host_reads  # noqa: E402
+from smvs_tpu_torch.utils.timing import host_reads, pcg_passes  # noqa: E402
 from tools import trace_spans as sp  # noqa: E402
 
 OPT = ("opt.view", "opt.batch")
@@ -163,6 +163,7 @@ def main(argv=None) -> int:
     result["span_ns"] = span_cost_ns()
 
     host_reads.clear()
+    pcg_passes.clear()
     out, red = sp.capture(lambda: drv.run(drv.requests[0], drivers.Spans()))
     views = len(out)
     table = red["spans"]
@@ -173,7 +174,7 @@ def main(argv=None) -> int:
         device_op_s=red["device_op_s"], attributed_s=red["attributed_s"],
         attributed_share=red["attributed_s"] / red["device_op_s"]
         if red["device_op_s"] else None,
-        host_reads=dict(host_reads),
+        host_reads=dict(host_reads), pcg_passes=dict(pcg_passes),
         host_reads_per_view=(host_reads["cg"] + host_reads["newton"])
         / views,
         opt_syncs_per_view=sp.per_span(table, OPT, "syncs") / views,
