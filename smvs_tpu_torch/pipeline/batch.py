@@ -181,7 +181,8 @@ def _run_batch(mains, subs_list, opts, sgm_depths, init_depths, log,
             sgm_zbs = [O.zbuffer_scatter(v, src)
                        for v, src in zip(views, fill_srcs)]
         if opts.use_shading and scale < 4:
-            with timing.stage("opt.lighting", sync, scale=scale):
+            with timing.stage("opt.lighting", sync, scale=scale,
+                              views=len(mains)):
                 shading = torch.stack([m.shading_images()[0].to(dtype)
                                        for m in mains])
                 lighting = fit_lighting(S.normal_map(bsurf, inv_flens),

@@ -984,7 +984,8 @@ def _optimize_view(main, subs, opts, sgm_depth, dev, log, init_depth,
         if opts.use_shading and surf.scale < 4:
             # Refit the lighting to this scale's (subdivided) surface; the
             # coarser scales run without the shading term.
-            with timing.stage("opt.lighting", sync, scale=surf.scale):
+            with timing.stage("opt.lighting", sync, scale=surf.scale,
+                              views=1):
                 shading_img, _ = main.shading_images()
                 nmap = S.normal_map(surf, 1.0 / main.flen())
                 lighting = fit_lighting(nmap,

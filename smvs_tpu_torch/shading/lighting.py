@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from smvs_tpu_torch.shading import sh
+from smvs_tpu_torch.utils.timing import host_reads
 
 
 def pinv(a: torch.Tensor) -> torch.Tensor:
@@ -37,9 +38,12 @@ def fit_lighting(normal_map: torch.Tensor, image: torch.Tensor
     image. Pixels with non-unit normals or intensity < 0.05 are excluded.
     The normal equations are summed in the inputs' dtype (float32 on the
     card, where the caller keeps TF32 off: `device.set_cuda_precision`).
-    With a leading view axis (normal_map [V, H, W, 3], image [V, H, W]),
-    one fit per view [V, 16], each view fitted alone: a batched SVD may
-    take another algorithm than a single one, and round otherwise.
+    On the card `torch.linalg.svd` checks its convergence on the host, so
+    each fit waits for the device: a read-back, counted in
+    ``host_reads["lighting"]``, one a view. With a leading view axis
+    (normal_map [V, H, W, 3], image [V, H, W]), one fit per view [V, 16],
+    each view fitted alone: a batched SVD may take another algorithm than
+    a single one, and round otherwise.
     """
     if normal_map.ndim == 4:
         return torch.stack([fit_lighting(n, i)
@@ -54,6 +58,8 @@ def fit_lighting(normal_map: torch.Tensor, image: torch.Tensor
     basis = torch.where(valid[..., None], basis, 0.0).reshape(-1, 16)
     b = basis.T @ torch.where(valid, image, 0.0).reshape(-1)
     A = basis.T @ basis
+    if A.is_cuda:
+        host_reads["lighting"] += 1
     return pinv(A) @ b
 
 

@@ -6,9 +6,9 @@ neighbor gradient against the main gradient, IRLS-L1 weighted) get
 closed-form value-space Jacobian columns; the normal-divergence
 regularizer's columns come from forward-mode AD (`torch.func.jvp`, the
 counterpart of JAX's `jax.linearize`); with a lighting, the SH shading term
-gets closed-form columns too. The per-pixel quadratic forms are contracted
-to per-patch 16x16 systems with two matrix products and scattered into the
-9-point stencil.
+gets closed-form columns too (the span ``opt.shading``). The per-pixel
+quadratic forms are contracted to per-patch 16x16 systems with two matrix
+products and scattered into the 9-point stencil.
 
 The autodiff oracle (`GNOptions(analytic=False)`) checks those closed
 forms independently: the residual vector of a patch is written as a plain
@@ -41,7 +41,7 @@ from smvs_tpu_torch.solver import stencil
 from smvs_tpu_torch.surface import bicubic
 from smvs_tpu_torch.surface.state import Surface, patch_params, unstack_surface
 from smvs_tpu_torch.utils.perview import rows_matmul, split_rows
-from smvs_tpu_torch.utils.timing import host_reads
+from smvs_tpu_torch.utils.timing import host_reads, span
 
 R_FACTOR = 1e-4  # IRLS-L1 floor, reference `lib/gauss_newton_step.cc:17`
 
@@ -563,9 +563,10 @@ def _assemble_flat(params, pix_u, pix_v, gm, vis_f, patch_ok, view: ViewSet,
             b[k] += wi * div[..., i] * jdiv[k][..., i]
 
     if shading:
-        _accumulate_shading(A, b, lighting, view, pix_u, pix_v, xc, yc,
-                            vals, div, jdiv, num_diffs, okw, opts, vidx,
-                            counts)
+        with span("opt.shading", views=1 if vidx is None else len(counts)):
+            _accumulate_shading(A, b, lighting, view, pix_u, pix_v, xc, yc,
+                                vals, div, jdiv, num_diffs, okw, opts, vidx,
+                                counts)
 
     # --- basis contraction: two matrix products ----------------------------
     A_packed = torch.stack([A[kl] for kl in _SYM_PAIRS], dim=-1)  # [B, P, 21]

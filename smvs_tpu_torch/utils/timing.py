@@ -23,8 +23,10 @@ per read, by site: "cg" (a PCG iteration's exit flags), "newton" (a
 Newton step's scalars), "assemble" (the assembly's active-patch
 compaction and per-view counts), "active" (a Newton loop's initial
 working-set sizes), "patches" (a scale's patch counts), "cut" (the
-boundary cut's compaction and deleted count) and "shifts" (a rectified
-cost volume's plane offsets); one read serves every view of a batch.
+boundary cut's compaction and deleted count), "shifts" (a rectified
+cost volume's plane offsets) and "lighting" (on a card, the SVD of a
+view's lighting fit, which checks its convergence on the host); one read
+serves every view of a batch, but "lighting" counts one a view.
 `host_reads.clear()` resets it. `pcg_passes` counts the PCG loop's passes
 by how they ran, "eager" (launched op by op) or "replayed" (from the
 solve's CUDA graph), and the graphs captured ("captures", one a solve
