@@ -7,7 +7,18 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. the card's name and power limit;
-2. build the SGM aggregation kernels from `smvs_tpu_torch/csrc/sgm_agg.cu`;
+2. build the SGM kernels (`cuda_agg.build`: the aggregation's
+   `smvs_tpu_torch/csrc/sgm_agg.cu` and the census and cost volume's
+   `sgm_cost.cu`, one library); `census_kernel` and `census_cost_kernel`
+   (`sgm.cuda_cost`) against `stereo`'s plain twins on the card, on the
+   first rectified pair of one request of the benchmark's `rect2mp.seq`
+   and `dtu49.seq` cells (their drivers' images, canvases and shifts, as
+   `_rectified_sgm` gets them; 2 + 2 launches a pair and no read of the
+   shifts in those requests): each image's census and both directions'
+   cost volumes into the rectified path's [2, H, Wn, D] volume, bit-equal
+   on the first run and on every timed repetition; CUDA-event medians
+   beside the plain path's time, the integer work and, for the pair, the
+   bytes bound and share that `sgm_cost_roofline` reads;
 3. kernel rows 1-2 against their plain PyTorch versions at the rectified
    path's shapes: `aggregate_batch` on a seeded [2, 1440, 1696, 128] int16
    volume (with the INVALID column band of the padded main problem; 2 + 2
@@ -225,7 +236,8 @@ at D = 2048, and
 `sgm_deep_kernel`, its one-path-per-launch fallback, timed on the
 per-path route there, with its row-5 times at D = 513 and 2048 and its
 per-path time at 513 beside their bounds, then as the last line
-`{"ok": true, "device": {...}}`. It imports nothing of JAX.
+`{"ok": true, "device": {...}}`. Phase 2's cost kernels are on a
+`{"cost": {...}}` line before the flagship's. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -252,6 +264,8 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from benchmarks import drivers as bench_drivers  # noqa: E402
+from benchmarks import run as bench_run  # noqa: E402
 from smvs_tpu_torch import bench as bench_driver  # noqa: E402
 from smvs_tpu_torch import bench_dtu, bench_main, bench_scene  # noqa: E402
 from smvs_tpu_torch import cli  # noqa: E402
@@ -268,7 +282,7 @@ from smvs_tpu_torch.mesh.ply import load_ply  # noqa: E402
 from smvs_tpu_torch.pipeline import batch as VB  # noqa: E402
 from smvs_tpu_torch.pipeline import optimizer as O  # noqa: E402
 from smvs_tpu_torch.pipeline.views import make_view  # noqa: E402
-from smvs_tpu_torch.sgm import cuda_agg  # noqa: E402
+from smvs_tpu_torch.sgm import cuda_agg, cuda_cost  # noqa: E402
 from smvs_tpu_torch.sgm import stereo  # noqa: E402
 from smvs_tpu_torch.sgm.stereo import INVALID_COST  # noqa: E402
 from smvs_tpu_torch.solver import gn  # noqa: E402
@@ -281,6 +295,11 @@ from smvs_tpu_torch.utils.timing import host_reads, pcg_passes  # noqa: E402
 # bound of this integer kernel is its bytes (PERF.md estimates the integer
 # work beside it).
 PEAK_BYTES_PER_S = 3.35e12
+
+# The benchmark cells whose first rectified pair phase 2 runs the census
+# and cost kernels on, and the seed their drivers render from.
+COST_CELLS = ("rect2mp.seq", "dtu49.seq")
+COST_SEED = 2300023
 
 SHAPE = (2, 1440, 1696, 128)  # both SGM directions at the main path's size
 MAIN_W = 1440  # the main problem's real width; the rest is INVALID padding
@@ -455,6 +474,7 @@ WIDE_TIMED_D = 256  # the 129-512 route's entry of the kernels line
 WIDE_GEN_SHAPE = (1440, 1440, 256)
 
 SOURCE = "smvs_tpu_torch/csrc/sgm_agg.cu"
+COST_SOURCE = "smvs_tpu_torch/csrc/sgm_cost.cu"
 # Each row's `pl.pallas_call` and the TPU kernel it runs.
 REPLACES = {
     "fused_pass": ("smvs_tpu/sgm/pallas_agg.py:288", "_fused_kernel"),
@@ -571,6 +591,130 @@ def phase_build() -> None:
     tile, _, resident = cuda_agg.sweep_geometry(torch.device("cuda", 0), 128)
     log(f"sgm_sweep3_kernel at D = 128: {tile} lines per block, {resident} "
         "blocks resident at once")
+
+
+@contextlib.contextmanager
+def cost_launches(label: str, inputs: list | None = None):
+    """Counts the rectified pairs (`stereo._rectified_sgm` calls) made while
+    open and `sgm.cuda_cost`'s launches, from 0. On leaving, logs them and
+    requires a pair or more, 2 `census_kernel` and 2 `census_cost_kernel`
+    launches a pair and no read of the shifts. The yielded dict receives
+    ``pairs``, ``launches`` and ``shift_reads``; ``inputs`` the first
+    pair's rectified images and shifts."""
+    fn, seen = stereo._rectified_sgm, {"pairs": 0}
+
+    def counted(main_r, nbr_r, hinv_nbr, H_main, L_main, fB, off, disp0,
+                dstep, shifts, *args, **kw):
+        seen["pairs"] += 1
+        if inputs is not None and not inputs:
+            inputs.extend(t.clone() for t in (main_r, nbr_r, shifts))
+        return fn(main_r, nbr_r, hinv_nbr, H_main, L_main, fB, off, disp0,
+                  dstep, shifts, *args, **kw)
+
+    stereo._rectified_sgm = counted
+    cuda_cost.reset_launches()
+    reads = host_reads["shifts"]
+    try:
+        yield seen
+    finally:
+        stereo._rectified_sgm = fn
+    seen["launches"] = dict(cuda_cost.launches)
+    seen["shift_reads"] = host_reads["shifts"] - reads
+    log(f"{label}: {seen['pairs']} rectified pairs, cost kernel launches "
+        f"{seen['launches']}, {seen['shift_reads']} reads of the shifts")
+    want = {k: 2 * seen["pairs"] for k in cuda_cost.KERNELS}
+    if not seen["pairs"] or seen["launches"] != want or seen["shift_reads"]:
+        raise RuntimeError(f"{label}: expected a pair or more, {want} and no "
+                           f"read of the shifts; got {seen}")
+
+
+def cell_pair(workload: str) -> tuple:
+    """(main_r, nbr_r, shifts) of the first rectified pair of one request
+    of the benchmark cell ``workload``, through its driver (render,
+    prepare, the first request), as `_rectified_sgm` got them."""
+    _, config, traffic = bench_run.find_cell(bench_run.load_benchmark(),
+                                             workload)
+    drv = bench_drivers.load(config["kind"])(config, traffic, COST_SEED,
+                                             torch.device("cuda"))
+    drv.render()
+    drv.prepare()
+    inputs = []
+    with cost_launches(f"{workload} request", inputs):
+        drv.run(drv.requests[0], bench_drivers.Spans())
+    torch.cuda.synchronize()
+    return tuple(inputs)
+
+
+def phase_cost() -> dict:
+    """`census_kernel` and `census_cost_kernel` against the plain twins on
+    the first rectified pair of each of ``COST_CELLS`` (phase 2);
+    bit-equal or raise."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for cell in COST_CELLS:
+        main, nbr, shifts = cell_pair(cell)
+        h, w = main.shape
+        wn, D = nbr.shape[1], shifts.shape[0]
+        res = {"shape": [h, w, wn, D],
+               "shifts": [float(shifts[0]), float(shifts[-1])]}
+        census = {}
+        for label, img in (("main", main), ("neighbor", nbr)):
+            want, plain_ms = once_ms(lambda: stereo.plain_census_transform(
+                img))
+            census[label] = want
+
+            def check(got, want=want, label=label):
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"census_kernel differs from plain on "
+                                       f"{cell}'s {label} image")
+
+            ms = cuda_ms(lambda: stereo.census_transform(img), check)
+            res[f"census_{label}"] = {"ms": ms, "plain_ms": plain_ms}
+        vol = torch.full((2, h, wn, D), INVALID_COST, dtype=torch.int16,
+                         device="cuda")
+        plain_vol = vol.clone()
+        dirs = ((0, census["main"], nbr, shifts, w),
+                (1, census["neighbor"], main, -shifts, wn))
+        for k, m, n, s, width in dirs:
+            _, plain_ms = once_ms(lambda: stereo.plain_disparity_cost(
+                m, n, s, out=plain_vol[k, :, :width]))
+
+            def check(got, k=k):
+                if not torch.equal(vol, plain_vol):
+                    raise RuntimeError(f"census_cost_kernel differs from "
+                                       f"plain on {cell}, direction {k}")
+
+            ms = cuda_ms(lambda: stereo._disparity_cost(
+                m, n, s, out=vol[k, :, :width]), check)
+            res[f"cost_{k}"] = {
+                "ms": ms, "plain_ms": plain_ms,
+                "int_ops_g": 2 * 63 * h * width * D / 1e9,
+                "plan": list(cuda_cost.cost_plan(h, width, n.shape[1], D,
+                                                 sms))}
+            log(f"census_cost_kernel {cell} direction {k} [{h}, {width}, "
+                f"{D}] against {n.shape[1]} columns, plan "
+                f"{res[f'cost_{k}']['plan']}: {ms:.3f} ms, plain "
+                f"{plain_ms:.1f} ms, {res[f'cost_{k}']['int_ops_g']:.1f} G "
+                "set and shift instructions, bit-equal on every run")
+        log(f"census_kernel {cell}: {res['census_main']['ms']:.3f} / "
+            f"{res['census_neighbor']['ms']:.3f} ms (plain "
+            f"{res['census_main']['plain_ms']:.1f} / "
+            f"{res['census_neighbor']['plain_ms']:.1f} ms), bit-equal")
+        res["pair_ms"] = sum(res[k]["ms"] for k in (
+            "census_main", "census_neighbor", "cost_0", "cost_1"))
+        # The pair's bytes as `sgm_cost_roofline` counts them: both
+        # directions' int16 volumes at the main view's pixels.
+        res["bound_ms"] = 2 * h * w * D * 2 / PEAK_BYTES_PER_S * 1e3
+        res["bound_by"] = "bytes"
+        res["roofline_pct"] = 100.0 * res["bound_ms"] / res["pair_ms"]
+        log(f"{cell} pair [{h}, {w} / {wn}, {D}], shifts "
+            f"{res['shifts'][0]:.4f} .. {res['shifts'][1]:.4f}: "
+            f"{res['pair_ms']:.3f} ms, bytes bound {res['bound_ms']:.4f} ms "
+            f"({res['roofline_pct']:.2f}%, as sgm_cost_roofline reads it)")
+        out[cell] = res
+        del vol, plain_vol, census, main, nbr, shifts
+    torch.cuda.empty_cache()
+    return out
 
 
 def _seeded(shape, seed: int, hi: int = 127):
@@ -843,9 +987,10 @@ def phase_main(details: dict) -> dict:
     bench_main.run_once(dim, 2, device="cuda")
     log(f"warm-up run_once({dim}, 2): {time.perf_counter() - t0:.1f} s")
     cuda_agg.reset_launches()
-    t_sgm, t_opt, cov, err = bench_main.run_once(dim, 2, device="cuda",
-                                                 verbose=True,
-                                                 details=details)
+    with cost_launches(f"run_once({dim}, 2)") as cost:
+        t_sgm, t_opt, cov, err = bench_main.run_once(dim, 2, device="cuda",
+                                                     verbose=True,
+                                                     details=details)
     launches = dict(cuda_agg.launches)
     mps = dim * dim / 1e6 / (t_sgm + t_opt)
     log(f"run_once({dim}, 2): sgm {t_sgm:.3f} s, optimizer {t_opt:.3f} s, "
@@ -857,7 +1002,7 @@ def phase_main(details: dict) -> dict:
         raise RuntimeError(f"coverage {cov:.4f} < 0.84")
     if not err <= 1e-4:
         raise RuntimeError(f"median_rel_err {err:.3e} > 1e-4")
-    return launches
+    return {**launches, "cost": cost}
 
 
 def phase_general(planes: int) -> dict:
@@ -948,8 +1093,10 @@ def run_cli(label: str, path: str, scene, flags: tuple, ply: str,
     n_views, dim = len(scene.cameras), scene.width
     out = io.StringIO()
     cuda_agg.reset_launches()
+    rectified = "fused_pass_batch" in rows
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with cost_launches(label) if rectified else contextlib.nullcontext() \
+            as cost, contextlib.redirect_stdout(out):
         rc = cli.main([path, *flags])
     seconds = time.perf_counter() - t0
     launches = dict(cuda_agg.launches)
@@ -988,8 +1135,8 @@ def run_cli(label: str, path: str, scene, flags: tuple, ply: str,
     return {"seconds": seconds, "stages": stages,
             "points": len(ps.vertices), "points_per_pixel": share,
             "faces": faces, "median_fused_rel_err": err,
-            "launches": launches, "kernel_launches": kernels, "text": text,
-            "colors": ps.colors}
+            "launches": launches, "kernel_launches": kernels,
+            "cost_launches": cost, "text": text, "colors": ps.colors}
 
 
 @contextlib.contextmanager
@@ -1020,7 +1167,7 @@ def phase_cli(label: str, cameras, min_share: float, max_err: float,
         syn.save_as_mve_scene(scene, path)
         res = run_cli(label, path, scene, flags, f"{name}.ply", rows,
                       min_share, max_err, embedding=name)
-    return res["launches"]
+    return {**res["launches"], "cost": res["cost_launches"]}
 
 
 def _summary(res: dict) -> dict:
@@ -1191,7 +1338,8 @@ def phase_cli_batch(captured: list) -> dict:
             host_reads.clear()
             pcg_passes.clear()
             torch.cuda.reset_peak_memory_stats()
-            with _captured_batches(captured if where == path else []):
+            with _captured_batches(captured if where == path else []), \
+                    cost_launches(f"cli {label}") as cost:
                 rc, text, seconds = _cli_quiet([where, *flags])
             launches = dict(cuda_agg.launches)
             reads = dict(host_reads)
@@ -1204,6 +1352,7 @@ def phase_cli_batch(captured: list) -> dict:
                 "seconds": seconds,
                 "stages": re.search(r"Stage seconds: (.*)", text).group(1),
                 "groups": _groups(text), "launches": launches,
+                "cost_launches": cost,
                 "host_reads": reads, "pcg_passes": passes,
                 "kernel_launches": dict(cuda_agg.kernel_launches),
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -1615,8 +1764,9 @@ def phase_shading(details: dict) -> dict:
     log(f"warm-up run_shading_once({dim}, 2): "
         f"{time.perf_counter() - t0:.1f} s")
     cuda_agg.reset_launches()
-    t_sgm, t_opt, cov, err = bench_main.run_shading_once(
-        dim, 2, device="cuda", details=details)
+    with cost_launches(f"run_shading_once({dim}, 2)") as cost:
+        t_sgm, t_opt, cov, err = bench_main.run_shading_once(
+            dim, 2, device="cuda", details=details)
     launches = dict(cuda_agg.launches)
     mps = dim * dim / 1e6 / (t_sgm + t_opt)
     light = details["result"].lighting
@@ -1647,7 +1797,8 @@ def phase_shading(details: dict) -> dict:
         f"{err_s:.3e}")
     return {"t_sgm": t_sgm, "t_opt": t_opt, "mps": mps, "coverage": cov,
             "median_rel_err": err, "launches": launches,
-            "lighting": light.tolist(), "assembly": assembly}
+            "cost_launches": cost, "lighting": light.tolist(),
+            "assembly": assembly}
 
 
 def _dist_step_rank(rank: int, world: int, dev: torch.device, paths: list,
@@ -2501,6 +2652,30 @@ def deep_kernel_entries(rows: dict) -> list:
     return entries
 
 
+def cost_kernel_entries(cost: dict, path: str, on_path: dict,
+                        other_paths: dict) -> list:
+    """The census and cost kernels' entries of the kernel table: times at
+    the `rect2mp.seq` pair (phase 2) and launches on ``path`` (with its
+    pairs), each with ``other_paths``' launches."""
+    rect = cost["rect2mp.seq"]
+    out = []
+    for name, timed, replaces, bound_ms in (
+            ("census_kernel", rect["census_main"],
+             "stereo.plain_census_transform", None),
+            ("census_cost_kernel", rect["cost_0"],
+             "stereo.plain_disparity_cost", rect["bound_ms"] / 2)):
+        out.append({
+            "name": name, "route": "cuda", "source": COST_SOURCE,
+            "replaces": replaces, "tpu_kernel": None,
+            "launches": on_path["launches"][name], "pairs": on_path["pairs"],
+            "path": path, "max_abs_err": 0, "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_ms else None, "library_ms": None,
+            "other_paths": {k: v["launches"][name]
+                            for k, v in other_paths.items()}})
+    return out
+
+
 def phase_pcg_graph() -> dict:
     """Phase 19: each of `solver.testing.GRAPH_CASES` solved on the graph
     path and op by op, in turns (`testing.check_case` raises on a
@@ -2533,6 +2708,7 @@ def main() -> int:
 
     device, card = phase_card()
     phase_build()
+    cost = phase_cost()
     lap("1-2 card, build")
     rows = phase_kernel_rectified()
     rows.update(phase_kernel_general())
@@ -2621,6 +2797,10 @@ def main() -> int:
     kernels[-1]["by_shape"] = row5_by_shape(rows)
     kernels.append(wide_kernel_entry(rows, general))
     kernels += deep_kernel_entries(rows)
+    kernels += cost_kernel_entries(cost, main_path, main_launches["cost"], {
+        flagship: shading["cost_launches"],
+        "CLI -S on 4 x 1280^2": shading_cli["cost"]})
+    print(json.dumps({"cost": cost}), flush=True)
     print(json.dumps({"flagship": shading}), flush=True)
     print(json.dumps({"cli_color": color_cli, "cli_mesh": mesh_cli,
                       "cli_batch": batch_cli}), flush=True)

@@ -80,6 +80,9 @@ BIG = 1 << 24
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "sgm_agg.cu")
+# The library's sources: these kernels and the census and cost volume's
+# (`csrc/sgm_cost.cu`, bound by `sgm.cuda_cost`).
+SOURCES = (SOURCE, os.path.join(_PKG_DIR, "csrc", "sgm_cost.cu"))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 # The TPU kernels of `pallas_agg.py` by the entry point that replaces each
@@ -164,26 +167,27 @@ def reset_launches() -> None:
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found; the SGM kernel is built from "
-                           f"{SOURCE} on a machine with the CUDA toolkit")
+        raise RuntimeError("nvcc not found; the SGM kernels are built from "
+                           f"{SOURCES} on a machine with the CUDA toolkit")
     return path
 
 
 def library_path(defines: tuple = ()) -> str:
-    """Where the built kernels live, keyed by the source's content and the
+    """Where the built kernels live, keyed by the sources' content and the
     preprocessor ``defines`` (``"NAME=value"``) they were built with."""
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for source in SOURCES:
+        with open(source, "rb") as f:
+            h.update(f.read())
     for d in defines:
         h.update(b"\0" + d.encode())
-    return os.path.join(BUILD_DIR, f"libsgm_agg_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libsgm_{h.hexdigest()[:16]}.so")
 
 
 def build(verbose: bool = False, defines: tuple = (),
           report: list | None = None) -> str:
-    """Compile `csrc/sgm_agg.cu` for sm_90a with nvcc (once per source
-    version and ``defines``) and return the library path. ``verbose``
+    """Compile ``SOURCES`` into one library for sm_90a with nvcc (once per
+    source version and ``defines``) and return its path. ``verbose``
     prints nvcc's register and spill report; a ``report`` list receives it
     instead."""
     out = library_path(defines)
@@ -193,7 +197,7 @@ def build(verbose: bool = False, defines: tuple = (),
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *SOURCES]
     cmd[1:1] = [f"-D{d}" for d in defines]
     if verbose or report is not None:
         cmd[1:1] = ["-Xptxas", "-v"]

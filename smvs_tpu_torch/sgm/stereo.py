@@ -16,8 +16,11 @@
 - `reconstruct_auto` picks between the two, and `reconstruct_auto_multi`
   averages the depth maps of several neighbors.
 
-Cost volumes are built plane group by plane group into int16; the 8-path
-aggregation runs the CUDA kernel on the card and its plain twin on the CPU.
+On the card the census and the rectified sweep's cost volume are the
+kernels of `cuda_cost` (`census_kernel`, and `census_cost_kernel` a
+direction), and the 8-path aggregation those of `cuda_agg`; on the CPU
+their plain twins run: cost volumes plane group by plane group into int16,
+the aggregation's plain sweep.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from smvs_tpu_torch.device import resolve_device
 from smvs_tpu_torch.image import ops as iops
-from smvs_tpu_torch.sgm import cuda_agg
+from smvs_tpu_torch.sgm import cuda_agg, cuda_cost
 from smvs_tpu_torch.sgm import rectify as R
 from smvs_tpu_torch.utils.timing import host_reads, span
 
@@ -69,8 +72,18 @@ def census_transform(img: torch.Tensor) -> torch.Tensor:
     Bit order follows reference :126-148 (x-major over the window, first
     comparison in the most significant of the 63 bits), so the word equals
     the JAX package's ``(hi << 32) | lo``. Pixels with value 0 and the
-    border band get 0.
+    border band get 0. On a CUDA tensor one `census_kernel` launch
+    (`cuda_cost.census_transform`, float32), else
+    `plain_census_transform`.
     """
+    if img.is_cuda:
+        return cuda_cost.census_transform(img)
+    return plain_census_transform(img)
+
+
+def plain_census_transform(img: torch.Tensor) -> torch.Tensor:
+    """`census_transform` in plain PyTorch: 63 int64 shift, or and compare
+    passes."""
     h, w = img.shape[-2:]
     pad = torch.nn.functional.pad(img, (4, 4, 3, 3))
     word = torch.zeros(img.shape, dtype=torch.int64, device=img.device)
@@ -121,8 +134,20 @@ def _disparity_cost(m_census: torch.Tensor, nbr_img: torch.Tensor,
     unwarpable positions get INVALID_COST. The slice start is clipped to
     ``[1, P + wn]`` exactly as the JAX version clips it, so its
     ``dynamic_slice`` clamp never fires. ``out`` may be a [H, W, D] int16
-    view to fill in place.
+    view to fill in place. On a CUDA tensor one `census_cost_kernel`
+    launch (`cuda_cost.disparity_cost`), which reads the shifts on the
+    card, else `plain_disparity_cost`.
     """
+    if nbr_img.is_cuda:
+        return cuda_cost.disparity_cost(m_census, nbr_img, shifts, out)
+    return plain_disparity_cost(m_census, nbr_img, shifts, out)
+
+
+def plain_disparity_cost(m_census: torch.Tensor, nbr_img: torch.Tensor,
+                         shifts: torch.Tensor,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """`_disparity_cost` in plain PyTorch, ``_PLANE_CHUNK`` planes at a
+    time, with one read of the plane offsets to the host."""
     h, w = m_census.shape
     wn = nbr_img.shape[1]
     D = shifts.shape[0]
@@ -141,7 +166,7 @@ def _disparity_cost(m_census: torch.Tensor, nbr_img: torch.Tensor,
         a = frac[c0:c1, None, None]
         warped = torch.where((t0 != 0) & (t1 != 0),
                              iops.fma(1 - a, t0, a * t1), 0.0)
-        cost = _hamming(m_census, census_transform(warped))
+        cost = _hamming(m_census, plain_census_transform(warped))
         cost = torch.where(warped != 0, cost, INVALID_COST)
         out[..., c0:c1] = cost.permute(1, 2, 0).to(torch.int16)
     return out
